@@ -4,25 +4,36 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA. Phases, each printing one line:
+PyTorch built for CUDA. Phases, each printing one or more lines:
 
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile csrc/fused_matcher.cu from the checkout (nvcc, sm_90a);
+2. build: compile every csrc/*.cu from the checkout (one nvcc per source,
+   all at once, sm_90a);
 3. kernel: the fused mutual-NN matcher kernel against its plain PyTorch
    version on the card, at the two-view shape of the slice (P=96 pairs,
    K=1024, D=128), plus an all-masked pair and a K=1000 pair; both timed
    (median of 20 runs, CUDA events);
-4. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
+4. attention: the fused attention kernel through all four entries against
+   their plain versions: LightGlue's shape (P=96 pairs, K=2048, 4 heads of
+   64, masked keys), a fully masked key set, K=1000, K=384 and K0 != K1;
+   each entry timed at LightGlue's shape (median of 20 runs, CUDA events);
+5. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
    slot with synthetic keypoints and descriptors (the descriptor feed
    below), on `cuda`; 32/32 cameras registered and pose AUC@5 >= 0.978
-   required, and the matcher kernel must have launched during the run.
+   required, and the matcher kernel must have launched during the run;
+6. lightglue: the same ring through SceneOptimizer.run with the LightGlue
+   matcher at full width (dim 256, 9 layers, 4 heads, bf16) on the glue
+   fixture below, K=2048 keypoints with D=256 descriptors; 32/32
+   registered, AUC@5 >= 0.978 and attention launches during the run
+   required, and the matches through the kernel must agree with a forward
+   through the plain attention on every decisive row.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 There is no CPU mode: without a CUDA device the script stops.
 
-The descriptor feed is defined here once, with numpy only; the CPU tests
-import it from this file.
+The descriptor feed and the glue fixture are defined here once, with numpy
+only; the CPU tests import them from this file.
 """
 
 from __future__ import annotations
@@ -42,6 +53,26 @@ DESC_DIM = 128
 AUC5_BAR = 0.978  # the 32-camera gate's bar (tests/scene/test_accuracy_gate_32.py)
 KERNEL_TOL_BEST = 1e-5  # |best| agreement; sums of exact bf16 products, f32 order only
 KERNEL_GAP = 1e-4  # idx/ok must agree where best and second differ by more
+# attention kernel vs plain version, both bf16 out: |got - want| <=
+# ATTN_TOL_V * max|v| + ATTN_TOL_OUT * |want|. Two bf16 roundings differ:
+# the probabilities (the kernel rounds exp(s - running max) and divides by
+# the float32 sum at the end, the plain version rounds the normalized
+# softmax; each is within 2^-9 of exact, so the outputs differ by at most
+# 2^-8 * sum p|v| <= 2^-8 max|v|) and the outputs (each rounded to bf16, at
+# most one ulp, 2^-7 relative, apart).
+ATTN_TOL_V = 2.0**-8
+ATTN_TOL_OUT = 2.0**-7
+
+GLUE_KEYPOINTS = 2048  # max_keypoints of gtsfm_tpu/configs/deep_front_end.yaml
+GLUE_DESC_DIM = 256  # SuperPoint's descriptor width, LightGlue's input_dim
+GLUE_SIGMA = 0.05 * (DESC_DIM / GLUE_DESC_DIM) ** 0.5  # the feed's noise norm at D=128
+# matches through the kernel and through the plain attention must agree on
+# every row whose log-assignment top-2 margin (row and matched column) and
+# distance to the match threshold exceed this: bf16 forwards that round
+# attention at different places drift apart (0.33 max after two layers,
+# port against reference on the CPU; 0.76 max after nine layers at K=2048,
+# kernel against plain on an H100)
+GLUE_GAP = 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +138,59 @@ def descriptor_feed(
     return uv.astype(np.float32), kp_mask, descs.astype(np.float32)
 
 
+def glue_fixture(seed: int = 0, dim: int = 256, num_layers: int = 9, num_heads: int = 4,
+                 input_dim: int = 256) -> dict:
+    """A LightGlue state_dict in the official layout (numpy float32) that
+    matches the descriptor feed: a test input, not a trained model.
+
+    Every linear weight and bias is drawn as PyTorch's default nn.Linear
+    init draws them (uniform +-1/sqrt(fan_in)) and posenc.Wr from N(0, 1),
+    except: input_proj = alpha * I with alpha^2 = 200 (a descriptor's
+    projection dominates the random residual updates), the last
+    log_assignment head's final_proj = I (the assignment scores the
+    transformed descriptors' similarity), its matchability weight 0 and
+    bias +8 (every keypoint matchable), and LayerNorms at weight 1, bias 0.
+    The attention still moves the assignment: the 9 random layers sit in
+    the residual stream between the projection and the head."""
+    rng = np.random.default_rng(seed)
+    head_dim = dim // num_heads
+    sd = {}
+
+    def linear(key, fan_in, fan_out, bias=True):
+        b = 1.0 / np.sqrt(fan_in)
+        sd[f"{key}.weight"] = rng.uniform(-b, b, (fan_out, fan_in)).astype(np.float32)
+        if bias:
+            sd[f"{key}.bias"] = rng.uniform(-b, b, fan_out).astype(np.float32)
+
+    def ffn(key):
+        linear(f"{key}.0", 2 * dim, 2 * dim)
+        sd[f"{key}.1.weight"] = np.ones(2 * dim, np.float32)
+        sd[f"{key}.1.bias"] = np.zeros(2 * dim, np.float32)
+        linear(f"{key}.3", 2 * dim, dim)
+
+    sd["input_proj.weight"] = (np.sqrt(200.0) * np.eye(dim, input_dim)).astype(np.float32)
+    sd["input_proj.bias"] = np.zeros(dim, np.float32)
+    sd["posenc.Wr.weight"] = rng.normal(size=(head_dim // 2, 2)).astype(np.float32)
+    for i in range(num_layers):
+        sa, ca = f"transformers.{i}.self_attn", f"transformers.{i}.cross_attn"
+        linear(f"{sa}.Wqkv", dim, 3 * dim)
+        linear(f"{sa}.out_proj", dim, dim)
+        ffn(f"{sa}.ffn")
+        for name in ("to_qk", "to_v", "to_out"):
+            linear(f"{ca}.{name}", dim, dim)
+        ffn(f"{ca}.ffn")
+        la = f"log_assignment.{i}"
+        if i < num_layers - 1:
+            linear(f"{la}.matchability", dim, 1)
+            linear(f"{la}.final_proj", dim, dim)
+        else:
+            sd[f"{la}.matchability.weight"] = np.zeros((1, dim), np.float32)
+            sd[f"{la}.matchability.bias"] = np.full(1, 8.0, np.float32)
+            sd[f"{la}.final_proj.weight"] = np.eye(dim, dtype=np.float32)
+            sd[f"{la}.final_proj.bias"] = np.zeros(dim, np.float32)
+    return sd
+
+
 class FeedDetector:
     """Detector-slot stub (detect_batch(images) -> (kp_xy, kp_mask, descs))
     handing out the feed's per-image arrays in call order."""
@@ -151,12 +235,14 @@ def phase_device():
 
 
 def phase_build():
-    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    log = fused_matcher.build_library(verbose=True)
-    regs = " ".join(line.strip() for line in log.splitlines() if "registers" in line or "smem" in line)
-    print(f"build: fused_matcher.cu in {time.perf_counter() - t0:.2f}s | {regs}", flush=True)
+    logs = cuda_build.build(verbose=True)
+    print(f"build: {', '.join(f'{n}.cu' for n in logs)} in {time.perf_counter() - t0:.2f}s", flush=True)
+    for name, log in logs.items():
+        regs = " ".join(line.strip() for line in log.splitlines() if "registers" in line)
+        print(f"build {name}.cu: {regs}", flush=True)
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -252,10 +338,115 @@ def phase_kernel(kp_mask, descs, pairs):
     return worst, ms
 
 
-def phase_slice(kp_xy, kp_mask, descs, pairs, R, t):
+def attention_agrees(got, want, v):
+    """Hold the attention kernel's output against the plain version's on
+    the same inputs: every element within ATTN_TOL_V * max|v| +
+    ATTN_TOL_OUT * |want|. Returns (max abs error, worst error over its
+    bound, finite); the kernel agrees when the ratio is <= 1 and every
+    value is finite."""
     import torch
 
-    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = ATTN_TOL_V * v.float().abs().max() + ATTN_TOL_OUT * w.abs()
+    return float(err.max()), float((err / bound).max()), bool(torch.isfinite(g).all())
+
+
+def attention_entries(q0, q1, v0, v1, m0, m1, heads):
+    """The four entries of fused_attention on one image pair batch, each as
+    (name, kernel call, plain call, v the output weighs, output index):
+    self attention of image 0 over image 1's keys (split and merged
+    layouts), and both directions of cross attention (split and merged)."""
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
+
+    sp = [fa.split_heads(x, heads) for x in (q0, q1, v0, v1)]
+    return [
+        ("fused_attention", lambda: [fa.fused_attention(sp[0], sp[1], sp[3], m1)],
+         lambda: [fa.attend(sp[0], sp[1], sp[3], m1)], [v1]),
+        ("fused_attention_merged", lambda: [fa.fused_attention_merged(q0, q1, v1, heads, m1)],
+         lambda: [fa.attend_merged(q0, q1, v1, heads, m1)], [v1]),
+        ("fused_cross_attention", lambda: list(fa.fused_cross_attention(*sp, m0, m1)),
+         lambda: list(fa.cross_attend(*sp, m0, m1)), [v1, v0]),
+        ("fused_cross_attention_merged",
+         lambda: list(fa.fused_cross_attention_merged(q0, q1, v0, v1, heads, m0, m1)),
+         lambda: list(fa.cross_attend_merged(q0, q1, v0, v1, heads, m0, m1)), [v1, v0]),
+    ]
+
+
+def phase_attention(seed: int = 0):
+    """All four attention entries against their plain versions, then each
+    timed at LightGlue's shape. Returns (worst max abs error, {entry:
+    {"kernel": ms, "plain": ms}})."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    heads, dh = 4, 64
+
+    def make(P, K0, K1, masked=0.2):
+        """q/k and v of both images, bf16 (P, K, heads*dh); key masks."""
+        def x(K):
+            return torch.as_tensor(rng.normal(size=(P, K, heads * dh)).astype(np.float32),
+                                   device=dev).to(torch.bfloat16)
+
+        m0 = torch.as_tensor(rng.random((P, K0)) >= masked, device=dev)
+        m1 = torch.as_tensor(rng.random((P, K1)) >= masked, device=dev)
+        return x(K0), x(K1), x(K0), x(K1), m0, m1
+
+    cases = {
+        "P96_K2048": make(96, GLUE_KEYPOINTS, GLUE_KEYPOINTS),
+        "all_masked": make(2, 256, 256, masked=1.0),
+        "K1000": make(4, 1000, 1000),
+        "K384": make(4, 384, 384),
+        "K0_1000_K1_384": make(4, 1000, 384),
+    }
+    worst = 0.0
+    with precise():
+        for name, (q0, q1, v0, v1, m0, m1) in cases.items():
+            for entry, kern, plain, vs in attention_entries(q0, q1, v0, v1, m0, m1, heads):
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                res = [attention_agrees(g, w, v) for g, w, v in zip(got, want, vs)]
+                err = max(r[0] for r in res)
+                ratio = max(r[1] for r in res)
+                if ratio > 1.0 or not all(r[2] for r in res):
+                    raise AssertionError(f"attention kernel disagrees on {name} / {entry}: max abs err "
+                                         f"{err:.4g}, {ratio:.3f} of the tolerance, finite {[r[2] for r in res]}")
+                if name == "all_masked":  # the -1e9 fill gives the mean of v, not NaN
+                    o = got[0] if got[0].dim() == 3 else fa.merge_heads(got[0])
+                    mean_v = v1.float().mean(dim=1, keepdim=True).expand(o.shape)
+                    if attention_agrees(o, mean_v, v1)[1] > 1.0:
+                        raise AssertionError(f"{entry}: a fully masked key set did not give the mean of v")
+                worst = max(worst, err)
+                print(f"attention check {name} {entry}: max abs err {err:.4g} "
+                      f"({ratio:.3f} of the tolerance)", flush=True)
+
+        q0, q1, v0, v1, m0, m1 = cases["P96_K2048"]
+        ms = {}
+        for entry, kern, plain, _vs in attention_entries(q0, q1, v0, v1, m0, m1, heads):
+            runs = [(which, _median_ms(kern if which == "kernel" else plain))
+                    for which in ("plain", "kernel", "kernel", "plain")]
+            ms[entry] = {w: float(np.median([t for k, t in runs if k == w])) for w in ("kernel", "plain")}
+            print(f"attention timing P96_K2048 {entry} (median of 20, CUDA events): kernel "
+                  f"{ms[entry]['kernel']:.4f} ms, plain {ms[entry]['plain']:.4f} ms | runs {runs}", flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    return worst, ms
+
+
+def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None):
+    """SceneOptimizer.run on the 32-camera ring on `cuda`, fed through the
+    detector slot, with every kernel's launch count set to 0 just before
+    the run and read just after. Requires 32/32 registered, pose AUC@5 >=
+    AUC5_BAR and finite output. Returns ({"matcher": n, "attention": n},
+    stage seconds)."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
     from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
     from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader
     from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
@@ -272,34 +463,128 @@ def phase_slice(kp_xy, kp_mask, descs, pairs, R, t):
         SceneOptimizerOptions(),
         retriever=FixedPairs(pairs),
         detector=FeedDetector(kp_xy, kp_mask, descs),
+        matcher=matcher,
     )
     fused_matcher.launch_count = 0
+    fused_attention.launch_count = 0
     torch.cuda.synchronize()
     data, groups = so.run(loader)
     torch.cuda.synchronize()
-    launches = fused_matcher.launch_count
+    launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count}
 
     metrics = {g.name: {m.name: m for m in g.metrics} for g in groups}
     registered = data.number_images()
     auc5 = metrics["ba_pose_metrics"]["pose_auc_@5.0_deg"].scalar
     pts = data.points[data.track_mask]
     if not bool(torch.isfinite(pts).all()) or not bool(torch.isfinite(data.poses.R).all()):
-        raise AssertionError("non-finite poses or points")
+        raise AssertionError(f"{name}: non-finite poses or points")
     sec = {
         "two_view_sec": metrics["frontend_summary"]["two_view_sec"].scalar,
         "backend_sec": metrics["multiview_optimizer_metrics"]["backend_sec"].scalar,
         "total_runtime_sec": metrics["total_summary"]["total_runtime_sec"].scalar,
     }
-    print(f"slice: {registered}/{n} registered, pose AUC@5 {auc5:.4f} (bar {AUC5_BAR}), "
-          f"{data.number_tracks()} tracks, {launches} matcher launches | "
+    matches = metrics["frontend_summary"]["num_matches_per_pair"].dist
+    print(f"{name}: {registered}/{n} registered, pose AUC@5 {auc5:.4f} (bar {AUC5_BAR}), "
+          f"{data.number_tracks()} tracks, matches per pair median {float(np.median(matches)):.0f} "
+          f"min {int(np.min(matches))}, launches {launches} | "
           + " ".join(f"{k} {v:.3f}" for k, v in sec.items()), flush=True)
     if registered != n:
-        raise AssertionError(f"registered {registered}/{n} cameras")
+        raise AssertionError(f"{name}: registered {registered}/{n} cameras")
     if auc5 < AUC5_BAR:
-        raise AssertionError(f"pose AUC@5 {auc5:.4f} < {AUC5_BAR}")
-    if launches <= 0:
+        raise AssertionError(f"{name}: pose AUC@5 {auc5:.4f} < {AUC5_BAR}")
+    return launches, sec
+
+
+def phase_slice(kp_xy, kp_mask, descs, pairs, R, t):
+    launches, _sec = _ring_slice("slice", kp_xy, kp_mask, descs, pairs, R, t)
+    if launches["matcher"] <= 0:
         raise AssertionError("the slice never launched the matcher kernel")
-    return launches
+    return launches["matcher"]
+
+
+def glue_decisive(z, mask0, mask1, threshold: float):
+    """Rows of a log-assignment z (P, K0+1, K1+1) whose match cannot change
+    under a perturbation of z below GLUE_GAP/2: the row's top-2 margin, the
+    top-2 margin of the column it picks, and the distance of its best score
+    from log(threshold) all exceed GLUE_GAP."""
+    import torch
+
+    zi = torch.where(mask0[:, :, None] & mask1[:, None, :], z[:, :-1, :-1], -1e9)
+    row = torch.topk(zi, 2, dim=2).values
+    col = torch.topk(zi, 2, dim=1).values
+    pick = torch.argmax(zi, dim=2)
+    col_margin = torch.gather(col[:, 0] - col[:, 1], 1, pick)
+    return (mask0 & (row[..., 0] - row[..., 1] > GLUE_GAP) & (col_margin > GLUE_GAP)
+            & ((row[..., 0] - float(np.log(threshold))).abs() > GLUE_GAP))
+
+
+def _plain_attention(fa):
+    """Swap fused_attention's four entries for their plain versions; returns
+    the function that swaps them back."""
+    saved = {n: getattr(fa, n) for n in ("fused_attention", "fused_attention_merged",
+                                         "fused_cross_attention", "fused_cross_attention_merged")}
+    fa.fused_attention, fa.fused_attention_merged = fa.attend, fa.attend_merged
+    fa.fused_cross_attention, fa.fused_cross_attention_merged = fa.cross_attend, fa.cross_attend_merged
+
+    def restore():
+        for k, v in saved.items():
+            setattr(fa, k, v)
+
+    return restore
+
+
+def phase_lightglue(pairs, R, t):
+    """The ring through SceneOptimizer.run with the LightGlue matcher at
+    full width on the glue fixture, then the slice's matcher input through
+    the kernel and through the plain attention (swapped in here), timed on
+    the host clock (plain, kernel, kernel, plain). Returns (attention
+    launches during the run, stage seconds, forward seconds)."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
+    from gtsfm_tpu_torch.frontend.matchers.lightglue import LightGlueMatcher, LightGlueOptions
+
+    kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, GLUE_KEYPOINTS, dim=GLUE_DESC_DIM,
+                                            desc_sigma=GLUE_SIGMA)
+    matcher = LightGlueMatcher(LightGlueOptions(), state_dict=glue_fixture(0))
+    launches, sec = _ring_slice("lightglue", kp_xy, kp_mask, descs, pairs, R, t, matcher=matcher)
+    if launches["attention"] <= 0:
+        raise AssertionError("the LightGlue slice never launched the attention kernel")
+    if launches["matcher"] != 0:
+        raise AssertionError("the LightGlue slice launched the mutual-NN kernel")
+
+    dev = torch.device("cuda")
+    i1 = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=dev)
+    i2 = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
+    d, xy, m = (torch.as_tensor(a, device=dev) for a in (descs, kp_xy, kp_mask))
+    args = (d[i1], d[i2], xy[i1], xy[i2], m[i1], m[i2], (IMAGE_HW[1], IMAGE_HW[0]))
+    z, fwd_sec = {}, {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        restore = _plain_attention(fa) if which == "plain" else (lambda: None)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z[which] = matcher.log_assignment(*args)
+            torch.cuda.synchronize()
+            fwd_sec[which].append(time.perf_counter() - t0)
+        finally:
+            restore()
+    m0, m1 = args[4], args[5]
+    idx = {w: matcher._postprocess(z[w], m0, m1)[0] for w in z}
+    decisive = glue_decisive(z["plain"], m0, m1, matcher.options.match_threshold)
+    bad = int((decisive & (idx["kernel"] != idx["plain"])).sum())
+    valid = torch.nn.functional.pad(m0, (0, 1), value=True)[:, :, None] & \
+        torch.nn.functional.pad(m1, (0, 1), value=True)[:, None, :]
+    zerr = float(torch.where(valid, (z["kernel"] - z["plain"]).abs(), 0.0).max())
+    n_match = int((idx["kernel"] >= 0).sum())
+    print(f"lightglue check: log-assignment max |kernel - plain| {zerr:.4g}; {int(decisive.sum())} "
+          f"decisive rows (gap {GLUE_GAP}), {bad} differ; {n_match} matches through the kernel, "
+          f"{int((idx['plain'] >= 0).sum())} through the plain attention | forward s (96 pairs, host "
+          f"clock) kernel {fwd_sec['kernel']}, plain {fwd_sec['plain']}", flush=True)
+    if bad or int(decisive.sum()) == 0:
+        raise AssertionError(f"LightGlue matches through the kernel differ from the plain attention's "
+                             f"on {bad} of {int(decisive.sum())} decisive rows")
+    return launches["attention"], sec, {w: float(np.median(v)) for w, v in fwd_sec.items()}
 
 
 def main() -> int:
@@ -316,7 +601,9 @@ def main() -> int:
     kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, NUM_KEYPOINTS)
 
     err, ms = phase_kernel(kp_mask, descs, pairs)
+    attn_err, attn_ms = phase_attention()
     launches = phase_slice(kp_xy, kp_mask, descs, pairs, R, t)
+    attn_launches, _sec, _fwd = phase_lightglue(pairs, R, t)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -328,6 +615,17 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
+    }, {
+        "name": "fused_attention",
+        "route": "cuda",
+        "source": "gtsfm_tpu_torch/csrc/fused_attention.cu",
+        "replaces": "gtsfm_tpu/frontend/matchers/pallas_attention.py:127",
+        "also_replaces": ["gtsfm_tpu/frontend/matchers/pallas_attention.py:99",
+                          "gtsfm_tpu/frontend/matchers/pallas_attention.py:29"],
+        "launches": attn_launches,
+        "max_abs_err": attn_err,
+        "ms": attn_ms["fused_attention_merged"]["kernel"],
+        "plain_ms": attn_ms["fused_attention_merged"]["plain"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -20,27 +20,20 @@ first design multiplies bf16 values with float32 FMAs on the CUDA cores,
 not the tensor cores (wgmma/TMA come later), so its floor is the float32
 FMA rate, not the bf16 tensor-core rate.
 
-The library is compiled from the repository's source at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into build/torch_kernels/ and
-bound through ctypes; the launch runs on PyTorch's current stream.
+The library is compiled from the repository's source at first use
+(utils/cuda_build.py: nvcc, sm_90a, into build/torch_kernels/) and bound
+through ctypes; the launch runs on PyTorch's current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+from gtsfm_tpu_torch.utils import cuda_build
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_matcher.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libfused_matcher.so")
 TILE = 64
 MAX_D = 832  # shared memory: 2 * 64 * (D + 2) bf16 + the 64x65 float tile <= 227 KB
 
@@ -48,56 +41,10 @@ MAX_D = 832  # shared memory: 2 * 64 * (D + 2) bf16 + the 64x65 float tile <= 22
 # CPU path)
 launch_count = 0
 
-_lib = None
-_lib_lock = threading.Lock()
 
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the fused matcher kernel cannot be built")
-
-
-def build_library(verbose: bool = False) -> str:
-    """Compile csrc/fused_matcher.cu into build/torch_kernels/ unless an
-    up-to-date library is there. Returns the compiler's output (register
-    and shared-memory use with ``verbose``)."""
-    if (
-        os.path.exists(LIBRARY)
-        and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)
-        and not verbose
-    ):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIBRARY + f".{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE,
-    ]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return res.stdout + res.stderr
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            build_library()
-            lib = ctypes.CDLL(LIBRARY)
-            fn = lib.gtsfm_fused_matcher
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+def _kernel():
+    return cuda_build.function("fused_matcher", "gtsfm_fused_matcher",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
 
 
 def _check(desc1, desc2, mask1, mask2):
@@ -153,10 +100,10 @@ def fused_match_descriptors(
     bidx = torch.empty((P, K1), dtype=torch.int32, device=dev)
     colbest = torch.empty((P, n_rt, K2), dtype=torch.float32, device=dev)
     colidx = torch.empty((P, n_rt, K2), dtype=torch.int32, device=dev)
-    lib = _library()
+    kernel = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gtsfm_fused_matcher(
+        rc = kernel(
             d1.data_ptr(), d2.data_ptr(), m1.data_ptr(), m2.data_ptr(),
             P, K1, K2, D,
             best.data_ptr(), second.data_ptr(), bidx.data_ptr(),

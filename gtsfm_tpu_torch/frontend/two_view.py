@@ -1,12 +1,15 @@
-"""Two-view estimation batched over pairs: fused mutual-NN matching,
-essential RANSAC, the 2-view Gauss-Newton polish and the inlier-support
-filter.
+"""Two-view estimation batched over pairs: fused mutual-NN matching (or
+precomputed matches), essential RANSAC, the 2-view Gauss-Newton polish and
+the inlier-support filter.
 
 Port of gtsfm_tpu/frontend/two_view.py (``run_two_view_batch`` with the
-default options). The pair axis is explicit instead of vmapped. Matching
-goes through ``fused_match_descriptors``: on a CUDA tensor that is always
-the hand-written kernel (the reference's ``use_pallas_matcher`` switch is
-not carried over), on a CPU tensor its plain version.
+default options). The pair axis is explicit instead of vmapped. Without
+precomputed matches, matching goes through ``fused_match_descriptors``: on
+a CUDA tensor that is always the hand-written kernel (the reference's
+``use_pallas_matcher`` switch is not carried over), on a CPU tensor its
+plain version. A learned matcher (LightGlue) hands its matches in through
+``match_idx`` / ``match_mask`` / ``match_score``, and the mutual-NN kernel
+is skipped.
 
 ``pair_ids`` keeps the reference's contract: each pair's random stream is
 keyed by its global pair index, so results do not depend on how a scene's
@@ -71,15 +74,25 @@ def run_two_view_batch(
     opts: TwoViewOptions = TwoViewOptions(),
     pair_ids: torch.Tensor | None = None,  # (P,) global pair indices
     sample_idx: torch.Tensor | None = None,  # (P, H, 8) replayed RANSAC draws
+    match_idx: torch.Tensor | None = None,  # i32 (P, K) precomputed matches
+    match_mask: torch.Tensor | None = None,  # bool (P, K)
+    match_score: torch.Tensor | None = None,  # f32 (P, K)
 ) -> TwoViewResult:
+    """When (match_idx, match_mask, match_score) are given, as a learned
+    matcher produces them, verification runs on them and the mutual-NN
+    matching is skipped; the scores weight RANSAC's sampling as the
+    descriptor similarities otherwise do."""
     with precise():
         P, K, _ = kp_xy1.shape
         dev = kp_xy1.device
         if pair_ids is None:
             pair_ids = torch.arange(P, device=dev)
-        midx, mmask, mscore = fused_match_descriptors(
-            desc1, desc2, kp_mask1, kp_mask2, ratio=opts.matching_ratio
-        )
+        if match_idx is not None:
+            midx, mmask, mscore = match_idx, match_mask, match_score
+        else:
+            midx, mmask, mscore = fused_match_descriptors(
+                desc1, desc2, kp_mask1, kp_mask2, ratio=opts.matching_ratio
+            )
         corr_i1 = torch.arange(K, dtype=torch.int32, device=dev).expand(P, K)
         corr_i2 = torch.where(mmask, midx, 0)
         uv2 = torch.gather(kp_xy2, 1, corr_i2.to(torch.int64)[..., None].expand(P, K, 2))

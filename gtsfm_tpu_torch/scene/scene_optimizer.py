@@ -7,9 +7,11 @@ evaluation (the ``ba_pose_metrics`` group of ``_finalize``).
 
 The reconstruction runs on the device of the loader's calibrations. The
 detector and retriever are required: the port has no default DoG-SIFT
-detector or retriever yet. Not ported: the direct-correspondence and
-feed-forward branches, hierarchical mode, bridge reconnection, caches,
-telemetry, MVS / splatting and export.
+detector or retriever yet. The matcher slot takes a learned matcher
+(LightGlue, ``frontend/registry.build_matcher``); ``None`` keeps the fused
+mutual-NN matcher inside the two-view batch. Not ported: the
+direct-correspondence and feed-forward branches, hierarchical mode, bridge
+reconnection, caches, telemetry, MVS / splatting and export.
 """
 
 from __future__ import annotations
@@ -38,16 +40,20 @@ class SceneOptimizerOptions(NamedTuple):
 
 class SceneOptimizer:
     def __init__(self, options: SceneOptimizerOptions = SceneOptimizerOptions(), retriever=None,
-                 detector=None):
+                 detector=None, matcher=None):
         """detector: ``detect_batch(images) -> (kp_xy (B, K, 2), kp_mask
         (B, K), descs (B, K, D))`` numpy, with ``max_keypoints``;
         retriever: ``get_image_pairs(num_images, global_descriptors=None,
-        loader=None) -> (E, 2)``."""
+        loader=None) -> (E, 2)``; matcher: None (the fused mutual-NN matcher
+        of the two-view batch) or ``match_batch(desc1, desc2, kp_xy1,
+        kp_xy2, kp_mask1, kp_mask2, image_size) -> (match_idx, match_mask,
+        match_score)`` on device tensors."""
         if retriever is None or detector is None:
             raise ValueError("the port needs an explicit retriever and detector")
         self.options = options
         self.retriever = retriever
         self.detector = detector
+        self.matcher = matcher
 
     def run(self, loader: LoaderBase) -> tuple:
         """-> (SfmData, list of MetricsGroup)."""
@@ -68,7 +74,8 @@ class SceneOptimizer:
         retriever_sec = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        tvr = self._run_two_view(pairs, kp_xy, kp_mask, descs, cal)
+        image_wh = (max(w for (_h, w) in sizes), max(h for (h, _w) in sizes))
+        tvr = self._run_two_view(pairs, kp_xy, kp_mask, descs, cal, image_wh)
         host = {k: getattr(tvr, k).cpu().numpy() for k in (
             "corr_i1", "corr_i2", "corr_mask", "num_matches", "num_inliers", "inlier_ratio", "valid")}
         frontend_sec = time.perf_counter() - t0
@@ -146,11 +153,13 @@ class SceneOptimizer:
                 descs[s + b] = d[b]
         return kp_xy, kp_mask, descs
 
-    def _run_two_view(self, pairs, kp_xy, kp_mask, descs, cal) -> TwoViewResult:
+    def _run_two_view(self, pairs, kp_xy, kp_mask, descs, cal, image_wh) -> TwoViewResult:
         """Two-view estimation over chunks of ``pair_batch_size`` pairs with
-        the scene's keypoints and descriptors resident on the device. The
-        last chunk is not padded: each pair's random stream is keyed by its
-        global index, so chunking does not change the result."""
+        the scene's keypoints and descriptors resident on the device; a
+        matcher, if any, matches each chunk first (``image_wh``: the
+        scene's largest width and height, for its keypoint normalization).
+        The last chunk is not padded: each pair's random stream is keyed by
+        its global index, so chunking does not change the result."""
         opts = self.options
         dev = cal.f.device
         kp_dev = torch.as_tensor(kp_xy, dtype=torch.float32, device=dev)
@@ -161,12 +170,17 @@ class SceneOptimizer:
         for s in range(0, len(pairs), opts.pair_batch_size):
             i1 = pairs_dev[s : s + opts.pair_batch_size, 0]
             i2 = pairs_dev[s : s + opts.pair_batch_size, 1]
+            batch = xy1, xy2, d1, d2, m1, m2 = (
+                kp_dev[i1], kp_dev[i2], d_dev[i1], d_dev[i2], kpm_dev[i1], kpm_dev[i2])
+            matches = {}
+            if self.matcher is not None:
+                midx, mmask, mscore = self.matcher.match_batch(d1, d2, xy1, xy2, m1, m2, image_size=image_wh)
+                matches = dict(match_idx=midx, match_mask=mmask, match_score=mscore)
             chunks.append(run_two_view_batch(
-                kp_dev[i1], kp_dev[i2], d_dev[i1], d_dev[i2], kpm_dev[i1], kpm_dev[i2],
-                cal.map(lambda a: a[i1]), cal.map(lambda a: a[i2]),
+                *batch, cal.map(lambda a: a[i1]), cal.map(lambda a: a[i2]),
                 torch.ones(len(i1), dtype=torch.bool, device=dev),
                 seed=opts.seed, opts=opts.two_view,
-                pair_ids=torch.arange(s, s + len(i1), device=dev),
+                pair_ids=torch.arange(s, s + len(i1), device=dev), **matches,
             ))
         return TwoViewResult(**{
             k: torch.cat([getattr(c, k) for c in chunks]) for k in TwoViewResult.__dataclass_fields__

@@ -76,3 +76,42 @@ def to_numpy(obj):
     if isinstance(obj, dict):
         return {k: to_numpy(v) for k, v in obj.items()}
     return obj
+
+
+def lightglue_state_dict(params) -> dict:
+    """Flax params of the reference's ``LightGlueNet`` (numpy leaves; the
+    layers scan-stacked on a leading axis; Dense kernels (in, out)) -> the
+    port's official-layout state_dict of float32 tensors.
+
+    The reference keeps only the last ``log_assignment`` head, the one the
+    forward uses; every layer's head gets it so that the dict loads with
+    ``load_state_dict``."""
+    sd = {}
+
+    def dense(key, p):
+        sd[f"{key}.weight"] = tensor(np.asarray(p["kernel"]).T, dtype=torch.float32)
+        if "bias" in p:
+            sd[f"{key}.bias"] = tensor(p["bias"], dtype=torch.float32)
+
+    def norm(key, p):
+        sd[f"{key}.weight"] = tensor(p["scale"], dtype=torch.float32)
+        sd[f"{key}.bias"] = tensor(p["bias"], dtype=torch.float32)
+
+    def ffn(key, p, i):
+        dense(f"{key}.0", {k: np.asarray(v)[i] for k, v in p["ffn0"].items()})
+        norm(f"{key}.1", {k: np.asarray(v)[i] for k, v in p["ffn1"].items()})
+        dense(f"{key}.3", {k: np.asarray(v)[i] for k, v in p["ffn3"].items()})
+
+    dense("input_proj", params["input_proj"])
+    dense("posenc.Wr", params["posenc"]["Wr"])
+    layers = params["layers"]
+    num_layers = np.asarray(layers["self"]["Wqkv"]["kernel"]).shape[0]
+    for i in range(num_layers):
+        for block, names in (("self", ("Wqkv", "out_proj")), ("cross", ("to_qk", "to_v", "to_out"))):
+            key = f"transformers.{i}.{block}_attn"
+            for name in names:
+                dense(f"{key}.{name}", {k: np.asarray(v)[i] for k, v in layers[block][name].items()})
+            ffn(f"{key}.ffn", layers[block]["ffn"], i)
+        for name in ("final_proj", "matchability"):
+            dense(f"log_assignment.{i}.{name}", params["assign"][name])
+    return sd

@@ -4,8 +4,9 @@ Port of gtsfm_tpu/utils/numerics.py. On the TPU, geometry code had to pin
 every matmul to HIGHEST precision; on an NVIDIA card the float32 hazard is
 TF32: a float32 matmul may run on the tensor cores with a 10-bit mantissa
 when ``torch.backends.cuda.matmul.allow_tf32`` is set, and cuDNN does so by
-default. ``precise()`` turns both off for a solver stage. Only the matcher's
-descriptor similarity runs in bf16, and it does so explicitly.
+default. ``precise()`` turns both off for a solver stage. Only the matchers'
+descriptor similarity and LightGlue's transformer run in bf16, and they
+do so explicitly.
 
 Also here: the unrolled tiny-system solvers of the reference (batched LAPACK
 calls on 3x3..9x9 matrices are slow on the card as they were on the TPU), a
@@ -24,18 +25,21 @@ import torch
 
 @contextlib.contextmanager
 def precise():
-    """Run the body with TF32 off for matmuls and convolutions.
+    """Run the body with TF32 off for matmuls and convolutions, and with
+    bf16 matmuls summing in float32 (no reduced-precision reduction).
 
     The port's counterpart of the reference's ``precise`` decorator. Usable
     as a context manager or, through ``contextlib``, as a decorator
     (``@precise()``). Restores the previous flags on exit."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mat = torch.backends.cuda.matmul
+    prev = (mat.allow_tf32, torch.backends.cudnn.allow_tf32, mat.allow_bf16_reduced_precision_reduction)
+    mat.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mat.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        mat.allow_tf32, torch.backends.cudnn.allow_tf32, mat.allow_bf16_reduced_precision_reduction = prev
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

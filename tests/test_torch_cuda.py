@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the fused matcher kernel against its plain
-PyTorch version, and the back end's run-to-run reproducibility.
+"""The port on a CUDA card: the fused matcher and attention kernels against
+their plain PyTorch versions, and the back end's run-to-run
+reproducibility.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -13,14 +14,21 @@ D, a single keypoint, an all-masked pair and exact ties. Tolerances: ``best``
 1e-5 everywhere; ``idx`` / ``ok`` exact on every row whose best and
 second-best similarities differ by more than 1e-4 (float32 sums of exact
 bf16 products in another order can swap nearer ties).
+
+Attention shapes cover what the kernel takes beyond LightGlue's
+(96, 2048, 4 heads of 64): ragged K0 != K1 that are not multiples of the
+64-row tile, one pair, narrow (16, 32) and wide (128) head dims, and a
+fully masked key set, through all four entries. Tolerance: chip_smoke's
+``attention_agrees`` (ATTN_TOL_V * max|v| + ATTN_TOL_OUT * |want|, the two
+bf16 roundings the kernel and the plain version place differently).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KERNEL_TOL_BEST, kernel_agrees
-from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+from chip_smoke import KERNEL_TOL_BEST, attention_agrees, attention_entries, kernel_agrees
+from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
 from gtsfm_tpu_torch.utils.numerics import precise
 
@@ -99,6 +107,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take_on_the_card():
         fused_matcher.fused_match_descriptors(d1[..., :100], d2[..., :100], m1, m2)
     with pytest.raises(ValueError):
         fused_matcher.fused_match_descriptors(d1, d2.cpu(), m1, m2)
+
+
+# name: (P, K0, K1, heads, dh)
+ATTN_SHAPES = {
+    "ragged": (3, 1000, 777, 4, 64),
+    "one_pair": (1, 130, 70, 4, 64),
+    "narrow16": (2, 200, 96, 2, 16),
+    "narrow32": (2, 96, 200, 8, 32),
+    "wide128": (2, 300, 257, 2, 128),
+    "all_masked": (2, 128, 128, 4, 64),
+}
+ATTN_ENTRIES = ["fused_attention", "fused_attention_merged", "fused_cross_attention",
+                "fused_cross_attention_merged"]
+
+
+def _attention_inputs(case: str):
+    P, K0, K1, heads, dh = ATTN_SHAPES[case]
+    rng = np.random.default_rng(sorted(ATTN_SHAPES).index(case))
+
+    def x(K):
+        return torch.as_tensor(rng.normal(size=(P, K, heads * dh)).astype(np.float32),
+                               device="cuda").to(torch.bfloat16)
+
+    m0 = torch.as_tensor(rng.random((P, K0)) > 0.2, device="cuda")
+    m1 = torch.as_tensor(rng.random((P, K1)) > 0.2, device="cuda")
+    if case == "all_masked":
+        m0[:] = False
+        m1[:] = False
+    return (x(K0), x(K1), x(K0), x(K1), m0, m1), heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ATTN_ENTRIES)
+@pytest.mark.parametrize("case", sorted(ATTN_SHAPES))
+def test_attention_kernel_matches_plain_version(case, entry):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    (q0, q1, v0, v1, m0, m1), heads = _attention_inputs(case)
+    name, kern, plain, vs = next(e for e in attention_entries(q0, q1, v0, v1, m0, m1, heads) if e[0] == entry)
+    before = fused_attention.launch_count
+    with precise():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+    assert fused_attention.launch_count == before + len(got)  # one launch per direction
+    for g, w, v in zip(got, want, vs):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err, ratio, finite = attention_agrees(g, w, v)
+        assert finite and ratio <= 1.0, (err, ratio)
+    if case == "all_masked":  # the -1e9 fill: every row is the mean of v
+        o = got[0] if got[0].dim() == 3 else fused_attention.merge_heads(got[0])
+        assert attention_agrees(o, v1.float().mean(dim=1, keepdim=True).expand(o.shape), v1)[1] <= 1.0
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_raises_on_what_the_kernel_does_not_take_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (q0, q1, v0, v1, m0, m1), heads = _attention_inputs("one_pair")
+    with pytest.raises(TypeError):  # float32 on the card: no silent plain version
+        fused_attention.fused_attention_merged(q0.float(), q1.float(), v1.float(), heads, m1)
+    with pytest.raises(ValueError):  # head dim 48
+        fused_attention.fused_attention_merged(q0[..., :192], q1[..., :192], v1[..., :192], heads, m1)
+    with pytest.raises(ValueError):
+        fused_attention.fused_attention_merged(q0, q1, v1, heads, m1.cpu())
 
 
 @pytest.mark.cuda

@@ -158,3 +158,59 @@ def test_run_two_view_batch_matches_reference_on_replayed_draws():
     # inlier sets: equal up to correspondences on the threshold's edge
     assert np.abs(got.num_inliers.numpy() - ref.num_inliers).max() <= 1
     assert (got.corr_mask.numpy() != ref.corr_mask).sum() <= 3
+
+
+def test_run_two_view_batch_with_precomputed_matches_matches_reference_on_replayed_draws():
+    """Matches handed in as a learned matcher hands them (LightGlue's
+    match_idx / match_mask / match_score contract): the mutual-NN matching
+    is skipped, the scores weight RANSAC's sampling, and the rest of the
+    unit agrees with the reference on replayed draws as above. The matches
+    are the feed's true correspondences (keypoint k to keypoint k) where
+    both keypoints are in view, with 15% of them sent to a wrong keypoint,
+    and scores uniform in (0.1, 1)."""
+    n, Kp = 8, 256
+    ring = chip_smoke.ring_pairs(n)
+    gt = j_ring(ring, n)
+    kp_xy, kp_mask, descs = chip_smoke.descriptor_feed(np.array(gt.R), np.array(gt.t), chip_smoke.FOCAL,
+                                                       chip_smoke.IMAGE_HW, Kp)
+    pairs = ring[3:6]
+    i1, i2 = pairs[:, 0], pairs[:, 1]
+    rng = np.random.default_rng(11)
+    midx = np.tile(np.arange(Kp, dtype=np.int32), (3, 1))
+    wrong = rng.random((3, Kp)) < 0.15
+    midx[wrong] = rng.integers(0, Kp, wrong.sum())
+    mmask = kp_mask[i1] & kp_mask[i2]
+    midx = np.where(mmask, midx, -1).astype(np.int32)
+    mscore = rng.uniform(0.1, 1.0, (3, Kp)).astype(np.float32)
+    cal_np = {"f": np.full(3, chip_smoke.FOCAL, np.float32), "k1": np.zeros(3, np.float32),
+              "k2": np.zeros(3, np.float32), "u0": np.full(3, 160.0, np.float32),
+              "v0": np.full(3, 120.0, np.float32)}
+    args = (kp_xy[i1], kp_xy[i2], descs[i1], descs[i2], kp_mask[i1], kp_mask[i2])
+    key = jax.random.PRNGKey(3)
+    cal_j = JCal(**{k: jnp.asarray(v) for k, v in cal_np.items()})
+    ref = jax.tree.map(np.asarray, j_two_view(
+        *(jnp.asarray(a) for a in args), cal_j, cal_j, jnp.ones(3, bool), key,
+        match_idx=jnp.asarray(midx), match_mask=jnp.asarray(mmask), match_score=jnp.asarray(mscore),
+        pair_ids=jnp.arange(3, dtype=jnp.int32),
+    ))
+
+    sidx = []
+    for p in range(3):
+        x1 = (args[0][p] - np.array([160.0, 120.0], np.float32)) / np.float32(chip_smoke.FOCAL)
+        sw = jnp.clip((jnp.asarray(mscore[p]) + 1.0) * 0.5, 1e-3, 1.0) ** 4
+        sidx.append(np.asarray(_replay_sample_idx(jnp.asarray(x1), jnp.asarray(mmask[p]),
+                                                  jax.random.fold_in(key, p), sw, 512)))
+
+    cal_t = convert.cal3_bundler(cal_np)
+    got = run_two_view_batch(*(torch.as_tensor(a) for a in args), cal_t, cal_t, torch.ones(3, dtype=torch.bool),
+                             sample_idx=torch.as_tensor(np.stack(sidx)), match_idx=torch.as_tensor(midx),
+                             match_mask=torch.as_tensor(mmask), match_score=torch.as_tensor(mscore))
+    np.testing.assert_array_equal(got.num_matches.numpy(), ref.num_matches)
+    np.testing.assert_array_equal(got.num_matches.numpy(), mmask.sum(1))
+    np.testing.assert_array_equal(got.valid.numpy(), ref.valid)
+    assert ref.valid.all()
+    np.testing.assert_array_equal(got.corr_i2.numpy(), ref.corr_i2)
+    np.testing.assert_allclose(got.i2Ri1.numpy(), ref.i2Ri1, atol=1e-4)
+    np.testing.assert_allclose(got.i2Ui1.numpy(), ref.i2Ui1, atol=1e-4)
+    assert np.abs(got.num_inliers.numpy() - ref.num_inliers).max() <= 1
+    assert (got.corr_mask.numpy() != ref.corr_mask).sum() <= 3

@@ -17,23 +17,37 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    their plain versions: LightGlue's shape (P=96 pairs, K=2048, 4 heads of
    64, masked keys), a fully masked key set, K=1000, K=384 and K0 != K1;
    each entry timed at LightGlue's shape (median of 20 runs, CUDA events);
-5. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
+5. composite: the splat tile-compositing kernel against its plain version
+   on the tiles of a seeded 50,000-gaussian scene (the splat scene below)
+   seen by one ring camera at 480x640, f=600, binned by the port's
+   render_tiled: a low-opacity copy where no tile stops early (|d| <=
+   1e-5), the full scene (|d| <= 1/255 + 1e-5, the early stop's bound), an
+   all-empty tile set and a ragged tile count; TiledComposite's gradient on
+   the card against the plain path's; kernel and plain timed (median of 20
+   runs, CUDA events);
+6. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
    slot with synthetic keypoints and descriptors (the descriptor feed
-   below), on `cuda`; 32/32 cameras registered and pose AUC@5 >= 0.978
-   required, and the matcher kernel must have launched during the run;
-6. lightglue: the same ring through SceneOptimizer.run with the LightGlue
+   below), on `cuda`, with the splat trainer after it (run_gs, 400 steps on
+   the loader's flat gray images); 32/32 cameras registered, pose AUC@5 >=
+   0.978, a falling splat L1, and launches of the matcher and compositing
+   kernels during the run required;
+7. lightglue: the same ring through SceneOptimizer.run with the LightGlue
    matcher at full width (dim 256, 9 layers, 4 heads, bf16) on the glue
    fixture below, K=2048 keypoints with D=256 descriptors; 32/32
    registered, AUC@5 >= 0.978 and attention launches during the run
    required, and the matches through the kernel must agree with a forward
-   through the plain attention on every decisive row.
+   through the plain attention on every decisive row;
+8. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
+   480x640 for 400 steps, on the 32 ring views of the splat scene rendered
+   by the port; final L1 < 0.7 of the initial and >= 400 compositing
+   launches required; seconds per step and peak device memory printed.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 There is no CPU mode: without a CUDA device the script stops.
 
-The descriptor feed and the glue fixture are defined here once, with numpy
-only; the CPU tests import them from this file.
+The descriptor feed, the glue fixture and the splat scene are defined here
+once, with numpy only; the CPU tests import them from this file.
 """
 
 from __future__ import annotations
@@ -73,6 +87,27 @@ GLUE_SIGMA = 0.05 * (DESC_DIM / GLUE_DESC_DIM) ** 0.5  # the feed's noise norm a
 # port against reference on the CPU; 0.76 max after nine layers at K=2048,
 # kernel against plain on an H100)
 GLUE_GAP = 1.0
+
+SPLAT_HW = (480, 640)  # the synthetic loader's default image size
+SPLAT_FOCAL = 600.0  # and focal length
+SPLAT_GAUSSIANS = 50_000  # GSTrainOptions.max_gaussians
+SPLAT_POINTS = 12_500  # SfM points of the trainer phase: G = min(50,000, 4 * 12,500)
+SPLAT_STEPS = 400  # trainer steps of the slice and the trainer phase (one densify, at 300)
+SPLAT_L1_RATIO = 0.7  # the reference's trainer bar (tests/splat/test_splat.py:133)
+COMPOSITE_TOL = 1e-5  # kernel vs plain where no tile stops early: float32 order only
+# with the early stop: a tile stops once every pixel has T <= 1/255, and the
+# skipped tail adds at most T * max(rgb) <= 1/255 to any output
+COMPOSITE_TOL_STOP = 1.0 / 255.0 + 1e-5
+# float32 operations per pixel and slot in the compositing kernel, counted
+# from csrc/splat_composite.cu: dx, dy 2; q 9; clamp 1; -q/2 1; exp 1;
+# alpha * exp 1; min 1; cutoff select 1; w = a T 1; three color FMAs 6;
+# 1 - a 1; T update 1
+COMPOSITE_FLOPS = 26
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, float32
+# outside them, HBM3
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +224,28 @@ def glue_fixture(seed: int = 0, dim: int = 256, num_layers: int = 9, num_heads: 
             sd[f"{la}.final_proj.weight"] = np.eye(dim, dtype=np.float32)
             sd[f"{la}.final_proj.bias"] = np.zeros(dim, np.float32)
     return sd
+
+
+def splat_scene(center, n: int = SPLAT_GAUSSIANS, radius: float = 8.0, seed: int = 0) -> dict:
+    """GSData fields (numpy float32; alive bool) of a seeded scene: n
+    gaussians uniform in a ball of ``radius`` around ``center``, random
+    orientations, per-axis scales 0.04-0.12, opacities from normal logits
+    (about 70% mean opacity), and colors that vary smoothly with position
+    (a wavelength of about 6 units per channel, plus a little noise), so a
+    quarter of the means as SfM points can learn the views."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    means = np.asarray(center, np.float64) + d * radius * rng.random((n, 1)) ** (1.0 / 3.0)
+    return {
+        "means": means.astype(np.float32),
+        "log_scales": np.log(rng.uniform(0.04, 0.12, (n, 3))).astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity_logit": rng.normal(1.0, 1.0, n).astype(np.float32),
+        "colors": (2.5 * np.sin((means - np.asarray(center)) @ rng.normal(0, 1.0, (3, 3)) + rng.uniform(0, 6.3, 3))
+                   + rng.normal(0.0, 0.3, (n, 3))).astype(np.float32),
+        "alive": np.ones(n, bool),
+    }
 
 
 class FeedDetector:
@@ -333,9 +390,13 @@ def phase_kernel(kp_mask, descs, pairs):
             order.append((which, _median_ms(fn)))
         for which in ("plain", "kernel"):
             ms[which] = float(np.median([t for w, t in order if w == which]))
+    P, K1, D = a.shape
+    K2 = b.shape[1]
+    bound = max((2.0 * P * K1 * K2 * D / PEAK_BF16 * 1e3, "operations"),
+                ((a.nbytes + b.nbytes + ma.nbytes + mb.nbytes + P * K1 * (4 + 1 + 4)) / PEAK_BYTES * 1e3, "bytes"))
     print(f"kernel timing P96_K1024 (median of 20, CUDA events): kernel {ms['kernel']:.4f} ms, "
-          f"plain {ms['plain']:.4f} ms | runs {order}", flush=True)
-    return worst, ms
+          f"plain {ms['plain']:.4f} ms | runs {order} | bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return worst, ms, bound
 
 
 def attention_agrees(got, want, v):
@@ -376,7 +437,8 @@ def attention_entries(q0, q1, v0, v1, m0, m1, heads):
 def phase_attention(seed: int = 0):
     """All four attention entries against their plain versions, then each
     timed at LightGlue's shape. Returns (worst max abs error, {entry:
-    {"kernel": ms, "plain": ms}})."""
+    {"kernel": ms, "plain": ms}}, (bound ms, bound by) and the library
+    call's ms of the merged self entry)."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
@@ -433,23 +495,175 @@ def phase_attention(seed: int = 0):
             ms[entry] = {w: float(np.median([t for k, t in runs if k == w])) for w in ("kernel", "plain")}
             print(f"attention timing P96_K2048 {entry} (median of 20, CUDA events): kernel "
                   f"{ms[entry]['kernel']:.4f} ms, plain {ms[entry]['plain']:.4f} ms | runs {runs}", flush=True)
-    del cases
+
+        # the yardstick, never called by the port: one scaled_dot_product_attention
+        # call with the additive -1e9 mask on the same inputs (split-head views)
+        P, K, C = q0.shape
+        sdpa_args = [x.view(P, K, heads, C // heads).transpose(1, 2) for x in (q0, q1, v1)]
+        add_mask = torch.where(m1, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :]
+        library_ms = float(np.median([_median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *sdpa_args, attn_mask=add_mask)) for _ in range(2)]))
+        bound = max((4.0 * P * heads * K * K * (C // heads) / PEAK_BF16 * 1e3, "operations"),
+                    ((4 * q0.nbytes + m1.nbytes) / PEAK_BYTES * 1e3, "bytes"))
+        print(f"attention library P96_K2048: scaled_dot_product_attention with the additive mask "
+              f"{library_ms:.4f} ms (median of 2 x 20, CUDA events) | merged self entry bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+    del cases, sdpa_args
     torch.cuda.empty_cache()
-    return worst, ms
+    return worst, ms, bound, library_ms
 
 
-def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None):
+def splat_camera(R, t, index: int, dev):
+    """Ring camera ``index`` (SE3) and the loader's default intrinsics at
+    SPLAT_HW, f = SPLAT_FOCAL (3x3 K), on ``dev``."""
+    import torch
+
+    from gtsfm_tpu_torch.geometry import SE3
+
+    h, w = SPLAT_HW
+    K = torch.tensor([[SPLAT_FOCAL, 0, w / 2.0], [0, SPLAT_FOCAL, h / 2.0], [0, 0, 1]], device=dev)
+    return SE3(R=torch.as_tensor(R[index], device=dev), t=torch.as_tensor(t[index], device=dev)), K
+
+
+def evaluated_slots(packed, gidx, counts, origins, batch: int = 256):
+    """Slots per tile that the compositing kernel must evaluate on these
+    inputs: all of a tile's live slots, except that a tile stops at the
+    first batch boundary where every pixel has T <= 1/255 (transmittance
+    from the plain version on the slots before the boundary)."""
+    import torch
+
+    from gtsfm_tpu_torch.splat import rendering
+
+    counts = counts.long()
+    need = counts.clone()
+    stopped = torch.zeros_like(counts, dtype=torch.bool)
+    for b in range(batch, gidx.shape[1], batch):
+        clamp = torch.clamp(counts, max=b).to(torch.int32)
+        _c, T = rendering.composite_tiles_plain(*rendering._gather_attrs_f32(packed, gidx, clamp), origins,
+                                                rendering.KERNEL_TILE)
+        stop = ~stopped & (counts > b) & (T.max(dim=1).values <= 1.0 / 255.0)
+        need = torch.where(stop, torch.full_like(need, b), need)
+        stopped |= stop
+    return need
+
+
+def composite_bound(packed, counts_needed, n_tiles: int):
+    """(bound ms, "operations" or "bytes") of the compositing at these
+    inputs: COMPOSITE_FLOPS per pixel and evaluated slot over the float32
+    peak, against each evaluated slot's index and 9 attributes read once,
+    the (G, 9) table, each tile's count and origin read and its color and
+    transmittance written once, over the memory rate."""
+    slots = int(counts_needed.sum())
+    ops_ms = slots * 256 * COMPOSITE_FLOPS / PEAK_F32 * 1e3
+    nbytes = slots * (4 + 36) + packed.numel() * 4 + n_tiles * (12 + 256 * 16)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_composite(R, t):
+    """The compositing kernel against its plain version on the splat
+    scene's tiles from ring camera 0, binned by the port's render_tiled.
+    Returns (max abs error on the full scene, {"kernel": ms, "plain": ms},
+    (bound ms, bound by), live slots per tile)."""
+    import torch
+
+    from gtsfm_tpu_torch.splat import rendering
+    from gtsfm_tpu_torch.splat.gs_data import GSData
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    dev = torch.device("cuda")
+    h, w = SPLAT_HW
+    fields = splat_scene(np.asarray(t).mean(axis=0), n=SPLAT_GAUSSIANS)
+    full = GSData(**{k: torch.as_tensor(v, device=dev) for k, v in fields.items()})
+    # alpha 0.004: T >= (1 - 0.004)^512 = 0.13 > 1/255, so no tile stops early
+    faint = full.replace(opacity_logit=torch.full_like(full.opacity_logit, float(np.log(0.004 / 0.996))))
+    pose, K = splat_camera(R, t, 0, dev)
+
+    def plain(packed, gidx, counts, origins):
+        return rendering.composite_tiles_plain(*rendering._gather_attrs_f32(packed, gidx, counts), origins,
+                                               rendering.KERNEL_TILE)
+
+    def kernel(packed, gidx, counts, origins):
+        return rendering.composite_tiles(packed, gidx, counts, origins, rendering.KERNEL_TILE)
+
+    with torch.no_grad(), precise():
+        bins = {name: rendering.bin_tiles(g, pose, K, h, w) for name, g in (("faint", faint), ("full", full))}
+        packed, gidx, counts, origins = bins["full"]
+        n_tiles = gidx.shape[0]
+        cases = {
+            "faint": (bins["faint"], COMPOSITE_TOL),
+            "full": (bins["full"], COMPOSITE_TOL_STOP),
+            "all_empty": ((packed, gidx, torch.zeros_like(counts), origins), 0.0),
+            "ragged_997": (tuple(a[:997].contiguous() if a is not packed else a for a in bins["full"]),
+                           COMPOSITE_TOL_STOP),
+        }
+        errs = {}
+        for name, (args, tol) in cases.items():
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+            stopped = int((want[1].max(dim=1).values <= 1.0 / 255.0).sum())
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            print(f"composite check {name}: {args[1].shape[0]} tiles, max abs err {err:.4g} (tolerance {tol:.4g}), "
+                  f"{stopped} tiles saturated, live slots per tile median {float(args[2].float().median()):.0f} "
+                  f"max {int(args[2].max())}", flush=True)
+            if not finite or err > tol:
+                raise AssertionError(f"composite kernel disagrees on {name}: max abs err {err:.4g} > {tol:.4g}")
+            if name == "faint" and stopped:
+                raise AssertionError("the faint scene saturated a tile; it must not")
+            if name == "all_empty" and not (bool((got[0] == 0).all()) and bool((got[1] == 1).all())):
+                raise AssertionError("an empty tile is not black with T = 1")
+            errs[name] = err
+        need = evaluated_slots(packed, gidx, counts, origins)
+
+    # the gradient: fixed upstream weights, so both sides see the same
+    # cotangents; only the gather's scatter-add order (float atomics) differs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wc = torch.rand((n_tiles, 256, 3), generator=gen, device=dev)
+    wt = torch.rand((n_tiles, 256), generator=gen, device=dev)
+    p_f, gidx_f, counts_f, origins_f = bins["faint"]
+    grads = {}
+    with precise():
+        for which in ("kernel", "plain"):
+            p = p_f.detach().clone().requires_grad_(True)
+            if which == "kernel":
+                c, T = rendering.TiledComposite.apply(p, gidx_f, counts_f, origins_f, rendering.KERNEL_TILE)
+            else:
+                c, T = plain(p, gidx_f, counts_f, origins_f)
+            ((c * wc).sum() + (T * wt).sum()).backward()
+            grads[which] = p.grad
+    gerr = float((grads["kernel"] - grads["plain"]).norm() / grads["plain"].norm())
+    print(f"composite gradient: |kernel path - plain path| / |plain path| {gerr:.3g} (tolerance 1e-5)", flush=True)
+    if not gerr <= 1e-5:
+        raise AssertionError(f"TiledComposite's gradient on the card differs from the plain path's: {gerr:.3g}")
+
+    with torch.no_grad(), precise():
+        runs = [(which, _median_ms(lambda: (kernel if which == "kernel" else plain)(packed, gidx, counts, origins)))
+                for which in ("plain", "kernel", "kernel", "plain")]
+    ms = {wh: float(np.median([x for k, x in runs if k == wh])) for wh in ("kernel", "plain")}
+    bound = composite_bound(packed, need, n_tiles)
+    print(f"composite timing {n_tiles} tiles x cap {gidx.shape[1]}, G {packed.shape[0]} (median of 20, CUDA "
+          f"events): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms | runs {runs} | evaluated slots "
+          f"{int(need.sum())} of {int(counts.sum())} live | bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    del bins, cases, grads
+    torch.cuda.empty_cache()
+    return errs["full"], ms, bound
+
+
+def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None, options=None):
     """SceneOptimizer.run on the 32-camera ring on `cuda`, fed through the
     detector slot, with every kernel's launch count set to 0 just before
     the run and read just after. Requires 32/32 registered, pose AUC@5 >=
-    AUC5_BAR and finite output. Returns ({"matcher": n, "attention": n},
-    stage seconds)."""
+    AUC5_BAR and finite output. Returns ({"matcher": n, "attention": n,
+    "composite": n}, stage seconds, metrics by group)."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
     from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
     from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader
     from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
+    from gtsfm_tpu_torch.splat import rendering
 
     dev = torch.device("cuda")
     n = NUM_CAMERAS
@@ -460,17 +674,19 @@ def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None):
     )
     loader = SyntheticSceneLoader(poses, cal=cal, image_size=IMAGE_HW)
     so = SceneOptimizer(
-        SceneOptimizerOptions(),
+        options or SceneOptimizerOptions(),
         retriever=FixedPairs(pairs),
         detector=FeedDetector(kp_xy, kp_mask, descs),
         matcher=matcher,
     )
     fused_matcher.launch_count = 0
     fused_attention.launch_count = 0
+    rendering.launch_count = 0
     torch.cuda.synchronize()
     data, groups = so.run(loader)
     torch.cuda.synchronize()
-    launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count}
+    launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
+                "composite": rendering.launch_count}
 
     metrics = {g.name: {m.name: m for m in g.metrics} for g in groups}
     registered = data.number_images()
@@ -492,14 +708,26 @@ def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None):
         raise AssertionError(f"{name}: registered {registered}/{n} cameras")
     if auc5 < AUC5_BAR:
         raise AssertionError(f"{name}: pose AUC@5 {auc5:.4f} < {AUC5_BAR}")
-    return launches, sec
+    return launches, sec, metrics
 
 
 def phase_slice(kp_xy, kp_mask, descs, pairs, R, t):
-    launches, _sec = _ring_slice("slice", kp_xy, kp_mask, descs, pairs, R, t)
+    """The mutual-NN slice with the splat trainer after it (run_gs,
+    SPLAT_STEPS steps on the loader's flat gray images). Returns the
+    matcher's and the compositing kernel's launches during the run."""
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizerOptions
+
+    launches, _sec, metrics = _ring_slice("slice", kp_xy, kp_mask, descs, pairs, R, t,
+                                          options=SceneOptimizerOptions(run_gs=True, gs_iterations=SPLAT_STEPS))
+    gs = {k: m.scalar for k, m in metrics["gaussian_splatting_metrics"].items()}
+    print(f"slice splat: {gs}", flush=True)
     if launches["matcher"] <= 0:
         raise AssertionError("the slice never launched the matcher kernel")
-    return launches["matcher"]
+    if launches["composite"] <= 0:
+        raise AssertionError("the slice's splat trainer never launched the compositing kernel")
+    if not gs["final_l1"] < gs["initial_l1"]:
+        raise AssertionError(f"the slice's splat L1 did not fall: {gs}")
+    return launches["matcher"], launches["composite"]
 
 
 def glue_decisive(z, mask0, mask1, threshold: float):
@@ -547,7 +775,7 @@ def phase_lightglue(pairs, R, t):
     kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, GLUE_KEYPOINTS, dim=GLUE_DESC_DIM,
                                             desc_sigma=GLUE_SIGMA)
     matcher = LightGlueMatcher(LightGlueOptions(), state_dict=glue_fixture(0))
-    launches, sec = _ring_slice("lightglue", kp_xy, kp_mask, descs, pairs, R, t, matcher=matcher)
+    launches, sec, _metrics = _ring_slice("lightglue", kp_xy, kp_mask, descs, pairs, R, t, matcher=matcher)
     if launches["attention"] <= 0:
         raise AssertionError("the LightGlue slice never launched the attention kernel")
     if launches["matcher"] != 0:
@@ -587,6 +815,82 @@ def phase_lightglue(pairs, R, t):
     return launches["attention"], sec, {w: float(np.median(v)) for w, v in fwd_sec.items()}
 
 
+def splat_trainer_inputs(R, t):
+    """The full-width trainer's inputs: the splat scene's views from every
+    ring camera (R, t) at SPLAT_HW, rendered by the port, and an SfmData of
+    the ring poses, f = SPLAT_FOCAL, and SPLAT_POINTS of the scene's means
+    plus seeded noise as points. Returns (SfmData, views (n, H, W, 3))."""
+    import torch
+
+    from gtsfm_tpu_torch.common.sfm_data import SfmData
+    from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+    from gtsfm_tpu_torch.splat import rendering
+    from gtsfm_tpu_torch.splat.gs_data import GSData
+
+    dev = torch.device("cuda")
+    h, w = SPLAT_HW
+    n = len(t)
+    fields = splat_scene(np.asarray(t).mean(axis=0), n=SPLAT_GAUSSIANS)
+    scene = GSData(**{k: torch.as_tensor(v, device=dev) for k, v in fields.items()})
+    with torch.no_grad():
+        views = np.stack([rendering.render_tiled(scene, *splat_camera(R, t, i, dev), h, w)[0].cpu().numpy()
+                          for i in range(n)])
+    rng = np.random.default_rng(1)
+    pts = fields["means"][:SPLAT_POINTS] + rng.normal(0, 0.05, (SPLAT_POINTS, 3)).astype(np.float32)
+    z = torch.zeros(n)
+    data = SfmData(
+        poses=SE3(R=torch.as_tensor(R, device=dev), t=torch.as_tensor(t, device=dev)),
+        cal=Cal3Bundler.create(torch.full((n,), SPLAT_FOCAL), z, z, torch.full((n,), w / 2.0),
+                               torch.full((n,), h / 2.0), device=dev),
+        pose_mask=torch.ones(n, dtype=torch.bool, device=dev),
+        points=torch.as_tensor(pts, device=dev),
+        track_mask=torch.ones(SPLAT_POINTS, dtype=torch.bool, device=dev),
+        meas_cam=torch.zeros(1, dtype=torch.int64, device=dev),
+        meas_track=torch.zeros(1, dtype=torch.int64, device=dev),
+        meas_uv=torch.zeros((1, 2), device=dev),
+        meas_mask=torch.zeros(1, dtype=torch.bool, device=dev),
+    )
+    return data, views
+
+
+def phase_splat(R, t):
+    """GaussianSplatting.train at full width: SPLAT_GAUSSIANS slots at
+    SPLAT_HW for SPLAT_STEPS steps on splat_trainer_inputs. Returns
+    compositing launches during the training."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
+    from gtsfm_tpu_torch.splat import rendering
+    from gtsfm_tpu_torch.splat.gaussian_splatting import GaussianSplatting, GSTrainOptions
+
+    dev = torch.device("cuda")
+    h, w = SPLAT_HW
+    data, views = splat_trainer_inputs(R, t)
+    trainer = GaussianSplatting(GSTrainOptions(iterations=SPLAT_STEPS))
+    fused_matcher.launch_count = fused_attention.launch_count = rendering.launch_count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gs, metrics = trainer.train(data, views)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = rendering.launch_count
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        counts = rendering.bin_tiles(gs, *splat_camera(R, t, 0, dev), h, w)[2].float()
+    print(f"splat: {gs.max_gaussians} slots at {h}x{w}, {SPLAT_STEPS} steps in {sec:.3f} s "
+          f"({sec / SPLAT_STEPS:.4f} s/step, host clock), peak device memory {peak / 2**30:.3f} GiB, {launches} "
+          f"composite launches | {metrics} | live slots per tile of the trained splats from camera 0: median "
+          f"{float(counts.median()):.0f}, mean {float(counts.mean()):.1f}, max {int(counts.max())}", flush=True)
+    if launches < SPLAT_STEPS:
+        raise AssertionError(f"the trainer launched the compositing kernel {launches} times in {SPLAT_STEPS} steps")
+    if not metrics["final_l1"] < SPLAT_L1_RATIO * metrics["initial_l1"]:
+        raise AssertionError(f"the trainer's L1 did not fall below {SPLAT_L1_RATIO} of the initial: {metrics}")
+    if not bool(torch.isfinite(gs.means).all()):
+        raise AssertionError("the trained splats are not finite")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -600,10 +904,12 @@ def main() -> int:
     R, t = gt.R.numpy(), gt.t.numpy()
     kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, NUM_KEYPOINTS)
 
-    err, ms = phase_kernel(kp_mask, descs, pairs)
-    attn_err, attn_ms = phase_attention()
-    launches = phase_slice(kp_xy, kp_mask, descs, pairs, R, t)
+    err, ms, bound = phase_kernel(kp_mask, descs, pairs)
+    attn_err, attn_ms, attn_bound, attn_library_ms = phase_attention()
+    comp_err, comp_ms, comp_bound = phase_composite(R, t)
+    launches, slice_comp_launches = phase_slice(kp_xy, kp_mask, descs, pairs, R, t)
     attn_launches, _sec, _fwd = phase_lightglue(pairs, R, t)
+    comp_launches = phase_splat(R, t)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -615,6 +921,9 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": None,
     }, {
         "name": "fused_attention",
         "route": "cuda",
@@ -626,6 +935,22 @@ def main() -> int:
         "max_abs_err": attn_err,
         "ms": attn_ms["fused_attention_merged"]["kernel"],
         "plain_ms": attn_ms["fused_attention_merged"]["plain"],
+        "bound_ms": attn_bound[0],
+        "bound_by": attn_bound[1],
+        "library_ms": attn_library_ms,
+    }, {
+        "name": "splat_composite",
+        "route": "cuda",
+        "source": "gtsfm_tpu_torch/csrc/splat_composite.cu",
+        "replaces": "gtsfm_tpu/splat/rendering.py:420",
+        "launches": comp_launches,
+        "slice_launches": slice_comp_launches,
+        "max_abs_err": comp_err,
+        "ms": comp_ms["kernel"],
+        "plain_ms": comp_ms["plain"],
+        "bound_ms": comp_bound[0],
+        "bound_by": comp_bound[1],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

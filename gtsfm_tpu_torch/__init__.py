@@ -2,15 +2,16 @@
 
 Each module mirrors one file of the JAX package (``gtsfm_tpu``), which stays
 the reference: the same function names, the same padded layouts and masks,
-the same defaults. The port runs on whatever device its input tensors live
-on. On an NVIDIA Hopper card the one Pallas kernel on the reconstruction
-path, the fused mutual-NN matcher, is a hand-written CUDA kernel
-(``csrc/fused_matcher.cu``); on the CPU its plain PyTorch version runs.
+the same defaults. The entry points (``SceneOptimizer``,
+``GaussianSplatting``) run on the CUDA card unless given ``device="cpu"``.
+Every Pallas kernel of the reference is a hand-written CUDA kernel under
+``csrc/`` that runs on a CUDA tensor; on a CPU tensor its plain PyTorch
+version runs.
 
-Host-only numpy modules of the reference (DSF track linking, cycle
-consistency, graph utilities and the g++ build of the native libraries)
-import no JAX and are reused from ``gtsfm_tpu`` as they are. Importing this
-package never imports ``jax``, ``flax`` or ``triton``.
+The port keeps its own copies of what it needs from the reference, host
+numpy modules and C++ host libraries included (DSF track linking, cycle
+consistency, graph utilities, ``native/``). Importing this package never
+imports ``jax``, ``flax``, ``triton`` or ``gtsfm_tpu``.
 """
 
 __version__ = "0.1.0"

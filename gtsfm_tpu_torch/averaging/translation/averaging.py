@@ -3,9 +3,9 @@
 Port of gtsfm_tpu/averaging/translation/averaging.py with its default
 options: outlier rejection on, MFAS over the camera+track graph, uniform
 projection sampling. The rig-constrained variant is not ported. MFAS is a sequential host
-heuristic: the port binds the reference's native ``libmfas.so`` (built by
-gtsfm_tpu/native/build.py) through its own ctypes binding, with the same
-numpy fallback. The position solve — a robust LUD alternation, then
+heuristic: the port binds its copy of the reference's native
+``libmfas.so`` (native/mfas.cpp, built by native/build.py into
+build/torch_native/) through ctypes, with the same numpy fallback. The position solve — a robust LUD alternation, then
 Huber Gauss-Newton on the direction residuals — runs on the device of the
 rotations.
 
@@ -41,12 +41,12 @@ _MFAS_LIB = None
 
 
 def _native_mfas():
-    """ctypes binding of the reference's libmfas.so (False when it cannot
+    """ctypes binding of the port's libmfas.so (False when it cannot
     be built)."""
     global _MFAS_LIB
     if _MFAS_LIB is not None:
         return _MFAS_LIB
-    from gtsfm_tpu.native.build import ensure_built
+    from gtsfm_tpu_torch.native.build import ensure_built
 
     so = ensure_built("libmfas.so")
     if so is None:

@@ -49,6 +49,19 @@ class Cal3Bundler(TensorStruct):
             p = pi / g[..., None]
         return p
 
+    def K(self) -> torch.Tensor:
+        """Intrinsic matrices (..., 3, 3)."""
+        z = torch.zeros_like(self.f)
+        o = torch.ones_like(self.f)
+        return torch.stack(
+            [
+                torch.stack([self.f, z, self.u0], -1),
+                torch.stack([z, self.f, self.v0], -1),
+                torch.stack([z, z, o], -1),
+            ],
+            dim=-2,
+        )
+
     @property
     def fx(self) -> torch.Tensor:
         return self.f

@@ -70,6 +70,21 @@ def project(M: torch.Tensor) -> torch.Tensor:
     return mm(U * D[..., None, :], Vt)
 
 
+def from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) (..., 4), normalized here -> rotation
+    (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
 def to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation (..., 3, 3) -> quaternion (w, x, y, z) with w >= 0, by the
     branch-free Shepperd method (all four candidates, best-conditioned

@@ -5,10 +5,10 @@ filtering -> largest connected component -> rotation averaging -> DSF
 tracks -> translation averaging (with camera->track directions) ->
 RANSAC-DLT triangulation -> staged dense-Schur bundle adjustment.
 
-Host-only stages reuse the reference's numpy modules (cycle consistency,
-graph utilities, DSF track linking). Numeric stages run on the device of
-the two-view results; the data-dependent track and measurement axes are
-padded to power-of-two buckets as in the reference.
+Host-only stages run the port's copies of the reference's numpy modules
+(cycle consistency, graph utilities, DSF track linking). Numeric stages run
+on the device of the two-view results; the data-dependent track and
+measurement axes are padded to power-of-two buckets as in the reference.
 """
 
 from __future__ import annotations
@@ -19,13 +19,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gtsfm_tpu.tracks.dsf import tracks_from_matches
-from gtsfm_tpu.utils.graph import largest_connected_component
-from gtsfm_tpu.view_graph.cycle_consistency import (
-    CycleConsistencyFilter,
-    EdgeErrorAggregation,
-    ViewGraphOptions,
-)
 from gtsfm_tpu_torch.averaging.rotation.averaging import RotationAveraging, RotationAveragingOptions
 from gtsfm_tpu_torch.averaging.translation.averaging import (
     TranslationAveraging,
@@ -37,7 +30,14 @@ from gtsfm_tpu_torch.bundle.ba import BAOptions, BundleAdjustment
 from gtsfm_tpu_torch.bundle.triangulation import triangulate_tracks
 from gtsfm_tpu_torch.common.sfm_data import SceneMeta, SfmData
 from gtsfm_tpu_torch.geometry import SE3
+from gtsfm_tpu_torch.tracks.dsf import tracks_from_matches
+from gtsfm_tpu_torch.utils.graph import largest_connected_component
 from gtsfm_tpu_torch.utils.numerics import ceil_pow2
+from gtsfm_tpu_torch.view_graph.cycle_consistency import (
+    CycleConsistencyFilter,
+    EdgeErrorAggregation,
+    ViewGraphOptions,
+)
 
 
 class MVOOptions(NamedTuple):

@@ -5,13 +5,19 @@ path of ``_run_impl``: load -> detect (the detector slot) -> retrieve pairs
 -> chunked batched two-view estimation -> MultiViewOptimizer -> GT pose
 evaluation (the ``ba_pose_metrics`` group of ``_finalize``).
 
-The reconstruction runs on the device of the loader's calibrations. The
-detector and retriever are required: the port has no default DoG-SIFT
-detector or retriever yet. The matcher slot takes a learned matcher
-(LightGlue, ``frontend/registry.build_matcher``); ``None`` keeps the fused
-mutual-NN matcher inside the two-view batch. Not ported: the
-direct-correspondence and feed-forward branches, hierarchical mode, bridge
-reconnection, caches, telemetry, MVS / splatting and export.
+With ``run_gs`` the Gaussian-splat trainer follows GT alignment and
+appends the ``gaussian_splatting_metrics`` group (the reference's splat back
+end, ``--run_gs``).
+
+The reconstruction runs on ``SceneOptimizerOptions.device``, the CUDA card
+by default (``device="cpu"`` for a CPU run); the loader's calibrations and
+GT poses are moved there. The detector and retriever are required: the port
+has no default DoG-SIFT detector or retriever yet. The matcher slot takes a
+learned matcher (LightGlue, ``frontend/registry.build_matcher``); ``None``
+keeps the fused mutual-NN matcher inside the two-view batch. Not ported:
+the direct-correspondence and feed-forward branches, hierarchical mode,
+bridge reconnection, caches, telemetry, MVS, the splat video and
+feed-forward ``gs_init``, and export.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ from gtsfm_tpu_torch.evaluation.metrics import Metric, MetricsGroup, pose_auc, r
 from gtsfm_tpu_torch.frontend.two_view import TwoViewOptions, TwoViewResult, run_two_view_batch
 from gtsfm_tpu_torch.loader.base import LoaderBase, batch_calibrations
 from gtsfm_tpu_torch.scene.mvo import MultiViewOptimizer, MVOOptions
+from gtsfm_tpu_torch.splat.gaussian_splatting import GaussianSplatting, GSTrainOptions
 from gtsfm_tpu_torch.utils.geometry_comparisons import compare_global_poses
+from gtsfm_tpu_torch.utils.numerics import resolve_device
 
 
 class SceneOptimizerOptions(NamedTuple):
@@ -36,6 +44,10 @@ class SceneOptimizerOptions(NamedTuple):
     pair_batch_size: int = 256  # pairs per two-view call
     image_batch_size: int = 4  # images per detector call
     seed: int = 0
+    # the splat back end (the reference's --run_gs)
+    run_gs: bool = False
+    gs_iterations: int = 800
+    device: str = "cuda"
 
 
 class SceneOptimizer:
@@ -47,10 +59,12 @@ class SceneOptimizer:
         loader=None) -> (E, 2)``; matcher: None (the fused mutual-NN matcher
         of the two-view batch) or ``match_batch(desc1, desc2, kp_xy1,
         kp_xy2, kp_mask1, kp_mask2, image_size) -> (match_idx, match_mask,
-        match_score)`` on device tensors."""
+        match_score)`` on device tensors. Raises when ``options.device`` is
+        the default ``"cuda"`` and there is no CUDA device."""
         if retriever is None or detector is None:
             raise ValueError("the port needs an explicit retriever and detector")
         self.options = options
+        self.device = resolve_device(options.device)
         self.retriever = retriever
         self.detector = detector
         self.matcher = matcher
@@ -63,7 +77,7 @@ class SceneOptimizer:
         groups = []
 
         t0 = time.perf_counter()
-        cal = batch_calibrations(loader.get_all_intrinsics())
+        cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
         images, sizes = loader.load_grayscale_batch()
         kp_xy, kp_mask, descs = self._detect_batch(images, sizes)
         detect_sec = time.perf_counter() - t0
@@ -103,12 +117,15 @@ class SceneOptimizer:
         groups.append(MetricsGroup("multiview_optimizer_metrics", [
             Metric(k, v) for k, v in mvo_metrics.items() if isinstance(v, (int, float))
         ]))
-        return self._finalize(loader, data, mvo_metrics, groups, t_start)
+        return self._finalize(loader, data, mvo_metrics, groups, t_start, images)
 
-    def _finalize(self, loader, data, mvo_metrics, groups, t_start):
-        """GT pose evaluation (scene moved into the GT frame) + run time."""
+    def _finalize(self, loader, data, mvo_metrics, groups, t_start, images):
+        """GT pose evaluation (scene moved into the GT frame), the splat
+        trainer on the grayscale images when ``run_gs`` is set, run time."""
+        opts = self.options
         gt = loader.get_gt_poses()
         if gt is not None and not mvo_metrics.get("failed"):
+            gt = gt.map(lambda a: a.to(self.device))
             est_mask = data.pose_mask.cpu().numpy()
             rot_err, t_err, sim = relative_pose_errors(data.poses, gt, est_mask)
             data = data.transform(sim)
@@ -125,6 +142,13 @@ class SceneOptimizer:
                     Metric("poses_match_gt_criterion", float(crit)),
                 ] + [Metric(k, v) for k, v in auc.items()],
             ))
+        if opts.run_gs and not mvo_metrics.get("failed") and data.number_tracks() > 0:
+            t0 = time.perf_counter()
+            trainer = GaussianSplatting(GSTrainOptions(iterations=opts.gs_iterations), device=self.device)
+            _splats, gs_metrics = trainer.train(data, images)
+            gs_metrics["gs_sec"] = time.perf_counter() - t0
+            groups.append(MetricsGroup("gaussian_splatting_metrics",
+                                       [Metric(k, v) for k, v in gs_metrics.items()]))
         groups.append(MetricsGroup("total_summary",
                                    [Metric("total_runtime_sec", time.perf_counter() - t_start)]))
         return data, groups

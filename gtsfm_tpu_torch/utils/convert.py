@@ -17,6 +17,7 @@ import torch
 
 from gtsfm_tpu_torch.common.sfm_data import SfmData
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+from gtsfm_tpu_torch.splat.gs_data import GSData
 
 
 def _field(src: Any, name: str):
@@ -56,6 +57,14 @@ def sfm_data(src, device=None) -> SfmData:
         meas_uv=tensor(_field(src, "meas_uv"), device, torch.float32),
         meas_mask=tensor(_field(src, "meas_mask"), device, torch.bool),
     )
+
+
+def gs_data(src, device=None) -> GSData:
+    """A reference ``GSData`` (numpy leaves) -> the port's; ``alive`` keeps
+    its dtype (bool, or float 0/1)."""
+    floats = {k: tensor(_field(src, k), device, torch.float32)
+              for k in ("means", "log_scales", "quats", "opacity_logit", "colors")}
+    return GSData(alive=tensor(_field(src, "alive"), device), **floats)
 
 
 def two_view_result(src, device=None) -> dict:

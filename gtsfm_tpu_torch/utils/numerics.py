@@ -42,6 +42,17 @@ def precise():
         mat.allow_tf32, torch.backends.cudnn.allow_tf32, mat.allow_bf16_reduced_precision_reduction = prev
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. ``"cuda"``, the entry points'
+    default, raises when there is no CUDA device: the port never falls back
+    to the CPU by itself; pass ``device="cpu"`` for a CPU run."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} asked for, but no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Matmul for small geometry matrices (float32; callers run under
     ``precise()``)."""

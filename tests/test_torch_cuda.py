@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the fused matcher and attention kernels against
-their plain PyTorch versions, and the back end's run-to-run
-reproducibility.
+"""The port on a CUDA card: the fused matcher, attention and splat
+compositing kernels against their plain PyTorch versions, the splat
+trainer, and the back end's run-to-run reproducibility.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -21,15 +21,28 @@ Attention shapes cover what the kernel takes beyond LightGlue's
 fully masked key set, through all four entries. Tolerance: chip_smoke's
 ``attention_agrees`` (ATTN_TOL_V * max|v| + ATTN_TOL_OUT * |want|, the two
 bf16 roundings the kernel and the plain version place differently).
+
+Compositing cases cover caps 64 and 512 with ragged counts, empty tiles, a
+saturating tile (early stop) and a single tile. Tolerance: 1e-5 where no
+tile stops early (float32 order only), 1/255 + 1e-5 where one does (the
+skipped tail's bound), chip_smoke's COMPOSITE_TOL and COMPOSITE_TOL_STOP.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import KERNEL_TOL_BEST, attention_agrees, attention_entries, kernel_agrees
+from chip_smoke import (
+    COMPOSITE_TOL,
+    COMPOSITE_TOL_STOP,
+    KERNEL_TOL_BEST,
+    attention_agrees,
+    attention_entries,
+    kernel_agrees,
+)
 from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+from gtsfm_tpu_torch.splat import rendering
 from gtsfm_tpu_torch.utils.numerics import precise
 
 # name: (P, K1, K2, D)
@@ -204,3 +217,141 @@ def test_averaging_is_bitwise_reproducible_on_the_card():
     wti = [TranslationAveraging().run(n, edges, i2Ui1, wRi[0])[0] for _ in range(2)]
     assert torch.equal(wti[0], wti[1])
     assert bool(torch.isfinite(wti[0]).all())
+
+
+# name: (n_tiles, cap)
+COMPOSITE_SHAPES = {"cap64": (37, 64), "cap512": (23, 512), "saturating": (5, 512), "one_tile": (1, 512)}
+
+
+def _composite_card_inputs(case: str):
+    """Seeded (packed, gidx, counts, origins) on the card: gaussians spread
+    over a 4x4-tile area, ragged counts including empty and full tiles. In
+    "saturating" tile 0's first 300 slots are opaque gaussians at its centre
+    with a wide footprint, so it (and the tiles that draw them too) stops
+    early."""
+    n_tiles, cap = COMPOSITE_SHAPES[case]
+    rng = np.random.default_rng(sorted(COMPOSITE_SHAPES).index(case))
+    G = 700
+    packed = np.stack([
+        rng.uniform(0, 64, G), rng.uniform(0, 64, G), rng.uniform(0, 0.9, G),
+        rng.uniform(0, 1, G), rng.uniform(0, 1, G), rng.uniform(0, 1, G),
+        rng.uniform(0.005, 0.3, G), rng.uniform(-0.004, 0.004, G), rng.uniform(0.005, 0.3, G),
+    ], axis=-1).astype(np.float32)
+    gidx = rng.integers(0, G, (n_tiles, cap)).astype(np.int32)
+    counts = rng.integers(0, cap + 1, n_tiles).astype(np.int32)
+    if n_tiles > 2:
+        counts[0], counts[1] = 0, cap
+    org = (rng.integers(0, 4, (n_tiles, 2)) * 16).astype(np.int32)
+    if case == "saturating":
+        packed[:300, 0:2] = org[0] + 8.0
+        packed[:300, 2] = 0.99
+        packed[:300, 6], packed[:300, 7], packed[:300, 8] = 1e-3, 0.0, 1e-3
+        gidx[0, :300] = np.arange(300)
+        counts[0] = cap
+    return tuple(torch.as_tensor(a, device="cuda") for a in (packed, gidx, counts, org))
+
+
+def _plain_composite(packed, gidx, counts, org):
+    return rendering.composite_tiles_plain(*rendering._gather_attrs_f32(packed, gidx, counts), org, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(COMPOSITE_SHAPES))
+def test_composite_kernel_matches_plain_version(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _composite_card_inputs(case)
+    before = rendering.launch_count
+    with precise():
+        got = rendering.composite_tiles(*args, 16)
+        torch.cuda.synchronize()
+        want = _plain_composite(*args)
+    assert rendering.launch_count == before + 1
+    saturated = int((want[1].max(dim=1).values <= 1.0 / 255.0).sum())
+    assert (saturated > 0) == (case == "saturating")
+    tol = COMPOSITE_TOL_STOP if saturated else COMPOSITE_TOL
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol
+    empty = args[2] == 0
+    assert bool((got[0][empty] == 0).all()) and bool((got[1][empty] == 1).all())
+
+
+@pytest.mark.cuda
+def test_tiled_composite_gradient_on_the_card_equals_the_plain_path():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    packed, gidx, counts, org = _composite_card_inputs("cap64")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wc = torch.rand((gidx.shape[0], 256, 3), generator=gen, device="cuda")
+    wt = torch.rand((gidx.shape[0], 256), generator=gen, device="cuda")
+    grads = []
+    with precise():
+        for fn in (lambda p: rendering.TiledComposite.apply(p, gidx, counts, org, 16),
+                   lambda p: _plain_composite(p, gidx, counts, org)):
+            p = packed.clone().requires_grad_(True)
+            c, T = fn(p)
+            ((c * wc).sum() + (T * wt).sum()).backward()
+            grads.append(p.grad)
+    # same cotangents; only the gather's float-atomic scatter order differs
+    assert float((grads[0] - grads[1]).norm()) <= 1e-5 * float(grads[1].norm())
+
+
+@pytest.mark.cuda
+def test_composite_wrapper_raises_on_what_the_kernel_does_not_take_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    packed, gidx, counts, org = _composite_card_inputs("cap64")
+    with pytest.raises(ValueError):  # the kernel composites 16x16 tiles only
+        rendering.composite_tiles(packed, gidx, counts, org, 8)
+    with pytest.raises(ValueError):
+        rendering.composite_tiles(packed, gidx, counts.cpu(), org, 16)
+    with pytest.raises(TypeError):
+        rendering.composite_tiles(packed, gidx.long(), counts, org, 16)
+
+
+@pytest.mark.cuda
+def test_splat_trainer_lowers_l1_on_the_card():
+    """20 steps of GaussianSplatting.train on the card, on three views of a
+    three-gaussian scene rendered by the port: the L1 of the trained splats
+    over the three views is below the initial splats'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.common.sfm_data import SfmData
+    from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+    from gtsfm_tpu_torch.splat.gaussian_splatting import GaussianSplatting, GSTrainOptions
+    from gtsfm_tpu_torch.splat.gs_data import GSData
+
+    dev = torch.device("cuda")
+    H = W = 48
+    f, n = 60.0, 3
+    pts = np.asarray([[0, 0, 4], [0.7, 0.3, 4.5], [-0.6, -0.2, 3.5]], np.float32)
+    cols = np.zeros((4, 3), np.float32)
+    cols[0], cols[1], cols[2] = [4, -4, -4], [-4, 4, -4], [-4, -4, 4]
+    scene = GSData.from_points(pts, max_gaussians=4, device=dev).replace(
+        colors=torch.as_tensor(cols, device=dev), log_scales=torch.full((4, 3), float(np.log(0.3)), device=dev),
+        opacity_logit=torch.full((4,), 3.0, device=dev))
+    poses = SE3(R=torch.eye(3, device=dev).expand(n, 3, 3).contiguous(),
+                t=torch.tensor([[0, 0, 0], [0.4, 0, 0], [-0.4, 0.1, 0]], device=dev))
+    z = torch.zeros(n)
+    cal = Cal3Bundler.create(torch.full((n,), f), z, z, torch.full((n,), W / 2), torch.full((n,), H / 2), device=dev)
+    Ks = cal.K()
+    with torch.no_grad():
+        views = torch.stack([rendering.render_tiled(scene, poses[i], Ks[i], H, W)[0] for i in range(n)])
+    data = SfmData(poses=poses, cal=cal, pose_mask=torch.ones(n, dtype=torch.bool, device=dev),
+                   points=torch.as_tensor(pts, device=dev), track_mask=torch.ones(3, dtype=torch.bool, device=dev),
+                   meas_cam=torch.zeros(1, dtype=torch.int64, device=dev),
+                   meas_track=torch.zeros(1, dtype=torch.int64, device=dev),
+                   meas_uv=torch.zeros((1, 2), device=dev), meas_mask=torch.zeros(1, dtype=torch.bool, device=dev))
+
+    def l1(gs):
+        with torch.no_grad():
+            return float(np.mean([float((rendering.render_tiled(gs, poses[i], Ks[i], H, W)[0] - views[i]).abs().mean())
+                                  for i in range(n)]))
+
+    before = rendering.launch_count
+    gs, metrics = GaussianSplatting(GSTrainOptions(iterations=20, densify_every=1000)).train(data, views.cpu().numpy())
+    assert rendering.launch_count - before >= 20
+    assert l1(gs) < l1(GSData.from_points(pts, max_gaussians=256, device=dev))
+    assert bool(torch.isfinite(gs.means).all()) and metrics["num_gaussians"] == 3

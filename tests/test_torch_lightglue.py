@@ -245,7 +245,7 @@ def test_lightglue_slice_matches_reference_end_to_end():
     # port
     cal_t = Cal3Bundler.create(torch.full((N,), chip_smoke.FOCAL), torch.zeros(N), torch.zeros(N),
                                torch.full((N,), W / 2.0), torch.full((N,), H / 2.0))
-    so_t = SceneOptimizer(SceneOptimizerOptions(), retriever=chip_smoke.FixedPairs(pairs),
+    so_t = SceneOptimizer(SceneOptimizerOptions(device="cpu"), retriever=chip_smoke.FixedPairs(pairs),
                           detector=chip_smoke.FeedDetector(*feed),
                           matcher=LightGlueMatcher(LightGlueOptions(num_layers=L, mixed_precision=False),
                                                    state_dict=sd))

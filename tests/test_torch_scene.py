@@ -8,8 +8,9 @@ the translation-averaging start draw from different random streams, so
 the reconstructions are held to the accuracy bar instead: both register
 12/12 cameras and the port's pose AUC@5 is within 0.02 of the reference's.
 
-Also here: importing the port never imports jax, flax or triton, and
-chip_smoke.py refuses to run without a CUDA device.
+Also here: importing the port or chip_smoke.py never imports jax, flax,
+triton or the JAX package, and chip_smoke.py refuses to run without a CUDA
+device.
 """
 
 import os
@@ -69,7 +70,7 @@ def test_slice_matches_reference_end_to_end():
     # port
     cal_t = Cal3Bundler.create(torch.full((N,), chip_smoke.FOCAL), torch.zeros(N), torch.zeros(N),
                                torch.full((N,), W / 2.0), torch.full((N,), H / 2.0))
-    so_t = SceneOptimizer(SceneOptimizerOptions(), retriever=chip_smoke.FixedPairs(pairs),
+    so_t = SceneOptimizer(SceneOptimizerOptions(device="cpu"), retriever=chip_smoke.FixedPairs(pairs),
                           detector=chip_smoke.FeedDetector(*feed))
     data_t, groups_t = so_t.run(SyntheticSceneLoader(convert.se3({"R": R, "t": t}), cal=cal_t,
                                                      image_size=chip_smoke.IMAGE_HW))
@@ -91,7 +92,9 @@ def test_port_imports_no_jax_flax_or_triton():
         "import gtsfm_tpu_torch\n"
         "for m in pkgutil.walk_packages(gtsfm_tpu_torch.__path__, 'gtsfm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton'))\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton', 'gtsfm_tpu'))\n"
         "print('LEAKED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -12,11 +12,15 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
 3. kernel: the fused mutual-NN matcher kernel against its plain PyTorch
    version on the card, at the two-view shape of the slice (P=96 pairs,
    K=1024, D=128), plus an all-masked pair and a K=1000 pair; both timed
-   (median of 20 runs, CUDA events);
+   (median of 20 samples of back-to-back calls, CUDA events);
 4. attention: the fused attention kernel through all four entries against
    their plain versions: LightGlue's shape (P=96 pairs, K=2048, 4 heads of
-   64, masked keys), a fully masked key set, K=1000, K=384 and K0 != K1;
-   each entry timed at LightGlue's shape (median of 20 runs, CUDA events);
+   64, masked keys), a fully masked key set, K=1000, K=384, K0 != K1 and
+   the tiling's edges (Kk = 1, Kk = 129, Kq = 1, Kq = 129, P = 2 at
+   K = 2048); each entry timed at LightGlue's shape (median of 20 samples
+   of back-to-back calls, CUDA events) in turns with its plain version and with
+   scaled_dot_product_attention (once per direction) as the yardstick,
+   with its TFLOP/s and share of the bound;
 5. composite: the splat tile-compositing kernel against its plain version
    on the tiles of a seeded 50,000-gaussian scene (the splat scene below)
    seen by one ring camera at 480x640, f=600, binned by the port's
@@ -24,7 +28,7 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    1e-5), the full scene (|d| <= 1/255 + 1e-5, the early stop's bound), an
    all-empty tile set and a ragged tile count; TiledComposite's gradient on
    the card against the plain path's; kernel and plain timed (median of 20
-   runs, CUDA events);
+   samples, CUDA events);
 6. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
    slot with synthetic keypoints and descriptors (the descriptor feed
    below), on `cuda`, with the splat trainer after it (run_gs, 400 steps on
@@ -108,6 +112,9 @@ COMPOSITE_FLOPS = 26
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# calls per timed sample (_median_ms); the plain versions, at tens of ms a
+# call, take one
+TIMING_BATCH = 5
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +309,10 @@ def phase_build():
         print(f"build {name}.cu: {regs}", flush=True)
 
 
-def _median_ms(fn, reps: int = 20) -> float:
+def _median_ms(fn, reps: int = 20, batch: int = TIMING_BATCH) -> float:
+    """Device ms of one call of fn: the median over ``reps`` samples, each
+    CUDA events around ``batch`` calls back to back (so the host's work
+    between calls overlaps the device's), divided by ``batch``."""
     import torch
 
     fn()
@@ -312,10 +322,11 @@ def _median_ms(fn, reps: int = 20) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -387,14 +398,14 @@ def phase_kernel(kp_mask, descs, pairs):
         for which in ("plain", "kernel", "kernel", "plain"):
             fn = (lambda: match_descriptors(a, b, ma, mb)) if which == "plain" else (
                 lambda: fused_matcher.fused_match_descriptors(a, b, ma, mb))
-            order.append((which, _median_ms(fn)))
+            order.append((which, _median_ms(fn, batch=1 if which == "plain" else TIMING_BATCH)))
         for which in ("plain", "kernel"):
             ms[which] = float(np.median([t for w, t in order if w == which]))
     P, K1, D = a.shape
     K2 = b.shape[1]
     bound = max((2.0 * P * K1 * K2 * D / PEAK_BF16 * 1e3, "operations"),
                 ((a.nbytes + b.nbytes + ma.nbytes + mb.nbytes + P * K1 * (4 + 1 + 4)) / PEAK_BYTES * 1e3, "bytes"))
-    print(f"kernel timing P96_K1024 (median of 20, CUDA events): kernel {ms['kernel']:.4f} ms, "
+    print(f"kernel timing P96_K1024 (median of 20 samples, CUDA events): kernel {ms['kernel']:.4f} ms, "
           f"plain {ms['plain']:.4f} ms | runs {order} | bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     return worst, ms, bound
 
@@ -434,11 +445,37 @@ def attention_entries(q0, q1, v0, v1, m0, m1, heads):
     ]
 
 
+def attention_library(q0, q1, v0, v1, m0, m1, heads):
+    """The yardstick of each attention entry, never called by the port:
+    scaled_dot_product_attention with the additive -1e9 mask on split-head
+    views of the same inputs, once for a self entry and once per direction
+    for a cross entry. Returns {entry: call}."""
+    import torch
+
+    P, K0, C = q0.shape
+    K1 = q1.shape[1]
+    sp0 = [x.view(P, K0, heads, C // heads).transpose(1, 2) for x in (q0, v0)]
+    sp1 = [x.view(P, K1, heads, C // heads).transpose(1, 2) for x in (q1, v1)]
+    add1 = torch.where(m1, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :]
+    add0 = torch.where(m0, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def one():
+        return sdpa(sp0[0], sp1[0], sp1[1], attn_mask=add1)
+
+    def two():
+        return one(), sdpa(sp1[0], sp0[0], sp0[1], attn_mask=add0)
+
+    return {"fused_attention": one, "fused_attention_merged": one,
+            "fused_cross_attention": two, "fused_cross_attention_merged": two}
+
+
 def phase_attention(seed: int = 0):
-    """All four attention entries against their plain versions, then each
-    timed at LightGlue's shape. Returns (worst max abs error, {entry:
-    {"kernel": ms, "plain": ms}}, (bound ms, bound by) and the library
-    call's ms of the merged self entry)."""
+    """All four attention entries against their plain versions, on
+    LightGlue's shape and the kernel's tiling edges, then each timed at
+    LightGlue's shape in turns with its plain version and its library
+    yardstick. Returns (worst max abs error, {entry: {"kernel", "plain",
+    "library": ms}}, (bound ms, bound by) of the merged self entry)."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
@@ -464,6 +501,13 @@ def phase_attention(seed: int = 0):
         "K1000": make(4, 1000, 1000),
         "K384": make(4, 384, 384),
         "K0_1000_K1_384": make(4, 1000, 384),
+        # the tiling's edges: 128 query rows per block, 128 keys per tile;
+        # a cross entry also runs the swapped direction (Kq <-> Kk)
+        "Kk1": make(2, 200, 1),
+        "Kk129": make(2, 300, 129),
+        "Kq1": make(2, 1, 300),
+        "Kq129": make(2, 129, 256),
+        "P2_K2048": make(2, GLUE_KEYPOINTS, GLUE_KEYPOINTS),
     }
     worst = 0.0
     with precise():
@@ -486,31 +530,29 @@ def phase_attention(seed: int = 0):
                 worst = max(worst, err)
                 print(f"attention check {name} {entry}: max abs err {err:.4g} "
                       f"({ratio:.3f} of the tolerance)", flush=True)
+        del got, want
 
         q0, q1, v0, v1, m0, m1 = cases["P96_K2048"]
+        P, K, C = q0.shape
+        flops = 4.0 * P * heads * K * K * (C // heads)  # one direction: q.k and p.v, 2 flops per product term
+        bound = max((flops / PEAK_BF16 * 1e3, "operations"), ((4 * q0.nbytes + m1.nbytes) / PEAK_BYTES * 1e3, "bytes"))
+        library = attention_library(q0, q1, v0, v1, m0, m1, heads)
         ms = {}
         for entry, kern, plain, _vs in attention_entries(q0, q1, v0, v1, m0, m1, heads):
-            runs = [(which, _median_ms(kern if which == "kernel" else plain))
-                    for which in ("plain", "kernel", "kernel", "plain")]
-            ms[entry] = {w: float(np.median([t for k, t in runs if k == w])) for w in ("kernel", "plain")}
-            print(f"attention timing P96_K2048 {entry} (median of 20, CUDA events): kernel "
-                  f"{ms[entry]['kernel']:.4f} ms, plain {ms[entry]['plain']:.4f} ms | runs {runs}", flush=True)
-
-        # the yardstick, never called by the port: one scaled_dot_product_attention
-        # call with the additive -1e9 mask on the same inputs (split-head views)
-        P, K, C = q0.shape
-        sdpa_args = [x.view(P, K, heads, C // heads).transpose(1, 2) for x in (q0, q1, v1)]
-        add_mask = torch.where(m1, 0.0, -1e9).to(torch.bfloat16)[:, None, None, :]
-        library_ms = float(np.median([_median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            *sdpa_args, attn_mask=add_mask)) for _ in range(2)]))
-        bound = max((4.0 * P * heads * K * K * (C // heads) / PEAK_BF16 * 1e3, "operations"),
-                    ((4 * q0.nbytes + m1.nbytes) / PEAK_BYTES * 1e3, "bytes"))
-        print(f"attention library P96_K2048: scaled_dot_product_attention with the additive mask "
-              f"{library_ms:.4f} ms (median of 2 x 20, CUDA events) | merged self entry bound {bound[0]:.4f} ms "
-              f"({bound[1]})", flush=True)
-    del cases, sdpa_args
+            calls = {"kernel": kern, "plain": plain, "library": library[entry]}
+            order = ("kernel", "library", "plain", "plain", "library", "kernel")
+            runs = [(which, _median_ms(calls[which], batch=1 if which == "plain" else TIMING_BATCH)) for which in order]
+            ms[entry] = {w: float(np.median([t for k, t in runs if k == w])) for w in calls}
+            n_dir = 2 if "cross" in entry else 1
+            k_ms = ms[entry]["kernel"]
+            print(f"attention timing P96_K2048 {entry} (median of 20 samples, CUDA events, in turns): kernel {k_ms:.4f} ms, "
+                  f"plain {ms[entry]['plain']:.4f} ms, scaled_dot_product_attention x{n_dir} "
+                  f"{ms[entry]['library']:.4f} ms | {n_dir * flops / k_ms / 1e9:.1f} TFLOP/s, "
+                  f"{n_dir * bound[0] / k_ms:.3f} of the bound {n_dir * bound[0]:.4f} ms ({bound[1]}) | "
+                  f"kernel / library {k_ms / ms[entry]['library']:.3f} | runs {runs}", flush=True)
+    del cases, library
     torch.cuda.empty_cache()
-    return worst, ms, bound, library_ms
+    return worst, ms, bound
 
 
 def splat_camera(R, t, index: int, dev):
@@ -639,11 +681,12 @@ def phase_composite(R, t):
         raise AssertionError(f"TiledComposite's gradient on the card differs from the plain path's: {gerr:.3g}")
 
     with torch.no_grad(), precise():
-        runs = [(which, _median_ms(lambda: (kernel if which == "kernel" else plain)(packed, gidx, counts, origins)))
+        runs = [(which, _median_ms(lambda: (kernel if which == "kernel" else plain)(packed, gidx, counts, origins),
+                                   batch=1 if which == "plain" else TIMING_BATCH))
                 for which in ("plain", "kernel", "kernel", "plain")]
     ms = {wh: float(np.median([x for k, x in runs if k == wh])) for wh in ("kernel", "plain")}
     bound = composite_bound(packed, need, n_tiles)
-    print(f"composite timing {n_tiles} tiles x cap {gidx.shape[1]}, G {packed.shape[0]} (median of 20, CUDA "
+    print(f"composite timing {n_tiles} tiles x cap {gidx.shape[1]}, G {packed.shape[0]} (median of 20 samples, CUDA "
           f"events): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms | runs {runs} | evaluated slots "
           f"{int(need.sum())} of {int(counts.sum())} live | bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     del bins, cases, grads
@@ -791,12 +834,16 @@ def phase_lightglue(pairs, R, t):
         restore = _plain_attention(fa) if which == "plain" else (lambda: None)
         try:
             torch.cuda.synchronize()
+            before = fa.launch_count
             t0 = time.perf_counter()
             z[which] = matcher.log_assignment(*args)
             torch.cuda.synchronize()
             fwd_sec[which].append(time.perf_counter() - t0)
+            per_forward = fa.launch_count - before if which == "kernel" else None
         finally:
             restore()
+        if which == "kernel":
+            fwd_launches = per_forward
     m0, m1 = args[4], args[5]
     idx = {w: matcher._postprocess(z[w], m0, m1)[0] for w in z}
     decisive = glue_decisive(z["plain"], m0, m1, matcher.options.match_threshold)
@@ -808,7 +855,8 @@ def phase_lightglue(pairs, R, t):
     print(f"lightglue check: log-assignment max |kernel - plain| {zerr:.4g}; {int(decisive.sum())} "
           f"decisive rows (gap {GLUE_GAP}), {bad} differ; {n_match} matches through the kernel, "
           f"{int((idx['plain'] >= 0).sum())} through the plain attention | forward s (96 pairs, host "
-          f"clock) kernel {fwd_sec['kernel']}, plain {fwd_sec['plain']}", flush=True)
+          f"clock) kernel {fwd_sec['kernel']}, plain {fwd_sec['plain']}; {fwd_launches} attention launches "
+          f"per forward", flush=True)
     if bad or int(decisive.sum()) == 0:
         raise AssertionError(f"LightGlue matches through the kernel differ from the plain attention's "
                              f"on {bad} of {int(decisive.sum())} decisive rows")
@@ -905,10 +953,20 @@ def main() -> int:
     kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, NUM_KEYPOINTS)
 
     err, ms, bound = phase_kernel(kp_mask, descs, pairs)
-    attn_err, attn_ms, attn_bound, attn_library_ms = phase_attention()
+    attn_err, attn_ms, attn_bound = phase_attention()
     comp_err, comp_ms, comp_bound = phase_composite(R, t)
     launches, slice_comp_launches = phase_slice(kp_xy, kp_mask, descs, pairs, R, t)
-    attn_launches, _sec, _fwd = phase_lightglue(pairs, R, t)
+    attn_launches, _sec, fwd = phase_lightglue(pairs, R, t)
+    # the forward's 36 launches: per layer two self entries and one cross
+    # entry (two launches), each at the timed P96_K2048 shape
+    from gtsfm_tpu_torch.frontend.matchers.lightglue import LightGlueOptions
+
+    layers = LightGlueOptions().num_layers
+    attn_fwd_ms = layers * (2 * attn_ms["fused_attention_merged"]["kernel"]
+                            + attn_ms["fused_cross_attention_merged"]["kernel"])
+    print(f"lightglue forward: {fwd['kernel'] * 1e3:.3f} ms warm (host clock), of which the attention kernel "
+          f"{attn_fwd_ms:.3f} ms ({layers} layers x (2 self + 1 cross entry) at the timed medians), "
+          f"{attn_fwd_ms / (fwd['kernel'] * 1e3):.3f} of the forward", flush=True)
     comp_launches = phase_splat(R, t)
 
     print(smi, flush=True)
@@ -937,7 +995,7 @@ def main() -> int:
         "plain_ms": attn_ms["fused_attention_merged"]["plain"],
         "bound_ms": attn_bound[0],
         "bound_by": attn_bound[1],
-        "library_ms": attn_library_ms,
+        "library_ms": attn_ms["fused_attention_merged"]["library"],
     }, {
         "name": "splat_composite",
         "route": "cuda",

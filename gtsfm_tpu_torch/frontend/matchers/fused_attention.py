@@ -11,10 +11,13 @@ written out in front of every argument:
 | ``fused_cross_attention``      | (P, h, K0|K1, dh), both directions   | ``_cross_kernel``         |
 | ``fused_cross_attention_merged`` | (P, K0|K1, h*dh), both directions  | ``_attn_kernel_2d`` twice |
 
-All four run one kernel, csrc/fused_attention.cu, which addresses q, k, v
-and the output through pair, row and head strides, so neither layout is
-copied. A cross entry launches it twice with the images' roles swapped:
-the reference's column softmax of S = qk0 qk1^T is a row softmax of S^T.
+All four run one kernel, csrc/fused_attention.cu, which reads q, k, v and
+writes the output through 4-D TMA tensor maps built from their pair, row
+and head strides (``tma_layout``), so neither layout is copied; a view that
+breaks TMA's stride rules (LightGlue's self-attention v, a stride-3 view of
+the interleaved qkv) is copied first. A cross entry launches the kernel
+twice with the images' roles swapped: the reference's column softmax of
+S = qk0 qk1^T is a row softmax of S^T.
 
 The plain versions (``attend``, ``attend_merged``, ``cross_attend``,
 ``cross_attend_merged``) are the reference's XLA formula
@@ -34,6 +37,7 @@ is written in the CUDA source and in utils/cuda_build.py.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -43,6 +47,7 @@ from gtsfm_tpu_torch.utils import cuda_build
 MASK_FILL = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
 PLAIN_SCORE_BYTES = 1 << 30
+QUERY_ROWS = 64  # query rows of one consumer warpgroup: the box of the q and o maps
 
 # launches of the CUDA kernel in this process (a cross entry launches it
 # twice; never incremented by the CPU path)
@@ -98,10 +103,10 @@ def cross_attend(qk0, qk1, v0, v1, mask0=None, mask1=None):
 
 
 def split_heads(x, heads: int):
-    """(P, K, h*dh) -> the (P, h, K, dh) view (no copy when the last
-    dimension is contiguous)."""
+    """(P, K, h*dh) -> the (P, h, K, dh) view (splitting a dimension is
+    always a view)."""
     P, K, D = x.shape
-    return x.reshape(P, K, heads, D // heads).transpose(1, 2)
+    return x.view(P, K, heads, D // heads).transpose(1, 2)
 
 
 def merge_heads(x):
@@ -125,6 +130,7 @@ def cross_attend_merged(qk0, qk1, v0, v1, heads: int, mask0=None, mask1=None):
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
+@functools.cache
 def _kernel():
     return cuda_build.function(
         "fused_attention", "gtsfm_fused_attention",
@@ -154,17 +160,53 @@ def _check(q, k, v, kv_mask):
         raise ValueError(f"empty attention: q {tuple(q.shape)}, Kk={Kk}")
 
 
-def _addressable(x):
-    """A (P, h, K, dh) view the kernel can read with 4-byte loads: the head
-    dimension contiguous, every other stride even, the base 4-byte
-    aligned. Otherwise a contiguous copy."""
-    ok = x.stride(3) == 1 and all(s % 2 == 0 for s in x.stride()[:3]) and x.data_ptr() % 4 == 0
-    return x if ok else x.contiguous()
+def key_tile(dh: int) -> int:
+    """Keys per K/V tile of the kernel at head dim ``dh`` (``Cfg<DH>::BK``)."""
+    return 128 if dh <= 64 else 64
+
+
+def tma_layout(x, box_rows: int):
+    """The 4-D TMA tensor map the kernel reads or writes a (P, h, K, dh)
+    bf16 view through, or None when TMA cannot address the view (the
+    wrapper then copies it).
+
+    TMA's rules: the base 16-byte aligned, the innermost (dh) stride 1 and
+    every other stride a multiple of 16 bytes. Returns {"dims": (dh, K, h,
+    P), "strides": byte strides of (rows, heads, pairs), "box": (columns,
+    rows)}; a box row is one swizzle span, min(dh, 64) columns."""
+    P, h, K, dh = x.shape
+    es = x.element_size()
+    s_pair, s_head, s_row, s_col = x.stride()
+    row, head, pair = s_row * es, s_head * es, s_pair * es
+    if s_col != 1 or x.data_ptr() % 16 or min(row, head, pair) <= 0 or (row | head | pair) % 16:
+        return None
+    return {"dims": (dh, K, h, P), "strides": (row, head, pair), "box": (min(dh, 64), box_rows)}
+
+
+def tma_maps(q, k, v, out):
+    """The views the kernel reads, q, k, v (each a contiguous copy where TMA
+    cannot address the given view), and the 36 int64 that describe the maps
+    of q, k, v and out in turn: dims, byte strides, box (``tma_layout``)."""
+    dh = q.shape[3]
+    views, layout = [], []
+    for t, rows in ((q, QUERY_ROWS), (k, key_tile(dh)), (v, key_tile(dh)), (out, QUERY_ROWS)):
+        lay = tma_layout(t, rows)
+        if lay is None:
+            if t is out:
+                raise ValueError("the output view is not TMA-addressable")
+            t = t.contiguous()
+            lay = tma_layout(t, rows)
+        views.append(t)
+        layout += [*lay["dims"], *lay["strides"], *lay["box"]]
+    return views[:3], layout
 
 
 def _launch(q, k, v, kv_mask, out):
     """One kernel launch over (P, h, K, dh) views; writes ``out``."""
     global launch_count
+    if q.device.type == "cuda" and q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return _launch(q, k, v, kv_mask, out)
     P, h, Kq, dh = q.shape
     Kk = k.shape[2]
     if q.device.type != "cuda":
@@ -175,20 +217,16 @@ def _launch(q, k, v, kv_mask, out):
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     if P > 65535 or h > 65535:
         raise ValueError(f"unsupported sizes P={P} h={h}")
-    q, k, v = _addressable(q), _addressable(k), _addressable(v)
+    views, layout = tma_maps(q, k, v, out)
+    layout.append(Kk)  # the mask's pair stride
+    c_layout = (ctypes.c_longlong * len(layout))(*layout)
     mask = None if kv_mask is None else kv_mask.contiguous()
-    strides = []
-    for t in (q, k, v, out):
-        strides += [t.stride(0), t.stride(2), t.stride(1)]  # pair, row, head
-    strides.append(Kk)
-    c_strides = (ctypes.c_longlong * 13)(*strides)
-    kernel = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if mask is None else mask.data_ptr(),
-            out.data_ptr(), ctypes.addressof(c_strides), P, h, Kq, Kk, dh, stream,
-        )
+    rc = _kernel()(
+        *(t.data_ptr() for t in views), 0 if mask is None else mask.data_ptr(),
+        out.data_ptr(), ctypes.addressof(c_layout), P, h, Kq, Kk, dh, torch.cuda.current_stream().cuda_stream,
+    )
+    if rc < 0:  # -1000: the driver offers no cuTensorMapEncodeTiled
+        raise RuntimeError(f"fused attention: tensor map encode failed: CUresult {-rc}")
     if rc != 0:
         raise RuntimeError(f"fused attention launch failed: cudaError {rc}")
     launch_count += 1

@@ -17,6 +17,11 @@ tests); bf16 one bf16 ulp of the output plus 2^-8 max|v|, the two bf16
 roundings (probabilities, output) that XLA and PyTorch may place
 differently. The CUDA kernel itself is held against the plain versions in
 test_torch_cuda.py and chip_smoke.py.
+
+The wrapper's TMA layout rule (``tma_layout``, ``tma_maps``: view ->
+tensor-map dims, byte strides and box, or a copy) is checked on the views
+each entry hands the kernel, at LightGlue's shape and at ragged ones, and
+on views TMA cannot address; it needs no card.
 """
 
 import jax.numpy as jnp
@@ -180,3 +185,88 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
         k = k.to(torch.bfloat16)
     with pytest.raises((ValueError, TypeError)):
         fa.fused_attention(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's TMA layout rule (no card needed)
+# ---------------------------------------------------------------------------
+def _launch_views(entry, P, K0, K1):
+    """(q, k, v, out) of every kernel launch the entry makes, as CPU views:
+    the inputs are the merged (P, K, H*DH) tensors LightGlue hands over."""
+    x = [torch.zeros(P, K, H * DH, dtype=torch.bfloat16) for K in (K0, K1, K0, K1)]
+    sp = [fa.split_heads(a, H) for a in x]
+
+    def out(i, merged):
+        return (fa.split_heads(torch.empty(x[i].shape, dtype=torch.bfloat16), H) if merged
+                else torch.empty(sp[i].shape, dtype=torch.bfloat16))
+
+    merged = entry.endswith("_merged")
+    launches = [(sp[0], sp[1], sp[3], out(0, merged))]
+    if "cross" in entry:  # the second direction: image 1's queries over image 0's keys
+        launches.append((sp[1], sp[0], sp[2], out(1, merged)))
+    return launches
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+@pytest.mark.parametrize("K0,K1", [(2048, 2048), (1000, 129)])
+def test_tma_maps_address_every_entrys_views_without_a_copy(entry, K0, K1):
+    for q, k, v, out in _launch_views(entry, 2, K0, K1):
+        views, layout = fa.tma_maps(q, k, v, out)
+        assert all(a is b for a, b in zip(views, (q, k, v)))
+        assert len(layout) == 36
+        for i, (t, rows) in enumerate(zip((q, k, v, out), (64, 128, 128, 64))):
+            P, h, K, dh = t.shape
+            dims, strides, box = layout[9 * i:9 * i + 4], layout[9 * i + 4:9 * i + 7], layout[9 * i + 7:9 * i + 9]
+            assert dims == [dh, K, h, P]
+            assert box == [64, rows]
+            if t is out and not entry.endswith("_merged"):  # a fresh (P, h, K, dh) tensor
+                assert strides == [2 * DH, 2 * K * DH, 2 * H * K * DH]
+            else:  # heads as column slices of (P, K, H*DH)
+                assert strides == [2 * H * DH, 2 * DH, 2 * K * H * DH]
+
+
+def test_tma_maps_copy_the_self_blocks_interleaved_v():
+    """LightGlue's self block takes v as a stride-3 view of the interleaved
+    qkv projection (official layout (P, K, h, dh, 3)); TMA needs the head
+    dimension contiguous, so the wrapper copies v and nothing else."""
+    P, K = 2, 2048
+    qkv = torch.zeros(P, K, H, DH, 3, dtype=torch.bfloat16)
+    v = fa.split_heads(qkv[..., 2].reshape(P, K, H * DH), H)
+    q, k = (fa.split_heads(torch.zeros(P, K, H * DH, dtype=torch.bfloat16), H) for _ in range(2))
+    out = fa.split_heads(torch.empty(P, K, H * DH, dtype=torch.bfloat16), H)
+    assert v.stride(3) == 3 and fa.tma_layout(v, 128) is None
+    views, layout = fa.tma_maps(q, k, v, out)
+    assert views[0] is q and views[1] is k
+    assert views[2] is not v and views[2].is_contiguous() and torch.equal(views[2], v)
+    assert layout[18:25] == [DH, K, H, P, 2 * DH, 2 * K * DH, 2 * H * K * DH]
+
+
+def _unaddressable(case):
+    bf = torch.bfloat16
+    if case == "unaligned_base":  # one element in: the base is 2 bytes off
+        return fa.split_heads(torch.zeros(2, 130, H * DH + 8, dtype=bf)[..., 1:H * DH + 1], H)
+    if case == "row_stride":  # rows 257 elements = 514 bytes apart
+        return fa.split_heads(torch.zeros(2, 130, H * DH + 1, dtype=bf)[..., :H * DH], H)
+    if case == "head_dim_stride":
+        return torch.zeros(2, H, 130, 2 * DH, dtype=bf)[..., ::2]
+    return torch.zeros(1, H, 130, DH, dtype=bf).expand(2, H, 130, DH)  # pair stride 0
+
+
+@pytest.mark.parametrize("case", ["unaligned_base", "row_stride", "head_dim_stride", "broadcast_pairs"])
+def test_tma_layout_refuses_what_tma_cannot_address(case):
+    x = _unaddressable(case)
+    assert fa.tma_layout(x, 64) is None
+    views, layout = fa.tma_maps(x, x, x, torch.empty(x.shape, dtype=x.dtype))
+    assert all(t.is_contiguous() and torch.equal(t, x) for t in views)
+    assert layout[4:7] == [2 * DH, 2 * 130 * DH, 2 * H * 130 * DH]
+    with pytest.raises(ValueError):  # the output is the wrapper's own: it must be addressable
+        fa.tma_maps(x, x, x, x)
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_tma_box_is_one_swizzle_row_by_the_kernels_tile(dh):
+    x = torch.zeros(2, 3, 200, dh, dtype=torch.bfloat16)
+    _, layout = fa.tma_maps(x, x, x, torch.empty_like(x))
+    keys = 128 if dh <= 64 else 64  # Cfg<DH>::BK
+    assert [layout[9 * i + 7:9 * i + 9] for i in range(4)] == [[min(dh, 64), 64], [min(dh, 64), keys],
+                                                               [min(dh, 64), keys], [min(dh, 64), 64]]

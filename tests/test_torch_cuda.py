@@ -16,9 +16,10 @@ second-best similarities differ by more than 1e-4 (float32 sums of exact
 bf16 products in another order can swap nearer ties).
 
 Attention shapes cover what the kernel takes beyond LightGlue's
-(96, 2048, 4 heads of 64): ragged K0 != K1 that are not multiples of the
-64-row tile, one pair, narrow (16, 32) and wide (128) head dims, and a
-fully masked key set, through all four entries. Tolerance: chip_smoke's
+(96, 2048, 4 heads of 64): ragged K0 != K1, one pair, narrow (16, 32) and
+wide (128) head dims, a fully masked key set, and the tiling's edges (one
+key, one past a 128-key tile, one query, one past the 128-row block, two
+pairs at K = 2048), through all four entries. Tolerance: chip_smoke's
 ``attention_agrees`` (ATTN_TOL_V * max|v| + ATTN_TOL_OUT * |want|, the two
 bf16 roundings the kernel and the plain version place differently).
 
@@ -130,6 +131,13 @@ ATTN_SHAPES = {
     "narrow32": (2, 96, 200, 8, 32),
     "wide128": (2, 300, 257, 2, 128),
     "all_masked": (2, 128, 128, 4, 64),
+    # the kernel's tiling edges (128 query rows per block, 128 keys per
+    # tile at dh 64); a cross entry also runs the swapped direction
+    "keys1": (2, 200, 1, 4, 64),
+    "keys129": (2, 300, 129, 4, 64),
+    "queries1": (2, 1, 300, 4, 64),
+    "queries129": (2, 129, 256, 4, 64),
+    "p2_k2048": (2, 2048, 2048, 4, 64),
 }
 ATTN_ENTRIES = ["fused_attention", "fused_attention_merged", "fused_cross_attention",
                 "fused_cross_attention_merged"]

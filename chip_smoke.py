@@ -26,9 +26,13 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    seen by one ring camera at 480x640, f=600, binned by the port's
    render_tiled: a low-opacity copy where no tile stops early (|d| <=
    1e-5), the full scene (|d| <= 1/255 + 1e-5, the early stop's bound), an
-   all-empty tile set and a ragged tile count; TiledComposite's gradient on
-   the card against the plain path's; kernel and plain timed (median of 20
-   samples, CUDA events);
+   all-empty tile set (exact), a ragged tile count, and the kernel's
+   edges: every count cut to 256 and to 257 (the stop boundary), indices
+   -1 and G among the faint copy's slots, and cap 100 (only 64 slots
+   composited); TiledComposite's gradient on the card against the plain
+   path's; kernel and plain timed (median of 20 samples, CUDA events), the
+   kernel also as a CUDA graph of 5 calls (its device time alone), with
+   its share of the bound;
 6. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
    slot with synthetic keypoints and descriptors (the descriptor feed
    below), on `cuda`, with the splat trainer after it (run_gs, 400 steps on
@@ -102,10 +106,12 @@ COMPOSITE_TOL = 1e-5  # kernel vs plain where no tile stops early: float32 order
 # with the early stop: a tile stops once every pixel has T <= 1/255, and the
 # skipped tail adds at most T * max(rgb) <= 1/255 to any output
 COMPOSITE_TOL_STOP = 1.0 / 255.0 + 1e-5
-# float32 operations per pixel and slot in the compositing kernel, counted
-# from csrc/splat_composite.cu: dx, dy 2; q 9; clamp 1; -q/2 1; exp 1;
-# alpha * exp 1; min 1; cutoff select 1; w = a T 1; three color FMAs 6;
-# 1 - a 1; T update 1
+# float32 operations per pixel and slot of the compositing function, counted
+# from its plain version (splat/rendering.py composite_tiles_plain) and the
+# reference's _composite_kernel (gtsfm_tpu/splat/rendering.py:420), not from
+# any implementation, so the bound stays one yardstick: dx, dy 2; q 9;
+# clamp 1; -q/2 1; exp 1; alpha * exp 1; min 1; cutoff select 1; w = a T 1;
+# three color FMAs 6; 1 - a 1; T update 1
 COMPOSITE_FLOPS = 26
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, float32
 # outside them, HBM3
@@ -602,11 +608,53 @@ def composite_bound(packed, counts_needed, n_tiles: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def composite_plain(packed, gidx, counts, origins):
+    """The plain compositing of these inputs, every slot index outside
+    [0, G) sent to an added all-zero row (alpha 0: no contribution), which
+    is what the kernel computes for such an index."""
+    import torch
+
+    from gtsfm_tpu_torch.splat import rendering
+
+    G = packed.shape[0]
+    ext = torch.cat([packed, torch.zeros_like(packed[:1])])
+    inside = (gidx >= 0) & (gidx < G)
+    gidx = torch.where(inside, gidx, torch.full_like(gidx, G))
+    return rendering.composite_tiles_plain(*rendering._gather_attrs_f32(ext, gidx, counts), origins,
+                                           rendering.KERNEL_TILE)
+
+
+def _graph_ms(fn, calls: int = TIMING_BATCH, reps: int = 20) -> float:
+    """Device ms of one call of fn alone: ``calls`` calls captured in one
+    CUDA graph, the median of ``reps`` replays (CUDA events) over
+    ``calls``. Unlike _median_ms, no host time is in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
 def phase_composite(R, t):
     """The compositing kernel against its plain version on the splat
-    scene's tiles from ring camera 0, binned by the port's render_tiled.
-    Returns (max abs error on the full scene, {"kernel": ms, "plain": ms},
-    (bound ms, bound by), live slots per tile)."""
+    scene's tiles from ring camera 0, binned by the port's render_tiled,
+    and on the kernel's edges. Returns (max abs error on the full scene,
+    {"kernel": ms, "plain": ms, "device": ms}, (bound ms, bound by))."""
     import torch
 
     from gtsfm_tpu_torch.splat import rendering
@@ -631,19 +679,32 @@ def phase_composite(R, t):
     with torch.no_grad(), precise():
         bins = {name: rendering.bin_tiles(g, pose, K, h, w) for name, g in (("faint", faint), ("full", full))}
         packed, gidx, counts, origins = bins["full"]
+        p_f, gidx_f, counts_f, origins_f = bins["faint"]
         n_tiles = gidx.shape[0]
+        G = packed.shape[0]
+        bad = gidx_f.clone()
+        bad[:, ::7] = -1
+        bad[:, 3::11] = G
         cases = {
             "faint": (bins["faint"], COMPOSITE_TOL),
             "full": (bins["full"], COMPOSITE_TOL_STOP),
             "all_empty": ((packed, gidx, torch.zeros_like(counts), origins), 0.0),
             "ragged_997": (tuple(a[:997].contiguous() if a is not packed else a for a in bins["full"]),
                            COMPOSITE_TOL_STOP),
+            # the stop boundary: at count 256 no tile checks (none stops
+            # early), at 257 each checks once after 256 slots
+            "count_256": ((packed, gidx, torch.clamp(counts, max=256), origins), COMPOSITE_TOL),
+            "count_257": ((packed, gidx, torch.clamp(counts, max=257), origins), COMPOSITE_TOL_STOP),
+            "out_of_range": ((p_f, bad, counts_f, origins_f), COMPOSITE_TOL),
+            # cap 100: only composited_slots(100) = 64 slots are read
+            "cap_100": ((p_f, gidx_f[:, :100].contiguous(), torch.clamp(counts_f, max=100), origins_f),
+                        COMPOSITE_TOL),
         }
         errs = {}
         for name, (args, tol) in cases.items():
             got = kernel(*args)
             torch.cuda.synchronize()
-            want = plain(*args)
+            want = composite_plain(*args)
             err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
             stopped = int((want[1].max(dim=1).values <= 1.0 / 255.0).sum())
             finite = all(bool(torch.isfinite(g).all()) for g in got)
@@ -652,8 +713,10 @@ def phase_composite(R, t):
                   f"max {int(args[2].max())}", flush=True)
             if not finite or err > tol:
                 raise AssertionError(f"composite kernel disagrees on {name}: max abs err {err:.4g} > {tol:.4g}")
-            if name == "faint" and stopped:
-                raise AssertionError("the faint scene saturated a tile; it must not")
+            if name in ("faint", "out_of_range", "cap_100") and stopped:
+                raise AssertionError(f"the {name} case saturated a tile; it must not")
+            if name in ("count_256", "count_257") and not stopped:
+                raise AssertionError(f"no tile of {name} saturates: the stop boundary is not exercised")
             if name == "all_empty" and not (bool((got[0] == 0).all()) and bool((got[1] == 1).all())):
                 raise AssertionError("an empty tile is not black with T = 1")
             errs[name] = err
@@ -664,7 +727,6 @@ def phase_composite(R, t):
     gen = torch.Generator(device=dev).manual_seed(0)
     wc = torch.rand((n_tiles, 256, 3), generator=gen, device=dev)
     wt = torch.rand((n_tiles, 256), generator=gen, device=dev)
-    p_f, gidx_f, counts_f, origins_f = bins["faint"]
     grads = {}
     with precise():
         for which in ("kernel", "plain"):
@@ -681,14 +743,20 @@ def phase_composite(R, t):
         raise AssertionError(f"TiledComposite's gradient on the card differs from the plain path's: {gerr:.3g}")
 
     with torch.no_grad(), precise():
-        runs = [(which, _median_ms(lambda: (kernel if which == "kernel" else plain)(packed, gidx, counts, origins),
-                                   batch=1 if which == "plain" else TIMING_BATCH))
+        calls = {"kernel": lambda: kernel(packed, gidx, counts, origins),
+                 "plain": lambda: plain(packed, gidx, counts, origins)}
+        runs = [(which, _median_ms(calls[which], batch=1 if which == "plain" else TIMING_BATCH))
                 for which in ("plain", "kernel", "kernel", "plain")]
+        device = [_graph_ms(calls["kernel"]) for _ in range(2)]
     ms = {wh: float(np.median([x for k, x in runs if k == wh])) for wh in ("kernel", "plain")}
+    ms["device"] = float(np.median(device))
     bound = composite_bound(packed, need, n_tiles)
     print(f"composite timing {n_tiles} tiles x cap {gidx.shape[1]}, G {packed.shape[0]} (median of 20 samples, CUDA "
-          f"events): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms | runs {runs} | evaluated slots "
-          f"{int(need.sum())} of {int(counts.sum())} live | bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+          f"events): kernel {ms['kernel']:.4f} ms ({TIMING_BATCH} calls back to back), {ms['device']:.4f} ms device "
+          f"(a CUDA graph of {TIMING_BATCH} calls, runs {[round(x, 4) for x in device]}), plain {ms['plain']:.4f} ms "
+          f"| runs {runs} | evaluated slots {int(need.sum())} of {int(counts.sum())} live | bound {bound[0]:.4f} ms "
+          f"({bound[1]}): {bound[0] / ms['kernel']:.3f} of it back to back, {bound[0] / ms['device']:.3f} device",
+          flush=True)
     del bins, cases, grads
     torch.cuda.empty_cache()
     return errs["full"], ms, bound
@@ -1006,6 +1074,7 @@ def main() -> int:
         "max_abs_err": comp_err,
         "ms": comp_ms["kernel"],
         "plain_ms": comp_ms["plain"],
+        "device_ms": comp_ms["device"],
         "bound_ms": comp_bound[0],
         "bound_by": comp_bound[1],
         "library_ms": None,

@@ -17,22 +17,27 @@ tensor it runs the plain version ``composite_tiles_plain`` (the reference's
 recomputes the float32 gather and the plain compositing from the packed
 attributes and differentiates through them, on both devices.
 
-The kernel: one block of 256 threads per 16x16 tile, one pixel per thread,
-transmittance and RGB in registers. The block walks the tile's slots in
-batches of 256: each thread gathers one slot's 9 float32 attributes from the
-(G, 9) table into shared memory (the gather the TPU did in XLA before its
-kernel), then every thread composites the batch front to back. Between
+The kernel: one block of 64 threads per 16x16 tile, four pixels of one row
+per thread, transmittance and RGB in registers. Each of the block's two
+warps walks the tile's slots on its own, 32 at a time: every lane gathers
+one slot's 9 float32 attributes from the (G, 9) table (the gather the TPU
+did in XLA before its kernel), the warp keeps the slots whose q < 16
+ellipse can reach its 8 rows (a conservative test: a dropped slot adds
+exactly nothing there) and composites them front to back from shared
+memory, with one ``ex2.approx`` per pixel and slot. Between 256-slot
 batches the block stops once every pixel has T <= 1/255, the reference's
-rule applied per tile. What bounds it on an H100: about 20 float32
-operations and one exp per pixel-slot pair against 36 bytes read per slot
-and 16 bytes written per pixel, so it is compute-bound. The reference
-packs rgb and the inverse covariance as bf16 pairs for the TPU's gather; the
-kernel reads float32, the formulation of the reference's CPU path and VJP.
+rule applied per tile. What bounds it on an H100 is not memory (about 40
+bytes per slot against 256 pixels of about 20 float32 operations) but
+instruction issue and the latency of each pixel's chain through T
+(``scripts/composite_limits.py``). The reference packs rgb and the inverse
+covariance as bf16 pairs for the TPU's gather; the kernel reads float32,
+the formulation of the reference's CPU path and VJP.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,7 +46,7 @@ from gtsfm_tpu_torch.splat.gs_data import GSData
 from gtsfm_tpu_torch.utils import cuda_build
 from gtsfm_tpu_torch.utils.numerics import mm
 
-KERNEL_TILE = 16  # the kernel's tile side: one 256-thread block per tile
+KERNEL_TILE = 16  # the kernel's tile side: one block per tile
 
 # launches of the CUDA compositing kernel in this process (never incremented
 # by the CPU path)
@@ -319,6 +324,7 @@ def composite_tiles_plain(t_xy, t_a, t_rgb, t_i00, t_i01, t_i11, origins, tile: 
     return color, T
 
 
+@functools.cache
 def _kernel():
     return cuda_build.function("splat_composite", "gtsfm_splat_composite",
                                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
@@ -362,17 +368,17 @@ def composite_tiles(packed: torch.Tensor, gidx: torch.Tensor, counts: torch.Tens
         raise ValueError(f"unsupported device {packed.device}")
     global launch_count
     dev = packed.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return composite_tiles(packed, gidx, counts, origins, tile)
     P = tile * tile
     color = torch.empty((n_tiles, P, 3), dtype=torch.float32, device=dev)
     T = torch.empty((n_tiles, P), dtype=torch.float32, device=dev)
     if n_tiles == 0:
         return color, T
-    kernel = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kernel(packed.data_ptr(), gidx.data_ptr(), counts.data_ptr(), origins.data_ptr(),
-                    packed.shape[0], n_tiles, cap, composited_slots(cap), color.data_ptr(), T.data_ptr(),
-                    stream)
+    rc = _kernel()(packed.data_ptr(), gidx.data_ptr(), counts.data_ptr(), origins.data_ptr(), packed.shape[0],
+                   n_tiles, cap, composited_slots(cap), color.data_ptr(), T.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"splat composite launch failed: cudaError {rc}")
     launch_count += 1

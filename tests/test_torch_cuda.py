@@ -24,7 +24,9 @@ pairs at K = 2048), through all four entries. Tolerance: chip_smoke's
 bf16 roundings the kernel and the plain version place differently).
 
 Compositing cases cover caps 64 and 512 with ragged counts, empty tiles, a
-saturating tile (early stop) and a single tile. Tolerance: 1e-5 where no
+saturating tile (early stop), a single tile, and the kernel's edges: counts
+256 and 257 on saturating tiles (the stop boundary), indices -1 and G, cap
+100 (only 64 slots composited) and 133 tiles. Tolerance: 1e-5 where no
 tile stops early (float32 order only), 1/255 + 1e-5 where one does (the
 skipped tail's bound), chip_smoke's COMPOSITE_TOL and COMPOSITE_TOL_STOP.
 """
@@ -39,6 +41,7 @@ from chip_smoke import (
     KERNEL_TOL_BEST,
     attention_agrees,
     attention_entries,
+    composite_plain,
     kernel_agrees,
 )
 from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
@@ -227,8 +230,20 @@ def test_averaging_is_bitwise_reproducible_on_the_card():
     assert bool(torch.isfinite(wti[0]).all())
 
 
-# name: (n_tiles, cap)
-COMPOSITE_SHAPES = {"cap64": (37, 64), "cap512": (23, 512), "saturating": (5, 512), "one_tile": (1, 512)}
+# name: (n_tiles, cap, seed)
+COMPOSITE_SHAPES = {
+    "cap64": (37, 64, 1), "cap512": (23, 512, 0), "saturating": (5, 512, 3), "one_tile": (1, 512, 2),
+    # the early stop's edge: saturating tiles with counts 256 (no check after
+    # the first batch) and 257 (one check, the 257th slot skipped)
+    "stop_edge": (6, 512, 4),
+    # indices -1 and G among the live slots: they contribute nothing
+    "out_of_range": (9, 512, 5),
+    # a cap that is not a multiple of 64: only composited_slots(100) = 64 read
+    "cap100": (11, 100, 6),
+    # more tiles than the card has SMs, an odd count
+    "ragged_133": (133, 128, 7),
+}
+SATURATING = ("saturating", "stop_edge")
 
 
 def _composite_card_inputs(case: str):
@@ -236,9 +251,11 @@ def _composite_card_inputs(case: str):
     over a 4x4-tile area, ragged counts including empty and full tiles. In
     "saturating" tile 0's first 300 slots are opaque gaussians at its centre
     with a wide footprint, so it (and the tiles that draw them too) stops
-    early."""
-    n_tiles, cap = COMPOSITE_SHAPES[case]
-    rng = np.random.default_rng(sorted(COMPOSITE_SHAPES).index(case))
+    early. In "stop_edge" tiles 0 and 1 (one origin) draw those gaussians
+    in their first 256 slots, with counts 256 and 257. In "out_of_range"
+    every 7th slot holds -1 and every 11th (from the 4th) G."""
+    n_tiles, cap, seed = COMPOSITE_SHAPES[case]
+    rng = np.random.default_rng(seed)
     G = 700
     packed = np.stack([
         rng.uniform(0, 64, G), rng.uniform(0, 64, G), rng.uniform(0, 0.9, G),
@@ -256,6 +273,16 @@ def _composite_card_inputs(case: str):
         packed[:300, 6], packed[:300, 7], packed[:300, 8] = 1e-3, 0.0, 1e-3
         gidx[0, :300] = np.arange(300)
         counts[0] = cap
+    elif case == "stop_edge":
+        org[1] = org[0]
+        packed[:256, 0:2] = org[0] + 8.0
+        packed[:256, 2] = 0.99
+        packed[:256, 6], packed[:256, 7], packed[:256, 8] = 1e-3, 0.0, 1e-3
+        gidx[0:2, :256] = np.arange(256)
+        counts[0], counts[1] = 256, 257
+    elif case == "out_of_range":
+        gidx[:, ::7] = -1
+        gidx[:, 3::11] = G
     return tuple(torch.as_tensor(a, device="cuda") for a in (packed, gidx, counts, org))
 
 
@@ -273,10 +300,12 @@ def test_composite_kernel_matches_plain_version(case):
     with precise():
         got = rendering.composite_tiles(*args, 16)
         torch.cuda.synchronize()
-        want = _plain_composite(*args)
+        want = composite_plain(*args)
     assert rendering.launch_count == before + 1
     saturated = int((want[1].max(dim=1).values <= 1.0 / 255.0).sum())
-    assert (saturated > 0) == (case == "saturating")
+    assert (saturated > 0) == (case in SATURATING)
+    if case == "stop_edge":
+        assert bool((want[1][:2].max(dim=1).values <= 1.0 / 255.0).all())
     tol = COMPOSITE_TOL_STOP if saturated else COMPOSITE_TOL
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32

@@ -183,6 +183,25 @@ def test_plain_composite_matches_xla_scan_and_pallas_kernel(cap):
     assert float(np.abs(_np(Tt) - np.asarray(Tp)).max()) <= 5e-2
 
 
+def test_composite_reference_drops_out_of_range_indices():
+    """chip_smoke.composite_plain, what the card holds the kernel to: equal
+    to the plain version on in-range indices, and a slot holding -1 or G
+    adds nothing, as a slot of alpha 0 at an in-range index does."""
+    packed, gidx, counts, org = (torch.as_tensor(a) for a in _composite_inputs())
+    want = tr.composite_tiles_plain(*tr._gather_attrs_f32(packed, gidx, counts), org, 16)
+    got = chip_smoke.composite_plain(packed, gidx, counts, org)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    G = packed.shape[0]
+    bad = gidx.clone()
+    bad[:, ::7] = -1
+    bad[:, 3::11] = G
+    zero = torch.cat([packed, torch.zeros_like(packed[:1])])
+    want = tr.composite_tiles_plain(*tr._gather_attrs_f32(zero, torch.where(bad < 0, G, bad), counts), org, 16)
+    got = chip_smoke.composite_plain(packed, bad, counts, org)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[1], chip_smoke.composite_plain(packed, gidx, counts, org)[1])
+
+
 def test_composite_wrapper_rejects_what_it_does_not_take():
     packed, gidx, counts, org = (torch.as_tensor(a) for a in _composite_inputs())
     with pytest.raises(TypeError):

@@ -11,8 +11,14 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    all at once, sm_90a);
 3. kernel: the fused mutual-NN matcher kernel against its plain PyTorch
    version on the card, at the two-view shape of the slice (P=96 pairs,
-   K=1024, D=128), plus an all-masked pair and a K=1000 pair; both timed
-   (median of 20 samples of back-to-back calls, CUDA events);
+   K=1024, D=128), plus an all-masked pair, a K=1000 pair and the tiling's
+   edges (K1 = 127 and 129, K2 = 63 and 65, D = 136, one pair); two
+   launches must be bitwise equal and the finish kernel must equal its
+   plain version (fused_matcher._finish); the HMMA and FFMA counts of its SASS
+   (cuobjdump); both timed (median of 20 samples of back-to-back calls,
+   CUDA events), the kernels also as a CUDA graph (their device time alone)
+   and by the host's clock (the wrapper's host time per call), with its
+   TFLOP/s and share of the bound;
 4. attention: the fused attention kernel through all four entries against
    their plain versions: LightGlue's shape (P=96 pairs, K=2048, 4 heads of
    64, masked keys), a fully masked key set, K=1000, K=384, K0 != K1 and
@@ -367,12 +373,76 @@ def kernel_agrees(got, want, desc1, desc2, mask1, mask2):
     return err, int(decisive.sum()), bad
 
 
+def matcher_sass(path: str, symbol: str = "fused_matcher_kernelILi8E") -> dict:
+    """Instruction counts of the matcher kernel's main-path instantiation
+    (D <= 128, fragments in registers) in the built library's SASS
+    (cuobjdump -sass): the whole function, and its desc2 tile loop (the
+    backward branch spanning the most instructions), by opcode."""
+    import os
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+        elif inside:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*);", line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    if not body:
+        raise AssertionError(f"no {symbol} in the SASS of {path}")
+    loop = (0, 0)
+    for i, (addr, op, rest) in enumerate(body):
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            start = next(j for j, x in enumerate(body) if x[0] >= int(target.group(1), 16))
+            if i - start > loop[1] - loop[0]:
+                loop = (start, i + 1)
+
+    def counts(ins):
+        by = {}
+        for _, op, _ in ins:
+            key = op.split(".")[0]
+            by[key] = by.get(key, 0) + 1
+        return by
+
+    return {"function": counts(body), "loop": counts(body[loop[0]:loop[1]]), "loop_len": loop[1] - loop[0]}
+
+
+def _unit_rows(rng, shape):
+    x = rng.normal(size=shape)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
 def phase_kernel(kp_mask, descs, pairs):
+    """The matcher kernel against its plain version at the slice's shape
+    and at the tiling's edges, then timed at the slice's shape in turns
+    with the plain version, as a CUDA graph (device time alone) and by the
+    host's clock (the wrapper's host time per call). Returns (worst max
+    |best| error, {"kernel", "plain", "device", "wrapped", "host": ms},
+    (bound ms, bound by)): "kernel" is 5 calls back to back through the
+    wrapper, "device" the tile and finish kernels alone and "wrapped" the
+    whole call (casts included) in a CUDA graph."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_matcher
     from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+    from gtsfm_tpu_torch.utils import cuda_build
     from gtsfm_tpu_torch.utils.numerics import precise
+
+    sass = matcher_sass(cuda_build.library_path("fused_matcher"))
+    loop = sass["loop"]
+    # per desc2 tile a warp holds 32 rows x 64 columns: 64 similarities a thread
+    print(f"kernel SASS (D <= 128 instantiation): {sum(sass['function'].values())} instructions, "
+          f"HMMA {sass['function'].get('HMMA', 0)}, FFMA {sass['function'].get('FFMA', 0)}; desc2 tile loop "
+          f"{sass['loop_len']} instructions = {sass['loop_len'] / 64:.2f} per similarity a thread, HMMA "
+          f"{loop.get('HMMA', 0)}, FFMA {loop.get('FFMA', 0)}, LDSM {loop.get('LDSM', 0)}, SHFL "
+          f"{loop.get('SHFL', 0)} | loop by opcode {dict(sorted(loop.items(), key=lambda kv: -kv[1]))}",
+          flush=True)
+    if not loop.get("HMMA") or loop.get("FFMA"):
+        raise AssertionError("the matcher's tile loop must multiply with HMMA and hold no FFMA")
 
     dev = torch.device("cuda")
     d = torch.as_tensor(descs, device=dev)
@@ -383,6 +453,18 @@ def phase_kernel(kp_mask, descs, pairs):
     masked = torch.zeros_like(m[:1])
     cases["all_masked"] = (d[:1], d[1:2], masked, masked)
     cases["K1000"] = (d[i1[:1], :1000], d[i2[:1], :1000], m[i1[:1], :1000], m[i2[:1], :1000])
+    # the tiling's edges: 128 desc1 rows per block, 64 desc2 rows per tile
+    # (32 above D = 128), D = 136 zero-padded to 144, one pair
+    for name, k1, k2 in (("K1_127", 127, 1024), ("K1_129", 129, 1024), ("K2_63", 1024, 63), ("K2_65", 1024, 65)):
+        cases[name] = (d[i1[:4], :k1], d[i2[:4], :k2], m[i1[:4], :k1], m[i2[:4], :k2])
+    rng = np.random.default_rng(0)
+    w1 = _unit_rows(rng, (2, 129, 136))
+    w2 = _unit_rows(rng, (2, 33, 136))
+    w2[:, :16] = _unit_rows(rng, (2, 16, 136)) * 0.05 + w1[:, :16]
+    cases["D136"] = tuple(torch.as_tensor(x, device=dev) for x in (
+        w1.astype(np.float32), (w2 / np.linalg.norm(w2, axis=-1, keepdims=True)).astype(np.float32),
+        rng.random((2, 129)) > 0.1, rng.random((2, 33)) > 0.1))
+    cases["P1"] = (d[i1[:1]], d[i2[:1]], m[i1[:1]], m[i2[:1]])
 
     worst = 0.0
     with precise():
@@ -390,29 +472,63 @@ def phase_kernel(kp_mask, descs, pairs):
             got = fused_matcher.fused_match_descriptors(a, b, ma, mb)
             want = match_descriptors(a, b, ma, mb)
             err, n_dec, bad = kernel_agrees(got, want, a, b, ma, mb)
+            # the finish kernel against its plain version on the tile
+            # kernel's own outputs: exactly
+            (fi, fok, fb), rest = fused_matcher.match_tiles(a.to(torch.bfloat16), b.to(torch.bfloat16), ma, mb)
+            pi, pok, _ = fused_matcher._finish(fb, *rest, ma, 0.8)
+            if not (torch.equal(fi, pi) and torch.equal(fok, pok)):
+                raise AssertionError(f"the finish kernel disagrees with _finish on {name}")
             if name == "all_masked" and bool(got[1].any()):
                 raise AssertionError("all-masked pair produced matches")
             if err > KERNEL_TOL_BEST or bad:
                 raise AssertionError(f"kernel disagrees on {name}: max|best| err {err:.3g}, "
                                      f"{bad}/{n_dec} decisive rows differ")
             worst = max(worst, err)
-            print(f"kernel check {name}: max|best| err {err:.3g}, {n_dec} decisive rows agree, "
-                  f"{int(got[1].sum())} matches", flush=True)
+            print(f"kernel check {name} {tuple(a.shape)} x {tuple(b.shape)}: max|best| err {err:.3g}, {n_dec} "
+                  f"decisive rows agree, {int(got[1].sum())} matches", flush=True)
         a, b, ma, mb = cases["P96_K1024"]
-        order = []
-        ms = {}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = (lambda: match_descriptors(a, b, ma, mb)) if which == "plain" else (
-                lambda: fused_matcher.fused_match_descriptors(a, b, ma, mb))
-            order.append((which, _median_ms(fn, batch=1 if which == "plain" else TIMING_BATCH)))
-        for which in ("plain", "kernel"):
-            ms[which] = float(np.median([t for w, t in order if w == which]))
+        first = fused_matcher.fused_match_descriptors(a, b, ma, mb)
+        again = fused_matcher.fused_match_descriptors(a, b, ma, mb)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError("two matcher launches on the same inputs differ")
+        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        # "alone": the tile and finish kernels on bf16 inputs, no casts
+        calls = {"plain": lambda: match_descriptors(a, b, ma, mb),
+                 "kernel": lambda: fused_matcher.fused_match_descriptors(a, b, ma, mb),
+                 "alone": lambda: fused_matcher.match_tiles(ab, bb, ma, mb)}
+        order = [(which, _median_ms(calls[which], batch=1 if which == "plain" else TIMING_BATCH))
+                 for which in ("plain", "kernel", "kernel", "plain")]
+        ms = {wh: float(np.median([t for w, t in order if w == wh])) for wh in ("plain", "kernel")}
+        # device time alone: the whole call (the two casts and the kernels)
+        # and the kernels by themselves on bf16 inputs
+        wrapped = [_graph_ms(calls["kernel"]) for _ in range(2)]
+        device = [_graph_ms(calls["alone"]) for _ in range(2)]
+        ms["wrapped"] = float(np.median(wrapped))
+        ms["device"] = float(np.median(device))
+        # host time: 20 calls without a synchronize (about 500 launches, well
+        # inside the launch queue), the median of 5 such runs
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                calls["kernel"]()
+            host.append((time.perf_counter() - t0) / 20 * 1e3)
+            torch.cuda.synchronize()
+        ms["host"] = float(np.median(host))
     P, K1, D = a.shape
     K2 = b.shape[1]
-    bound = max((2.0 * P * K1 * K2 * D / PEAK_BF16 * 1e3, "operations"),
+    flop = 2.0 * P * K1 * K2 * D
+    bound = max((flop / PEAK_BF16 * 1e3, "operations"),
                 ((a.nbytes + b.nbytes + ma.nbytes + mb.nbytes + P * K1 * (4 + 1 + 4)) / PEAK_BYTES * 1e3, "bytes"))
-    print(f"kernel timing P96_K1024 (median of 20 samples, CUDA events): kernel {ms['kernel']:.4f} ms, "
-          f"plain {ms['plain']:.4f} ms | runs {order} | bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    print(f"kernel timing P96_K1024 (median of 20 samples, CUDA events): {ms['kernel']:.4f} ms through the "
+          f"wrapper ({TIMING_BATCH} calls back to back), plain {ms['plain']:.4f} ms, kernel / plain "
+          f"{ms['kernel'] / ms['plain']:.3f} | runs {order} | device alone (a CUDA graph of {TIMING_BATCH} calls): "
+          f"the tile and finish kernels {ms['device']:.4f} ms (runs {[round(x, 4) for x in device]}), the whole call "
+          f"{ms['wrapped']:.4f} ms (runs {[round(x, 4) for x in wrapped]}) | host {ms['host']:.4f} ms a call (runs "
+          f"{[round(x, 4) for x in host]}) | {flop / ms['device'] * 1e-9:.1f} TFLOP/s device, "
+          f"{flop / ms['kernel'] * 1e-9:.1f} back to back | bound {bound[0]:.4f} ms ({bound[1]}): "
+          f"{bound[0] / ms['device']:.3f} of it device, {bound[0] / ms['kernel']:.3f} back to back", flush=True)
     return worst, ms, bound
 
 
@@ -1047,6 +1163,7 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
+        "device_ms": ms["device"],
         "bound_ms": bound[0],
         "bound_by": bound[1],
         "library_ms": None,

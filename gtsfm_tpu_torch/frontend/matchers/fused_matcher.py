@@ -9,16 +9,20 @@ launches this kernel, and on a CPU tensor it runs the plain version
 (mutual_nn.match_descriptors). It never falls back from one to the other.
 
 What bounds it on an H100: at the two-view shape (P=96 pairs, K=1024, D=128)
-the similarity is 2*P*K*K*D = 26 GFLOP against 50 MB of descriptors read, so
-the op is compute-bound; the plain version instead writes the (P, K, K)
-float32 similarity (400 MB) to device memory and reads it back three times
-(row max, masked second best, column max). The kernel (csrc/fused_matcher.cu)
-keeps each 64x64 similarity tile in shared memory and folds the row top-2,
-row argmax and per-tile column argmax into the pass, so device-memory
-traffic drops to the descriptors plus a (P, K1/64, K2) column buffer. This
-first design multiplies bf16 values with float32 FMAs on the CUDA cores,
-not the tensor cores (wgmma/TMA come later), so its floor is the float32
-FMA rate, not the bf16 tensor-core rate.
+the similarity is 2*P*K*K*D = 25.8 GFLOP of bf16 against 101 MB of float32
+descriptors, and each of its 100.7 M values feeds a row top-2 and a column
+argmax, so the op is bound by the tensor cores and the instructions that
+reduce their output; the plain version instead writes the (P, K, K) float32
+similarity (400 MB) to device memory and reads it back three times (row
+max, masked second best, column max). The kernel (csrc/fused_matcher.cu)
+multiplies on the tensor cores (``mma.sync`` bf16, float32 sums), with
+desc1's fragments held in registers and desc2 tiles double-buffered by
+``cp.async``, and reduces the row top-2 and the column argmax on the
+accumulator fragments; device-memory traffic is the descriptors plus a
+(P, ceil(K1/128), K2) column buffer, which a second small kernel, launched
+by the same C call, reduces into the matches (``_finish`` is its plain
+version). One call of the wrapper is two casts and one C call, so its host
+time stays small beside the kernels' device time.
 
 The library is compiled from the repository's source at first use
 (utils/cuda_build.py: nvcc, sm_90a, into build/torch_kernels/) and bound
@@ -28,23 +32,26 @@ through ctypes; the launch runs on PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
 from gtsfm_tpu_torch.utils import cuda_build
 
-TILE = 64
-MAX_D = 832  # shared memory: 2 * 64 * (D + 2) bf16 + the 64x65 float tile <= 227 KB
+TILE = 128  # desc1 rows per block: the column buffer's row-tile height
+MAX_D = 576  # shared memory above D = 128: (128 + 2 * 32) * (D + 8) bf16 <= 227 KB
 
-# launches of the CUDA kernel in this process (never incremented by the
-# CPU path)
+# launches of the CUDA kernels in this process, one per call of the C entry
+# (the tile kernel and the finish kernel); never incremented by the CPU path
 launch_count = 0
 
 
+@functools.cache
 def _kernel():
     return cuda_build.function("fused_matcher", "gtsfm_fused_matcher",
-                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                               + [ctypes.c_void_p] * 8)
 
 
 def _check(desc1, desc2, mask1, mask2):
@@ -88,37 +95,60 @@ def fused_match_descriptors(
         return match_descriptors(desc1, desc2, mask1, mask2, ratio=ratio)
     if desc1.device.type != "cuda":
         raise ValueError(f"unsupported device {desc1.device}")
-    global launch_count
     dev = desc1.device
-    d1 = desc1.to(torch.bfloat16).contiguous()
-    d2 = desc2.to(torch.bfloat16).contiguous()
-    m1 = mask1.to(torch.uint8).contiguous()
-    m2 = mask2.to(torch.uint8).contiguous()
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return fused_match_descriptors(desc1, desc2, mask1, mask2, ratio)
+    d1, d2 = (d.to(torch.bfloat16).contiguous() for d in (desc1, desc2))
+    # cp.async reads 16-byte chunks: the rows must start 16-byte aligned
+    d1, d2 = (d if d.data_ptr() % 16 == 0 else d.clone() for d in (d1, d2))
+    m1, m2 = (m.contiguous() for m in (mask1, mask2))  # bool: one byte, 0 or 1
+    return match_tiles(d1, d2, m1, m2, ratio)[0]
+
+
+def match_tiles(d1: torch.Tensor, d2: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor, ratio: float = 0.8):
+    """The kernels alone, on the current CUDA device: bf16 descriptors d1
+    (P, K1, D) and d2 (P, K2, D), contiguous and 16-byte aligned, bool
+    masks. One call launches the tile kernel and the finish kernel.
+    Returns ((match_idx, match_mask, best), (second, bidx, colbest,
+    colidx)): the matches, and the tile kernel's other outputs, from which
+    ``_finish`` (the finish kernel's plain version) computes the same
+    matches."""
+    global launch_count
+    P, K1, K2, D = _check(d1, d2, m1, m2)
+    for x in (d1, d2, m1, m2):
+        if x.device.type != "cuda" or not x.is_contiguous():
+            raise ValueError("the kernel takes contiguous CUDA tensors")
+    if d1.dtype != torch.bfloat16 or d2.dtype != torch.bfloat16:
+        raise TypeError("the kernel takes bf16 descriptors")
+    if d1.data_ptr() % 16 or d2.data_ptr() % 16:
+        raise ValueError("the descriptors must start 16-byte aligned")
+    dev = d1.device
     n_rt = (K1 + TILE - 1) // TILE
     best = torch.empty((P, K1), dtype=torch.float32, device=dev)
     second = torch.empty((P, K1), dtype=torch.float32, device=dev)
     bidx = torch.empty((P, K1), dtype=torch.int32, device=dev)
     colbest = torch.empty((P, n_rt, K2), dtype=torch.float32, device=dev)
     colidx = torch.empty((P, n_rt, K2), dtype=torch.int32, device=dev)
-    kernel = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kernel(
-            d1.data_ptr(), d2.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-            P, K1, K2, D,
-            best.data_ptr(), second.data_ptr(), bidx.data_ptr(),
-            colbest.data_ptr(), colidx.data_ptr(), stream,
-        )
+    match_idx = torch.empty((P, K1), dtype=torch.int32, device=dev)
+    ok = torch.empty((P, K1), dtype=torch.bool, device=dev)
+    rc = _kernel()(
+        d1.data_ptr(), d2.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+        P, K1, K2, D, ratio**2,
+        best.data_ptr(), second.data_ptr(), bidx.data_ptr(), colbest.data_ptr(), colidx.data_ptr(),
+        match_idx.data_ptr(), ok.data_ptr(), torch.cuda.current_stream().cuda_stream,
+    )
     if rc != 0:
         raise RuntimeError(f"fused matcher launch failed: cudaError {rc}")
     launch_count += 1
-    return _finish(best, second, bidx, colbest, colidx, mask1, ratio)
+    return (match_idx, ok, best), (second, bidx, colbest, colidx)
 
 
 def _finish(best, second, bidx, colbest, colidx, mask1, ratio):
     """Cross-tile column argmax (first tile on ties, i.e. the lowest row),
     mutual check and ratio test — the part the reference leaves to XLA
-    after its kernel."""
+    after its kernel. The plain version of the finish kernel in
+    csrc/fused_matcher.cu, which must agree with it exactly."""
     K1 = best.shape[1]
     blk = torch.argmax(colbest, dim=1, keepdim=True)  # (P, 1, K2)
     nn21 = torch.gather(colidx, 1, blk)[:, 0, :].to(torch.int64)  # (P, K2)

@@ -9,8 +9,11 @@ run it without tests/conftest.py, which sets JAX up for the reference tests:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Matcher shapes cover what the kernel takes beyond the slice's (P, 1024, 128):
-ragged K1 != K2 that are not multiples of the 64-row tile, narrow and wide
-D, a single keypoint, an all-masked pair and exact ties. Tolerances: ``best``
+ragged K1 != K2, narrow and wide D, a single keypoint, an all-masked pair,
+exact ties, one pair, and the tiling's edges (K1 one below and one above
+the 128-row block, K2 one below and one above the 64-row desc2 tile, D =
+136, which is not a multiple of 16); two launches on the same inputs must
+be bitwise equal (no atomics). Tolerances: ``best``
 1e-5 everywhere; ``idx`` / ``ok`` exact on every row whose best and
 second-best similarities differ by more than 1e-4 (float32 sums of exact
 bf16 products in another order can swap nearer ties).
@@ -49,15 +52,23 @@ from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
 from gtsfm_tpu_torch.splat import rendering
 from gtsfm_tpu_torch.utils.numerics import precise
 
-# name: (P, K1, K2, D)
+# name: (P, K1, K2, D, seed)
 SHAPES = {
-    "square": (4, 256, 256, 128),
-    "ragged": (3, 1000, 777, 128),
-    "narrow": (2, 70, 130, 24),
-    "wide": (2, 128, 192, 512),
-    "single": (2, 1, 1, 8),
-    "all_masked": (2, 64, 64, 128),
-    "ties": (2, 256, 256, 128),
+    "square": (4, 256, 256, 128, 4),
+    "ragged": (3, 1000, 777, 128, 2),
+    "narrow": (2, 70, 130, 24, 1),
+    "wide": (2, 128, 192, 512, 6),
+    "single": (2, 1, 1, 8, 3),
+    "all_masked": (2, 64, 64, 128, 0),
+    "ties": (2, 256, 256, 128, 5),
+    # the tiling's edges: 128 desc1 rows per block (fused_matcher.TILE),
+    # 64 desc2 rows per tile (32 above D = 128), D = 136 zero-padded to 144
+    "rows127": (2, 127, 200, 128, 7),
+    "rows129": (2, 129, 200, 128, 8),
+    "cols63": (2, 200, 63, 128, 9),
+    "cols65": (2, 200, 65, 128, 10),
+    "d136": (2, 129, 33, 136, 11),
+    "one_pair": (1, 300, 300, 128, 12),
 }
 
 
@@ -66,8 +77,8 @@ def _unit(x):
 
 
 def _inputs(case: str):
-    P, K1, K2, D = SHAPES[case]
-    rng = np.random.default_rng(sorted(SHAPES).index(case))
+    P, K1, K2, D, seed = SHAPES[case]
+    rng = np.random.default_rng(seed)
     d1 = _unit(rng.normal(size=(P, K1, D)))
     n_true = min(K1, K2) // 2
     d2 = _unit(rng.normal(size=(P, K2, D)))
@@ -99,6 +110,10 @@ def test_kernel_matches_plain_version(case):
         got = fused_matcher.fused_match_descriptors(d1, d2, m1, m2)
         want = match_descriptors(d1, d2, m1, m2)
     assert fused_matcher.launch_count == before + 1
+    # the finish kernel equals its plain version on the tile kernel's outputs
+    (fi, fok, fb), rest = fused_matcher.match_tiles(d1.to(torch.bfloat16), d2.to(torch.bfloat16), m1, m2)
+    pi, pok, _ = fused_matcher._finish(fb, *rest, m1, 0.8)
+    assert torch.equal(fi, pi) and torch.equal(fok, pok)
     gi, gok, gb = got
     assert gi.dtype == torch.int32 and gok.dtype == torch.bool and gb.dtype == torch.float32
     err, n_decisive, n_differ = kernel_agrees(got, want, d1, d2, m1, m2)
@@ -113,6 +128,18 @@ def test_kernel_matches_plain_version(case):
         # columns 20 and 21 are equal: a row whose best is one of them has
         # an equal second best, so the ratio test rejects it
         assert not bool((gok & ((gi == 20) | (gi == 21))).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "ties", "d136"])
+def test_kernel_is_bitwise_repeatable(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    d1, d2, m1, m2 = _inputs(case)
+    first = fused_matcher.fused_match_descriptors(d1, d2, m1, m2)
+    again = fused_matcher.fused_match_descriptors(d1, d2, m1, m2)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

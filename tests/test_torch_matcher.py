@@ -5,8 +5,12 @@ The plain PyTorch matcher (what CPU tensors run) is held against the JAX
 kernel in interpret mode, on the same seeded inputs. Descriptors are
 rounded to bf16 up front so the Pallas kernel's float32 dot sees the same
 values. Tolerances: ``idx`` / ``ok`` exact; ``best`` 1e-5 where matched
-(sums of exact bf16 products, float32, different order). The CUDA kernel
-itself is held against the plain version in test_torch_cuda.py.
+(sums of exact bf16 products, float32, different order). The CUDA kernels
+themselves are held against the plain versions in test_torch_cuda.py.
+``fused_matcher._finish``, the plain version of the finish kernel (the
+column buffer's argmax across row tiles, the mutual check and the ratio
+test), is tested here on a hand-made column buffer at the kernel's
+``TILE`` height.
 """
 
 import jax
@@ -122,3 +126,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         m2 = m2[:, :10]
     with pytest.raises((ValueError, TypeError)):
         fused_matcher.fused_match_descriptors(d1, d2, m1, m2)
+
+
+def _column_buffer():
+    """One pair, two row tiles of fused_matcher.TILE rows, 3 columns: the
+    kernel's outputs written by hand. Column 0's best (0.9) ties across the
+    tiles (rows 5 and TILE + 2); column 1 is masked everywhere (-1e9, each
+    tile's first row); column 2's best is row 7. Rows 5 and TILE + 2 pick
+    column 0 (second 0.1), row 0 column 1 (best -1e9), row 7 column 2 with
+    an equal second best (0.9, 0.9); every other row column 0 at 0.2."""
+    T = fused_matcher.TILE
+    K1 = 2 * T
+    best = torch.full((1, K1), 0.2)
+    second = torch.full((1, K1), 0.1)
+    bidx = torch.zeros((1, K1), dtype=torch.int32)
+    best[0, [5, T + 2]] = 0.9
+    best[0, 0], second[0, 0], bidx[0, 0] = -1e9, -1e9, 1
+    best[0, 7], second[0, 7], bidx[0, 7] = 0.9, 0.9, 2
+    colbest = torch.tensor([[[0.9, -1e9, 0.9], [0.9, -1e9, 0.3]]])
+    colidx = torch.tensor([[[5, 0, 7], [T + 2, T, T]]], dtype=torch.int32)
+    return best, second, bidx, colbest, colidx, torch.ones((1, K1), dtype=torch.bool)
+
+
+def test_finish_picks_the_lower_row_on_a_tie_across_row_tiles():
+    idx, ok, _ = fused_matcher._finish(*_column_buffer(), ratio=0.8)
+    assert bool(ok[0, 5]) and int(idx[0, 5]) == 0
+    assert not bool(ok[0, fused_matcher.TILE + 2]) and int(idx[0, fused_matcher.TILE + 2]) == -1
+
+
+def test_finish_matches_nothing_to_an_all_masked_column():
+    idx, ok, best = fused_matcher._finish(*_column_buffer(), ratio=0.8)
+    assert not bool(ok[0, 0]) and int(idx[0, 0]) == -1
+    assert not bool((idx == 1).any())
+    assert float(best[0, 0]) == -1e9
+
+
+def test_finish_ratio_test_rejects_an_exact_tie_of_best_and_second():
+    buf = _column_buffer()
+    idx, ok, _ = fused_matcher._finish(*buf, ratio=0.8)
+    assert not bool(ok[0, 7]) and int(idx[0, 7]) == -1
+    # the same row with a clear second best passes: only the tie rejects it
+    buf[1][0, 7] = 0.1
+    idx, ok, _ = fused_matcher._finish(*buf, ratio=0.8)
+    assert bool(ok[0, 7]) and int(idx[0, 7]) == 2

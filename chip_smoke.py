@@ -51,7 +51,24 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    registered, AUC@5 >= 0.978 and attention launches during the run
    required, and the matches through the kernel must agree with a forward
    through the plain attention on every decisive row;
-8. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
+8. gate: the twin of tests/scene/test_accuracy_gate_32.py on `cuda`: the
+   32-camera ring through SceneOptimizer.run with the synthetic
+   correspondence generator (600 points, 0.4 px noise) in the direct
+   branch, flat; 32/32 registered and compare_reconstructions' pose AUC@5
+   >= 0.978 required, and no matcher launch (the two-view batch verifies
+   the generator's matches);
+9. hierarchical: bench.py's palace-281 configuration through the port on
+   `cuda`: 281 cameras, 4,095 pairs from the default SequentialRetriever,
+   GT on a spectral ring over them, the synthetic generator (800 points,
+   0.4 px), SceneOptimizerOptions(hierarchical=True, max_cluster_size=40):
+   the METIS partition, per-cluster MVO, Sim3 merges with parent BAs; run
+   cold and then warm, each requiring the METIS partitioner, >= 4
+   clusters, no merge failure, no matcher launch, registered >= 278 (the
+   JAX reference's 281 - 3, above test_scale_synthetic.py's 0.95 n), AUC@5
+   >= the reference's 0.9739 - 0.02, and median rotation and translation
+   errors after a Sim3 alignment to GT < 0.5 deg and < 0.3; prints the
+   cluster tree and the stage seconds with the card's name and power limit;
+10. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
    480x640 for 400 steps, on the 32 ring views of the splat scene rendered
    by the port; final L1 < 0.7 of the initial and >= 400 compositing
    launches required; seconds per step and peak device memory printed.
@@ -101,6 +118,24 @@ GLUE_SIGMA = 0.05 * (DESC_DIM / GLUE_DESC_DIM) ** 0.5  # the feed's noise norm a
 # port against reference on the CPU; 0.76 max after nine layers at K=2048,
 # kernel against plain on an H100)
 GLUE_GAP = 1.0
+
+GATE_POINTS = 600  # the 32-camera gate's SyntheticOptions (tests/scene/test_accuracy_gate_32.py)
+# the hierarchical phase: palace-281's size and bench.py's _palace_bench
+# configuration, its visibility graph replaced by the default
+# SequentialRetriever's (lookahead 15: 4,095 pairs, palace has 4,139)
+HIER_CAMERAS = 281
+HIER_POINTS = 800
+HIER_CLUSTER_SIZE = 40
+HIER_MIN_CLUSTERS = 4
+# the JAX package on the CPU on the same inputs (scripts/hierarchical_reference.py):
+# 281/281 registered, compare_reconstructions' pose AUC@5 0.97389
+HIER_REF_REGISTERED = 281
+HIER_REF_AUC5 = 0.9738916772552285
+HIER_REGISTERED_SLACK = 3  # the port may register up to 3 fewer cameras
+HIER_AUC5_SLACK = 0.02
+HIER_MIN_REGISTERED = 0.95  # tests/scene/test_scale_synthetic.py:122-123
+HIER_MEDIAN_ROT_DEG = 0.5  # test_scale_synthetic.py:128-131, after a Sim3 alignment to GT
+HIER_MEDIAN_TRANS = 0.3
 
 SPLAT_HW = (480, 640)  # the synthetic loader's default image size
 SPLAT_FOCAL = 600.0  # and focal length
@@ -265,6 +300,15 @@ def splat_scene(center, n: int = SPLAT_GAUSSIANS, radius: float = 8.0, seed: int
                    + rng.normal(0.0, 0.3, (n, 3))).astype(np.float32),
         "alive": np.ones(n, bool),
     }
+
+
+def rotation_error_deg(Ra: np.ndarray, Rb: np.ndarray) -> np.ndarray:
+    """Angle of Ra^T Rb per rotation, in degrees, from float64 atan2 of the
+    skew part and the trace (an arccos of the trace resolves no angle below
+    about 0.02 deg from float32 matrices)."""
+    M = np.einsum("nji,njk->nik", np.asarray(Ra, np.float64), np.asarray(Rb, np.float64))
+    v = np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], -1)
+    return np.degrees(np.arctan2(0.5 * np.linalg.norm(v, axis=-1), 0.5 * (np.trace(M, axis1=1, axis2=2) - 1.0)))
 
 
 class FeedDetector:
@@ -1047,6 +1091,149 @@ def phase_lightglue(pairs, R, t):
     return launches["attention"], sec, {w: float(np.median(v)) for w, v in fwd_sec.items()}
 
 
+def _synthetic_run(name, n, pairs, points, options):
+    """SceneOptimizer.run on `cuda` with the synthetic correspondence
+    generator (``points`` points, noise 0.4 px) on an n-camera spectral ring
+    over ``pairs``,
+    every kernel's launch count set to 0 just before the run and read just
+    after; ``pairs=None`` leaves them to the default SequentialRetriever
+    (the ring is then laid over the same pairs). Returns (optimizer, data,
+    metrics by group, launches, GT poses, compare_reconstructions'
+    scalars)."""
+    import torch
+
+    from gtsfm_tpu_torch.evaluation.compare import compare_reconstructions
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
+    from gtsfm_tpu_torch.frontend.synthetic import SyntheticCorrespondenceGenerator, SyntheticOptions
+    from gtsfm_tpu_torch.geometry import Cal3Bundler
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader, spectral_ring_poses
+    from gtsfm_tpu_torch.retriever.retrievers import RetrieverOptions, sequential_pairs
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer
+    from gtsfm_tpu_torch.splat import rendering
+
+    dev = torch.device("cuda")
+    ring = pairs if pairs is not None else sequential_pairs(n, RetrieverOptions().max_frame_lookahead)
+    gt = spectral_ring_poses(ring, n, device=dev)
+    cal = Cal3Bundler.create(
+        torch.full((n,), FOCAL), torch.zeros(n), torch.zeros(n),
+        torch.full((n,), IMAGE_HW[1] / 2.0), torch.full((n,), IMAGE_HW[0] / 2.0), device=dev,
+    )
+    so = SceneOptimizer(options, retriever=FixedPairs(pairs) if pairs is not None else None,
+                        correspondence=SyntheticCorrespondenceGenerator(
+                            SyntheticOptions(num_points=points, noise_px=0.4, seed=0)))
+    fused_matcher.launch_count = 0
+    fused_attention.launch_count = 0
+    rendering.launch_count = 0
+    torch.cuda.synchronize()
+    data, groups = so.run(SyntheticSceneLoader(gt, cal=cal, image_size=IMAGE_HW))
+    torch.cuda.synchronize()
+    launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
+                "composite": rendering.launch_count}
+    metrics = {g.name: {m.name: m for m in g.metrics} for g in groups}
+    cmp = {m.name: m.scalar for m in compare_reconstructions(data, data.replace(poses=gt)).metrics
+           if m.dist is None}
+    pts = data.points[data.track_mask]
+    if not bool(torch.isfinite(pts).all()) or not bool(torch.isfinite(data.poses.R[data.pose_mask]).all()):
+        raise AssertionError(f"{name}: non-finite poses or points")
+    if launches["matcher"] != 0:
+        raise AssertionError(f"{name}: the direct branch launched the mutual-NN kernel ({launches})")
+    return so, data, metrics, launches, gt, cmp
+
+
+def _stage_sec(metrics) -> dict:
+    mvo = metrics["multiview_optimizer_metrics"]
+    sec = {"two_view_sec": metrics["frontend_summary"]["two_view_sec"].scalar}
+    sec.update({k: mvo[k].scalar for k in ("leaf_mvo_sec", "merge_sec") if k in mvo})
+    sec["backend_sec"] = mvo["backend_sec"].scalar
+    sec["total_runtime_sec"] = metrics["total_summary"]["total_runtime_sec"].scalar
+    return sec
+
+
+def phase_gate():
+    """The twin of tests/scene/test_accuracy_gate_32.py on `cuda`: the
+    32-camera ring over pairs (i, i+1..3), the synthetic generator (600
+    points, 0.4 px), flat. 32/32 registered and compare_reconstructions'
+    pose AUC@5 >= AUC5_BAR required."""
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizerOptions
+
+    n = NUM_CAMERAS
+    _so, data, metrics, launches, _gt, cmp = _synthetic_run("gate", n, ring_pairs(n), GATE_POINTS,
+                                                         SceneOptimizerOptions())
+    auc5 = cmp["pose_auc_@5.0_deg"]
+    vs = {k: m.scalar for k, m in metrics["verifier_summary"].items() if m.dist is None}
+    print(f"gate: {data.number_images()}/{n} registered, pose AUC@5 {auc5:.4f} (bar {AUC5_BAR}), "
+          f"{data.number_tracks()} tracks, verifier {vs}, launches {launches} | "
+          + " ".join(f"{k} {v:.3f}" for k, v in _stage_sec(metrics).items()), flush=True)
+    if data.number_images() != n:
+        raise AssertionError(f"gate: registered {data.number_images()}/{n} cameras")
+    if auc5 < AUC5_BAR:
+        raise AssertionError(f"gate: pose AUC@5 {auc5:.4f} < {AUC5_BAR}")
+
+
+def phase_hierarchical(smi: str, n: int = HIER_CAMERAS):
+    """bench.py's palace-281 configuration through the port on `cuda`: n
+    cameras, pairs from the default SequentialRetriever, the synthetic
+    generator (800 points, 0.4 px), SceneOptimizerOptions(hierarchical=True,
+    max_cluster_size=40), run cold and then warm in this process. Each run
+    requires the METIS partitioner, >= HIER_MIN_CLUSTERS clusters, no merge
+    failure, no matcher launch, registered >= max(0.95 n, the JAX
+    reference's - 3), AUC@5 >= the reference's - 0.02, and after a Sim3
+    alignment to GT median rotation error < 0.5 deg and median translation
+    error < 0.3. Prints the cluster tree and the stage seconds."""
+    import torch
+
+    from gtsfm_tpu_torch.geometry.sim3 import align_poses_sim3
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizerOptions
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    opts = SceneOptimizerOptions(hierarchical=True, max_cluster_size=HIER_CLUSTER_SIZE)
+    min_registered = max(int(np.ceil(HIER_MIN_REGISTERED * n)), HIER_REF_REGISTERED - HIER_REGISTERED_SLACK
+                         if n == HIER_CAMERAS else 0)
+    min_auc5 = HIER_REF_AUC5 - HIER_AUC5_SLACK
+    for run in ("cold", "warm"):
+        so, data, metrics, launches, gt, cmp = _synthetic_run("hierarchical", n, None, HIER_POINTS, opts)
+        hm = so.backend_metrics
+        paths = [p for p, _ in so.node_results]
+        tree = " ".join(f"{'/'.join(map(str, p)) or 'root'}:{d.number_images()}"
+                        + ("" if any(q[: len(p)] == p and len(q) > len(p) for q in paths) else "*")
+                        for p, d in so.node_results)
+        est = data.pose_mask
+        with precise():
+            sim = align_poses_sim3(data.poses, gt, mask=est)
+            aligned = sim.transform_pose(data.poses)
+            rot = rotation_error_deg(aligned.R[est].cpu().numpy(), gt.R[est].cpu().numpy())
+            trans = torch.linalg.vector_norm(aligned.t - gt.t, dim=-1)[est].cpu().numpy()
+        registered = data.number_images()
+        auc5 = cmp["pose_auc_@5.0_deg"]
+        pairs = int(metrics["frontend_summary"]["num_pairs"].scalar)
+        print(f"hierarchical {run}: {n} cameras, {pairs} pairs, partitioner {hm.get('partitioner')}, "
+              f"{hm['num_clusters']} clusters, {hm['tree_nodes']} nodes, merge failures "
+              f"{hm.get('merge_failures', 0)} {hm.get('merge_failure_reasons', [])}; registered {registered} "
+              f"(bar {min_registered}), pose AUC@5 {auc5:.4f} (bar {min_auc5:.4f}), median rotation error "
+              f"{float(np.median(rot)):.4f} deg, median translation error {float(np.median(trans)):.4f}, "
+              f"{data.number_tracks()} tracks, launches {launches}", flush=True)
+        print(f"hierarchical {run} tree (path:cameras, * = leaf): {tree}", flush=True)
+        print(f"hierarchical {run} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in _stage_sec(metrics).items())
+              + f" | {smi}", flush=True)
+        leaf_sec = {}
+        for cm in hm["cluster_metrics"]:
+            for k, v in cm.items():
+                if k.endswith("_sec") and k != "total_sec":
+                    leaf_sec[k] = leaf_sec.get(k, 0.0) + v
+        print(f"hierarchical {run} leaf stages, summed over the {len(hm['cluster_metrics'])} leaves: "
+              + " ".join(f"{k} {v:.3f}" for k, v in leaf_sec.items()), flush=True)
+        if hm.get("partitioner") != "metis":
+            raise AssertionError(f"hierarchical: the partitioner was {hm.get('partitioner')!r}, not METIS")
+        if hm["num_clusters"] < HIER_MIN_CLUSTERS or hm.get("merge_failures"):
+            raise AssertionError(f"hierarchical: {hm['num_clusters']} clusters, merge failures "
+                                 f"{hm.get('merge_failure_reasons')}")
+        if registered < min_registered or auc5 < min_auc5:
+            raise AssertionError(f"hierarchical: registered {registered} (bar {min_registered}), "
+                                 f"AUC@5 {auc5:.4f} (bar {min_auc5:.4f})")
+        if not (np.median(rot) < HIER_MEDIAN_ROT_DEG and np.median(trans) < HIER_MEDIAN_TRANS):
+            raise AssertionError(f"hierarchical: median errors {np.median(rot):.4f} deg, {np.median(trans):.4f}")
+
+
 def splat_trainer_inputs(R, t):
     """The full-width trainer's inputs: the splat scene's views from every
     ring camera (R, t) at SPLAT_HW, rendered by the port, and an SfmData of
@@ -1151,6 +1338,8 @@ def main() -> int:
     print(f"lightglue forward: {fwd['kernel'] * 1e3:.3f} ms warm (host clock), of which the attention kernel "
           f"{attn_fwd_ms:.3f} ms ({layers} layers x (2 self + 1 cross entry) at the timed medians), "
           f"{attn_fwd_ms / (fwd['kernel'] * 1e3):.3f} of the forward", flush=True)
+    phase_gate()
+    phase_hierarchical(smi)
     comp_launches = phase_splat(R, t)
 
     print(smi, flush=True)

@@ -8,8 +8,9 @@ retraction; ``_schur_solve_dense`` forms the reduced camera system
 S = Hcc - W Hpp^-1 W^T and solves it exactly each step; the fixed-count LM
 loop accepts or rejects with ``torch.where`` and never reads a value back
 to the host. Huber IRLS weights, fixed-camera gauge, poses and points
-optimized (intrinsics fixed), Cal3Bundler only. The iterative ``entry`` /
-``scatter`` layouts, priors and GNC are still to be ported.
+optimized (intrinsics fixed), Cal3Bundler only. ``run_compact`` solves the
+live subproblem of a merged scene. The iterative ``entry`` / ``scatter``
+layouts, priors and GNC are still to be ported.
 """
 
 from __future__ import annotations
@@ -287,6 +288,55 @@ class BundleAdjustment:
             "iterations": int(self.options.max_iterations),
             "cost_history": [float(c) for c in costs[2:]],
         }
+        return out, metrics
+
+    def run_compact(self, data: SfmData, fixed_cam=None) -> tuple:
+        """``run`` on a copy of the scene compacted to its live cameras,
+        tracks and measurements, scattered back into the original layout.
+
+        A hierarchical merge concatenates its children's track axes, so by
+        the root most slots are dead, and the merged pair touches a fraction
+        of the global camera axis: the solve then scales with the live
+        subproblem. Cameras are live when registered or measured, tracks when
+        valid or measured. The reference pads each axis to a power of two to
+        share XLA executables; the port compacts to the exact counts."""
+        dev = data.points.device
+        pm = data.pose_mask.cpu().numpy()
+        mm_ = data.meas_mask.cpu().numpy()
+        mc = data.meas_cam.cpu().numpy()
+        mt = data.meas_track.cpu().numpy()
+        active = pm.copy()
+        active[mc[mm_]] = True
+        act_idx = np.flatnonzero(active)
+        if len(act_idx) == 0 or not mm_.any():
+            return data, {"initial_cost": 0.0, "final_cost": 0.0, "iterations": 0}
+        live_t = data.track_mask.cpu().numpy().copy()
+        live_t[mt[mm_]] = True
+        t_idx = np.flatnonzero(live_t)
+        g2l = np.zeros(data.max_cameras, np.int64)
+        g2l[act_idx] = np.arange(len(act_idx))
+        t_g2l = np.zeros(data.max_tracks, np.int64)
+        t_g2l[t_idx] = np.arange(len(t_idx))
+        ai, ti, mi = (torch.as_tensor(x, device=dev) for x in (act_idx, t_idx, np.flatnonzero(mm_)))
+        local = data.replace(
+            poses=data.poses.map(lambda a: a[ai]),
+            cal=data.cal.map(lambda a: a[ai]),
+            pose_mask=data.pose_mask[ai],
+            points=data.points[ti],
+            track_mask=data.track_mask[ti],
+            meas_cam=torch.as_tensor(g2l, device=dev)[data.meas_cam[mi]],
+            meas_track=torch.as_tensor(t_g2l, device=dev)[data.meas_track[mi]],
+            meas_uv=data.meas_uv[mi],
+            meas_mask=data.meas_mask[mi],
+        )
+        out_l, metrics = self.run(local, fixed_cam=None if fixed_cam is None else fixed_cam[ai])
+        # the solve changes poses, calibrations and points; each live row
+        # goes back to its one slot (no accumulation)
+        out = data.replace(
+            poses=SE3(R=data.poses.R.index_copy(0, ai, out_l.poses.R), t=data.poses.t.index_copy(0, ai, out_l.poses.t)),
+            cal=data.cal.with_params(data.cal.to_params().index_copy(0, ai, out_l.cal.to_params())),
+            points=data.points.index_copy(0, ti, out_l.points),
+        )
         return out, metrics
 
     def run_staged(self, data: SfmData, reproj_thresholds=(10.0, 5.0, 3.0), fixed_cam=None):

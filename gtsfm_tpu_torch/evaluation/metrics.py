@@ -1,8 +1,10 @@
 """Metrics containers and pose metrics.
 
 Port of gtsfm_tpu/evaluation/metrics.py: ``Metric``, ``MetricsGroup``,
-``pose_auc`` (host numpy, unchanged) and ``relative_pose_errors`` on port
-tensors. The JSON summaries and export of the reference are not ported.
+``pose_auc`` and ``precision_recall_from_errors`` (host numpy, unchanged),
+``relative_pose_errors`` on port tensors, and the relative pair errors of
+``evaluation/compare.py`` (``relative_rotation_angular_errors``,
+``translation_direction_errors_deg``, host numpy). The JSON summaries and export of the reference are not ported.
 """
 
 from __future__ import annotations
@@ -68,3 +70,37 @@ def relative_pose_errors(wTi_est: SE3, wTi_gt: SE3, mask: np.ndarray) -> tuple:
     rot_err = np.where(mask, rot_err, np.inf)
     t_err = np.where(mask, t_err, np.inf)
     return rot_err, t_err, sim
+
+
+def relative_rotation_angular_errors(wRi_est: np.ndarray, wRi_gt: np.ndarray, pairs: np.ndarray) -> np.ndarray:
+    """Angular error of relative rotations over the given pairs (deg)."""
+    i1, i2 = pairs[:, 0], pairs[:, 1]
+    wRi_est, wRi_gt = np.asarray(wRi_est), np.asarray(wRi_gt)
+    rel_est = np.einsum("eji,ejk->eik", wRi_est[i2], wRi_est[i1])
+    rel_gt = np.einsum("eji,ejk->eik", wRi_gt[i2], wRi_gt[i1])
+    return so3.relative_angle_deg(torch.as_tensor(rel_est), torch.as_tensor(rel_gt)).numpy()
+
+
+def translation_direction_errors_deg(wti_est: np.ndarray, wti_gt: np.ndarray, wRi_gt: np.ndarray,
+                                     pairs: np.ndarray) -> np.ndarray:
+    """Angle between the estimated and GT relative translation directions
+    per pair (deg), sign-free."""
+    i1, i2 = pairs[:, 0], pairs[:, 1]
+    d_est = np.asarray(wti_est)[i1] - np.asarray(wti_est)[i2]
+    d_gt = np.asarray(wti_gt)[i1] - np.asarray(wti_gt)[i2]
+    num = np.abs(np.sum(d_est * d_gt, axis=-1))
+    den = np.linalg.norm(d_est, axis=-1) * np.linalg.norm(d_gt, axis=-1)
+    return np.degrees(np.arccos(np.clip(num / np.maximum(den, 1e-12), -1.0, 1.0)))
+
+
+def precision_recall_from_errors(positive_errors, negative_errors, max_positive_error: float) -> tuple:
+    """Precision and recall when predictions are split into accepted
+    (positive) and rejected (negative) sets and a prediction is correct when
+    its error is <= the threshold."""
+    pos = np.asarray(list(positive_errors), np.float64)
+    neg = np.asarray(list(negative_errors), np.float64)
+    tp = float(np.sum(pos <= max_positive_error))
+    fp = float(np.sum(pos > max_positive_error))
+    fn = float(np.sum(neg <= max_positive_error))
+    eps = 1e-12
+    return tp / (tp + fp + eps), tp / (tp + fn + eps)

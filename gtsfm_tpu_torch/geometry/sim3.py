@@ -37,25 +37,26 @@ def align_points_umeyama(
     estimate_scale: bool = True,
 ) -> Sim3:
     """Weighted Umeyama: the Sim3 minimizing ||target - T(source)||^2 over
-    (N, 3) point sets."""
+    (..., N, 3) point sets with weights (..., N); leading dimensions batch
+    independent fits (the merge scores its LMedS hypotheses as one batch)."""
     if weights is None:
-        weights = torch.ones(source.shape[0], dtype=source.dtype, device=source.device)
-    w = weights / torch.clamp(torch.sum(weights), min=1e-12)
-    mu_s = torch.sum(source * w[:, None], dim=0)
-    mu_t = torch.sum(target * w[:, None], dim=0)
-    ds = source - mu_s
-    dt = target - mu_t
-    cov = mm((dt * w[:, None]).T, ds)
+        weights = torch.ones(source.shape[:-1], dtype=source.dtype, device=source.device)
+    w = weights / torch.clamp(torch.sum(weights, dim=-1, keepdim=True), min=1e-12)
+    mu_s = torch.sum(source * w[..., None], dim=-2)
+    mu_t = torch.sum(target * w[..., None], dim=-2)
+    ds = source - mu_s[..., None, :]
+    dt = target - mu_t[..., None, :]
+    cov = mm((dt * w[..., None]).transpose(-1, -2), ds)
     U, D, Vt = torch.linalg.svd(cov)
     det = torch.linalg.det(mm(U, Vt))
-    S = torch.cat([torch.ones(2, dtype=source.dtype, device=source.device), det[None]])
-    R = mm(U * S[None, :], Vt)
-    var_s = torch.sum(w * torch.sum(ds * ds, dim=-1))
+    S = torch.cat([torch.ones(det.shape + (2,), dtype=source.dtype, device=source.device), det[..., None]], dim=-1)
+    R = mm(U * S[..., None, :], Vt)
+    var_s = torch.sum(w * torch.sum(ds * ds, dim=-1), dim=-1)
     if estimate_scale:
-        scale = torch.sum(D * S) / torch.clamp(var_s, min=1e-12)
+        scale = torch.sum(D * S, dim=-1) / torch.clamp(var_s, min=1e-12)
     else:
-        scale = torch.ones((), dtype=source.dtype, device=source.device)
-    t = mu_t - scale * so3.rotate(R, mu_s)
+        scale = torch.ones(det.shape, dtype=source.dtype, device=source.device)
+    t = mu_t - scale[..., None] * so3.rotate(R, mu_s)
     return Sim3(R=R, t=t, s=scale)
 
 
@@ -104,6 +105,8 @@ def align_poses_sim3_robust(
 
 
 def _masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    order = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))).values
-    k = torch.clamp(torch.sum(mask.to(torch.int64)), min=1)
-    return order[(k - 1) // 2]
+    """Lower median of x over mask along the last dimension (the
+    reference's convention); leading dimensions batch."""
+    order = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf"))), dim=-1).values
+    k = torch.clamp(torch.sum(mask.to(torch.int64), dim=-1, keepdim=True), min=1)
+    return torch.gather(order, -1, (k - 1) // 2).squeeze(-1)

@@ -2,7 +2,8 @@
 
 Port of gtsfm_tpu/loader/base.py, the surface the reconstruction path uses:
 ``__len__``, ``get_all_intrinsics``, ``load_grayscale_batch``,
-``get_gt_poses``, ``image_filenames`` and ``batch_calibrations``. Images are
+``get_gt_poses``, ``image_filenames``, ``is_valid_pair`` (the retrievers'
+pair filter) and ``batch_calibrations``. Images are
 host numpy arrays (the detector slot consumes numpy); poses and calibrations
 are port tensors, and their device is the device the reconstruction runs on.
 """
@@ -48,6 +49,11 @@ class LoaderBase:
 
     def image_filename(self, index: int) -> str:
         return f"{index:04d}.jpg"
+
+    def is_valid_pair(self, idx1: int, idx2: int) -> bool:
+        """Whether (idx1, idx2), idx1 < idx2, may be matched. Loaders with a
+        temporal order or a benchmark pair list restrict this."""
+        return 0 <= idx1 < idx2 < len(self)
 
     def load_grayscale_batch(self, indices=None):
         """-> (images f32 (B, H, W) in [0, 1] zero-padded to a common size,

@@ -1,12 +1,12 @@
 """Build-on-first-use for the port's native C++ host libraries.
 
 The port's copy of gtsfm_tpu/native/build.py. The host-side sequential
-algorithms (DSF track linking, MFAS ordering) live in small C++ shared
-objects built from the sources in this directory. ensure_built() compiles a
-missing or stale .so once with g++ into ``build/torch_native/`` at the root
-of the checkout (git-ignored), never into the reference package, guarded by
-an exclusive lock file so that concurrent test workers don't race. Callers
-fall back to their numpy implementations when no toolchain is available.
+algorithms (DSF track linking, MFAS ordering, METIS-class multilevel
+bisection) live in small C++ shared objects built from the sources in this
+directory. ensure_built() compiles a missing or stale .so once with g++
+into ``build/torch_native/`` at the root of the checkout (git-ignored),
+never into the reference package, guarded by an exclusive lock file so that
+concurrent test workers don't race. Callers fall back to their numpy implementations when no toolchain is available.
 
 These are CPU libraries, not device kernels.
 """
@@ -21,6 +21,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "torch
 _SOURCES = {
     "libdsf.so": "dsf.cpp",
     "libmfas.so": "mfas.cpp",
+    "libmetis_lite.so": "metis.cpp",
 }
 
 

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the fused matcher, attention and splat
 compositing kernels against their plain PyTorch versions, the splat
-trainer, and the back end's run-to-run reproducibility.
+trainer, the back end's run-to-run reproducibility, and the card against
+the CPU on the synthetic direct branch (equal index outputs, no matcher
+launch) and on the merge's compacted BA (``run_compact``).
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -419,3 +421,95 @@ def test_splat_trainer_lowers_l1_on_the_card():
     assert rendering.launch_count - before >= 20
     assert l1(gs) < l1(GSData.from_points(pts, max_gaussians=256, device=dev))
     assert bool(torch.isfinite(gs.means).all()) and metrics["num_gaussians"] == 3
+
+
+def _ring_scene(n):
+    from gtsfm_tpu_torch.geometry import Cal3Bundler
+    from gtsfm_tpu_torch.loader.synthetic import spectral_ring_poses
+
+    edges = np.asarray(sorted({(min(i, (i + k) % n), max(i, (i + k) % n))
+                               for i in range(n) for k in (1, 2, 3)}), np.int64)
+    gt = spectral_ring_poses(edges, n)
+    cal = Cal3Bundler.create(torch.full((n,), 300.0), torch.zeros(n), torch.zeros(n),
+                             torch.full((n,), 160.0), torch.full((n,), 120.0))
+    return edges, gt, cal
+
+
+@pytest.mark.cuda
+def test_direct_branch_on_the_card_gives_the_cpu_runs_index_outputs():
+    """The synthetic generator and the two-view batch on its precomputed
+    matches, on the card and on the CPU: equal index outputs, and no launch
+    of the mutual-NN matcher kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend.synthetic import SyntheticCorrespondenceGenerator, SyntheticOptions
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
+
+    n = 32
+    edges, gt, cal = _ring_scene(n)
+    gen = SyntheticCorrespondenceGenerator(SyntheticOptions(num_points=600, noise_px=0.4, outlier_fraction=0.1))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        syn = gen.generate(gt.map(lambda a: a.to(dev)), cal.map(lambda a: a.to(dev)), edges, [(320, 240)] * n)
+        so = SceneOptimizer(SceneOptimizerOptions(device=dev), correspondence=gen)
+        fused_matcher.launch_count = 0
+        tvr = so._run_two_view(edges, syn["keypoints_xy"], syn["kp_mask"],
+                               np.zeros((n, 600, 4), np.float32), cal.map(lambda a: a.to(dev)), (320, 240),
+                               (syn["corr_i1"], syn["corr_i2"], syn["corr_mask"]))
+        assert fused_matcher.launch_count == 0
+        runs[dev] = syn, {k: getattr(tvr, k).cpu().numpy() for k in ("corr_i1", "corr_i2", "num_matches")}
+    (syn_c, tv_c), (syn_g, tv_g) = runs["cpu"], runs["cuda"]
+    for k in ("corr_i1", "corr_i2", "corr_mask", "kp_mask", "valid", "num_inliers"):
+        np.testing.assert_array_equal(syn_g[k], syn_c[k], err_msg=k)
+    vis = syn_c["kp_mask"]
+    np.testing.assert_allclose(syn_g["keypoints_xy"][vis], syn_c["keypoints_xy"][vis], atol=1e-3)
+    for k in tv_c:
+        np.testing.assert_array_equal(tv_g[k], tv_c[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_run_compact_on_the_card_agrees_with_the_cpu():
+    """BundleAdjustment.run_compact on a scene whose cameras and tracks are
+    half dead, on the card and on the CPU: rotations within 1e-4 rad,
+    centers within 1e-4 x the scene's scale (the dense BA's parity
+    tolerance). Two fixed cameras fix the gauge, scale included, so the
+    minimum is unique."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.bundle.ba import BAOptions, BundleAdjustment
+    from gtsfm_tpu_torch.common.sfm_data import SfmData
+    from gtsfm_tpu_torch.geometry import SE3, so3
+
+    n, Tn = 24, 400
+    _, gt, cal = _ring_scene(n)
+    rng = np.random.default_rng(0)
+    R, t = gt.R.numpy(), gt.t.numpy()
+    X = rng.uniform(-4, 4, (Tn, 3))
+    cams = rng.integers(0, n // 2, (Tn, 4))  # only the first half of the cameras is measured
+    pc = np.einsum("tkji,tkj->tki", R[cams], X[:, None] - t[cams])
+    uv = 300.0 * pc[..., :2] / pc[..., 2:] + np.array([160.0, 120.0]) + rng.normal(0, 0.3, pc.shape[:2] + (2,))
+    R0 = np.einsum("nij,njk->nik", R, so3.expmap(torch.as_tensor(rng.normal(0, 0.004, (n, 3)),
+                                                                 dtype=torch.float32)).numpy())
+    pose_mask = np.arange(n) < n // 2
+    data = SfmData(
+        poses=SE3(R=torch.as_tensor(R0, dtype=torch.float32), t=torch.as_tensor(t + rng.normal(0, 0.05, t.shape),
+                                                                                dtype=torch.float32)),
+        cal=cal, pose_mask=torch.as_tensor(pose_mask),
+        points=torch.as_tensor(np.concatenate([X + rng.normal(0, 0.05, X.shape), np.zeros((Tn, 3))]),
+                               dtype=torch.float32),
+        track_mask=torch.as_tensor(np.arange(2 * Tn) < Tn),
+        meas_cam=torch.as_tensor(cams.reshape(-1)), meas_track=torch.as_tensor(np.repeat(np.arange(Tn), 4)),
+        meas_uv=torch.as_tensor(uv.reshape(-1, 2), dtype=torch.float32),
+        meas_mask=torch.as_tensor(rng.random(Tn * 4) > 0.1),
+    )
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[[0, 6]] = True  # two cameras: the gauge's scale is fixed too
+    ba = BundleAdjustment(BAOptions(max_iterations=15))
+    out_c, m_c = ba.run_compact(data, fixed_cam=fixed)
+    out_g, m_g = ba.run_compact(data.map(lambda a: a.cuda()), fixed_cam=fixed.cuda())
+    rel = torch.einsum("nji,njk->nik", out_c.poses.R.double(), out_g.poses.R.cpu().double())
+    assert so3.logmap(rel).norm(dim=-1).max() < 1e-4
+    t_c = out_c.poses.t
+    assert (out_g.poses.t.cpu() - t_c).abs().max() <= 1e-4 * t_c.abs().max()
+    assert torch.equal(out_g.poses.R.cpu()[~torch.as_tensor(pose_mask)], data.poses.R[~torch.as_tensor(pose_mask)])
+    assert abs(m_g["final_cost"] - m_c["final_cost"]) <= 1e-3 * m_c["final_cost"] < m_c["initial_cost"]

@@ -111,7 +111,7 @@ def test_dsf_tracks_match_reference(native, monkeypatch):
 
 def test_native_libraries_build_outside_the_reference_package():
     ref_native = os.path.join(REPO, "gtsfm_tpu", "native")
-    for name in ("libdsf.so", "libmfas.so"):
+    for name in ("libdsf.so", "libmfas.so", "libmetis_lite.so"):
         path = native_build.ensure_built(name)
         assert path is not None and os.path.exists(path), name
         assert os.path.dirname(path) == native_build.BUILD_DIR == os.path.join(REPO, "build", "torch_native")

@@ -18,7 +18,9 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    (cuobjdump); both timed (median of 20 samples of back-to-back calls,
    CUDA events), the kernels also as a CUDA graph (their device time alone)
    and by the host's clock (the wrapper's host time per call), with its
-   TFLOP/s and share of the bound;
+   TFLOP/s and share of the bound; then the same checks and timings at the
+   runner phase's shape, P=64 pairs, K=2048, D=128 (the unified config's
+   pair_batch_size and max_keypoints), on the descriptor feed at K=2048;
 4. attention: the fused attention kernel through all four entries against
    their plain versions: LightGlue's shape (P=96 pairs, K=2048, 4 heads of
    64, masked keys), a fully masked key set, K=1000, K=384, K0 != K1 and
@@ -68,17 +70,31 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    >= the reference's 0.9739 - 0.02, and median rotation and translation
    errors after a Sim3 alignment to GT < 0.5 deg and < 0.3; prints the
    cluster tree and the stage seconds with the card's name and power limit;
-10. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
+10. runner: the default entry point, gtsfm_tpu_torch.runner.main with the
+   unified config (DoG-SIFT K=2048, the joint retriever with the tiny
+   descriptor, the two-view batch at P=64 through the matcher kernel,
+   bridges, MVO, evaluation, COLMAP export), in this process, cold and
+   then warm, on an Olsson folder of the 32 ring views of runner_scene
+   below, rendered by the port at 480x640, f=600; each run requires
+   DoG-SIFT on `cuda` only, a matcher launch per 64 pairs, registered >=
+   the JAX reference's 31 - 1, AUC@5 >= its 0.7251 - 0.02 (the reference:
+   scripts/runner_reference.py), the metrics JSON and a COLMAP export that
+   reads back with every registered camera; prints the stage seconds, the
+   pair count and the keypoints per image;
+11. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
    480x640 for 400 steps, on the 32 ring views of the splat scene rendered
    by the port; final L1 < 0.7 of the initial and >= 400 compositing
    launches required; seconds per step and peak device memory printed.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Any failure exits non-zero with no result.
+The seconds of each phase are printed as it ends. The line before the last
+is the kernel table as JSON; the last line is {"ok": true, "device":
+{...}}. Any failure exits non-zero with no result.
 There is no CPU mode: without a CUDA device the script stops.
 
-The descriptor feed, the glue fixture and the splat scene are defined here
-once, with numpy only; the CPU tests import them from this file.
+The descriptor feed, the glue fixture, the splat scene and the runner scene
+are defined here once, with numpy only (ring_views and write_olsson render
+and write them through the port); the CPU tests and
+scripts/runner_reference.py import them from this file.
 """
 
 from __future__ import annotations
@@ -136,6 +152,18 @@ HIER_AUC5_SLACK = 0.02
 HIER_MIN_REGISTERED = 0.95  # tests/scene/test_scale_synthetic.py:122-123
 HIER_MEDIAN_ROT_DEG = 0.5  # test_scale_synthetic.py:128-131, after a Sim3 alignment to GT
 HIER_MEDIAN_TRANS = 0.3
+
+# the runner phase: the unified config on the 32 ring views of runner_scene;
+# the JAX package on the CPU on the same views (scripts/runner_reference.py,
+# JAX 0.9.0): 31 of 32 registered, pose AUC@5 0.72510 (156 of 360 pairs
+# valid, 114 of them with the GT pose; the cycle filter keeps 108 edges)
+RUNNER_REF_REGISTERED = 31
+RUNNER_REF_AUC5 = 0.725103081450347
+RUNNER_REGISTERED_SLACK = 1  # the port may register one camera fewer
+RUNNER_AUC5_SLACK = 0.02
+RUNNER_PAIR_BATCH = 64  # pair_batch_size of the unified config: pairs per matcher launch
+RUNNER_METRICS = ("frontend_summary", "verifier_summary", "multiview_optimizer_metrics", "ba_pose_metrics",
+                  "track_classification_metrics", "intrinsics_metrics", "total_summary")
 
 SPLAT_HW = (480, 640)  # the synthetic loader's default image size
 SPLAT_FOCAL = 600.0  # and focal length
@@ -298,6 +326,45 @@ def splat_scene(center, n: int = SPLAT_GAUSSIANS, radius: float = 8.0, seed: int
         "opacity_logit": rng.normal(1.0, 1.0, n).astype(np.float32),
         "colors": (2.5 * np.sin((means - np.asarray(center)) @ rng.normal(0, 1.0, (3, 3)) + rng.uniform(0, 6.3, 3))
                    + rng.normal(0.0, 0.3, (n, 3))).astype(np.float32),
+        "alive": np.ones(n, bool),
+    }
+
+
+def _mosaic_shell(rng, n: int, radius: float, cells: int, scales: tuple):
+    """n gaussians on a sphere of ``radius`` around the origin, each with the
+    gray level (a color logit in [-4, 4]) of the nearest of ``cells`` random
+    sites on the sphere: a mosaic of gray patches. Returns (positions,
+    levels, log scales)."""
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    sites = rng.normal(size=(cells, 3))
+    sites /= np.linalg.norm(sites, axis=1, keepdims=True)
+    level = rng.uniform(-4.0, 4.0, cells)
+    # the nearest site, over slices of 4096 gaussians
+    gray = np.concatenate([level[np.argmax(d[s : s + 4096] @ sites.T, axis=1)] for s in range(0, n, 4096)])
+    return d * radius, gray, np.log(rng.uniform(*scales, (n, 3)))
+
+
+def runner_scene(center, n: int = SPLAT_GAUSSIANS, seed: int = 0) -> dict:
+    """GSData fields (numpy float32; alive bool) of a seeded scene for the
+    runner phase, nearly opaque gaussians painted with gray mosaics: half
+    on a sphere of radius 4 around ``center`` (3,000 patches, scales
+    0.04-0.1), half on an enclosing backdrop sphere of radius 40 (4,000
+    patches, scales 0.3-0.6), plus a little color noise. Seen from the ring
+    (radius 20), the backdrop fills the frame far away and the small sphere
+    stands in front of it: corners and blobs that DoG-SIFT finds again from
+    ring cameras up to 45 degrees apart, at depths from 16 to 60, which
+    hold the two-view rotation."""
+    rng = np.random.default_rng(seed)
+    near = _mosaic_shell(rng, n // 2, 4.0, 3000, (0.04, 0.1))
+    far = _mosaic_shell(rng, n - n // 2, 40.0, 4000, (0.3, 0.6))
+    pos, gray, log_scales = (np.concatenate(x) for x in zip(near, far))
+    return {
+        "means": (np.asarray(center, np.float64) + pos).astype(np.float32),
+        "log_scales": log_scales.astype(np.float32),
+        "quats": rng.normal(size=(n, 4)).astype(np.float32),
+        "opacity_logit": np.full(n, 4.0, np.float32),
+        "colors": (gray[:, None] + rng.normal(0.0, 0.2, (n, 3))).astype(np.float32),
         "alive": np.ones(n, bool),
     }
 
@@ -530,11 +597,27 @@ def phase_kernel(kp_mask, descs, pairs):
             worst = max(worst, err)
             print(f"kernel check {name} {tuple(a.shape)} x {tuple(b.shape)}: max|best| err {err:.3g}, {n_dec} "
                   f"decisive rows agree, {int(got[1].sum())} matches", flush=True)
-        a, b, ma, mb = cases["P96_K1024"]
+    ms, bound = _time_matcher("P96_K1024", *cases["P96_K1024"])
+    return worst, ms, bound
+
+
+def _time_matcher(name, a, b, ma, mb):
+    """Two launches on (a, b, ma, mb) must be bitwise equal; then the
+    wrapper is timed in turns with the plain version, as a CUDA graph
+    (device time alone: the whole call, and the tile and finish kernels on
+    bf16 inputs) and by the host's clock. Returns ({"kernel", "plain",
+    "device", "wrapped", "host": ms}, (bound ms, bound by))."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    with precise():
         first = fused_matcher.fused_match_descriptors(a, b, ma, mb)
         again = fused_matcher.fused_match_descriptors(a, b, ma, mb)
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
-            raise AssertionError("two matcher launches on the same inputs differ")
+            raise AssertionError(f"two matcher launches on the same inputs differ ({name})")
         ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
         # "alone": the tile and finish kernels on bf16 inputs, no casts
         calls = {"plain": lambda: match_descriptors(a, b, ma, mb),
@@ -565,7 +648,7 @@ def phase_kernel(kp_mask, descs, pairs):
     flop = 2.0 * P * K1 * K2 * D
     bound = max((flop / PEAK_BF16 * 1e3, "operations"),
                 ((a.nbytes + b.nbytes + ma.nbytes + mb.nbytes + P * K1 * (4 + 1 + 4)) / PEAK_BYTES * 1e3, "bytes"))
-    print(f"kernel timing P96_K1024 (median of 20 samples, CUDA events): {ms['kernel']:.4f} ms through the "
+    print(f"kernel timing {name} (median of 20 samples, CUDA events): {ms['kernel']:.4f} ms through the "
           f"wrapper ({TIMING_BATCH} calls back to back), plain {ms['plain']:.4f} ms, kernel / plain "
           f"{ms['kernel'] / ms['plain']:.3f} | runs {order} | device alone (a CUDA graph of {TIMING_BATCH} calls): "
           f"the tile and finish kernels {ms['device']:.4f} ms (runs {[round(x, 4) for x in device]}), the whole call "
@@ -573,7 +656,45 @@ def phase_kernel(kp_mask, descs, pairs):
           f"{[round(x, 4) for x in host]}) | {flop / ms['device'] * 1e-9:.1f} TFLOP/s device, "
           f"{flop / ms['kernel'] * 1e-9:.1f} back to back | bound {bound[0]:.4f} ms ({bound[1]}): "
           f"{bound[0] / ms['device']:.3f} of it device, {bound[0] / ms['kernel']:.3f} back to back", flush=True)
-    return worst, ms, bound
+    return ms, bound
+
+
+def phase_kernel_runner():
+    """The matcher kernel at the runner phase's two-view shape, P=64 pairs
+    (the unified config's pair_batch_size), K=2048 (its max_keypoints),
+    D=128: the descriptor feed of the 32-camera ring at K=2048 over 64 of
+    its pairs, held against the plain version (kernel_agrees), two launches
+    bitwise equal, timed as at the slice's shape. Returns (max |best|
+    error, ms, bound)."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+    from gtsfm_tpu_torch.loader.synthetic import spectral_ring_poses
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    pairs = ring_pairs(NUM_CAMERAS)[:RUNNER_PAIR_BATCH]
+    gt = spectral_ring_poses(ring_pairs(NUM_CAMERAS), NUM_CAMERAS)
+    _xy, kp_mask, descs = descriptor_feed(gt.R.numpy(), gt.t.numpy(), SPLAT_FOCAL, SPLAT_HW, 2048, seed=1)
+    dev = torch.device("cuda")
+    d = torch.as_tensor(descs, device=dev)
+    m = torch.as_tensor(kp_mask, device=dev)
+    i1 = torch.as_tensor(pairs[:, 0], device=dev, dtype=torch.int64)
+    i2 = torch.as_tensor(pairs[:, 1], device=dev, dtype=torch.int64)
+    a, b, ma, mb = d[i1], d[i2], m[i1], m[i2]
+    with precise():
+        got = fused_matcher.fused_match_descriptors(a, b, ma, mb)
+        want = match_descriptors(a, b, ma, mb)
+        err, n_dec, bad = kernel_agrees(got, want, a, b, ma, mb)
+    print(f"kernel check P64_K2048 {tuple(a.shape)} x {tuple(b.shape)}: max|best| err {err:.3g}, {n_dec} decisive "
+          f"rows agree, {int(got[1].sum())} matches", flush=True)
+    if err > KERNEL_TOL_BEST or bad:
+        raise AssertionError(f"kernel disagrees on P64_K2048: max|best| err {err:.3g}, "
+                             f"{bad}/{n_dec} decisive rows differ")
+    ms, bound = _time_matcher("P64_K2048", a, b, ma, mb)
+    del a, b, d
+    torch.cuda.empty_cache()
+    return err, ms, bound
 
 
 def attention_agrees(got, want, v):
@@ -721,16 +842,65 @@ def phase_attention(seed: int = 0):
     return worst, ms, bound
 
 
-def splat_camera(R, t, index: int, dev):
-    """Ring camera ``index`` (SE3) and the loader's default intrinsics at
-    SPLAT_HW, f = SPLAT_FOCAL (3x3 K), on ``dev``."""
+def splat_camera(R, t, index: int, dev, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL):
+    """Ring camera ``index`` (SE3) and intrinsics with the principal point
+    at the center of ``hw`` and focal length ``focal`` (3x3 K), on
+    ``dev``; by default the loader's defaults, SPLAT_HW and SPLAT_FOCAL."""
     import torch
 
     from gtsfm_tpu_torch.geometry import SE3
 
-    h, w = SPLAT_HW
-    K = torch.tensor([[SPLAT_FOCAL, 0, w / 2.0], [0, SPLAT_FOCAL, h / 2.0], [0, 0, 1]], device=dev)
+    h, w = hw
+    K = torch.tensor([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]], device=dev)
     return SE3(R=torch.as_tensor(R[index], device=dev), t=torch.as_tensor(t[index], device=dev)), K
+
+
+def ring_order(t) -> np.ndarray:
+    """The ring cameras' indices in the order of their angle around the
+    ring's center."""
+    c = np.asarray(t, np.float64) - np.asarray(t, np.float64).mean(axis=0)
+    return np.argsort(np.arctan2(c[:, 1], c[:, 0]), kind="stable")
+
+
+def ring_views(R, t, dev, fields: dict, indices=None, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL,
+               per_tile_cap: int = 512) -> np.ndarray:
+    """Views of a scene (GSData ``fields``, numpy) from the ring cameras
+    (R, t) ``indices`` (all by default), rendered by the port's render_tiled
+    (``per_tile_cap`` slots a tile) on ``dev``: (n, H, W, 3) float32 in
+    [0, 1]."""
+    import torch
+
+    from gtsfm_tpu_torch.splat import rendering
+    from gtsfm_tpu_torch.splat.gs_data import GSData
+
+    h, w = hw
+    scene = GSData(**{k: torch.as_tensor(v, device=dev) for k, v in fields.items()})
+    indices = range(len(t)) if indices is None else indices
+    with torch.no_grad():
+        return np.stack([rendering.render_tiled(scene, *splat_camera(R, t, i, dev, hw, focal), h, w,
+                                                per_tile_cap=per_tile_cap)[0].cpu().numpy() for i in indices])
+
+
+def write_olsson(dirpath: str, views: np.ndarray, R, t, focal: float) -> None:
+    """An Olsson dataset folder: views (n, H, W, 3) in [0, 1] as
+    images/%02d.png (8-bit RGB) and data.mat with P_i = K [R_i^T | -R_i^T
+    t_i] for camera-to-world poses (R_i, t_i) and K of ``focal`` with the
+    principal point at the image center."""
+    import os
+
+    import scipy.io
+    from PIL import Image
+
+    h, w = views.shape[1:3]
+    os.makedirs(os.path.join(dirpath, "images"), exist_ok=True)
+    K = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]])
+    P = np.empty((1, len(views)), object)
+    for i, v in enumerate(views):
+        Image.fromarray(np.round(np.clip(v, 0.0, 1.0) * 255.0).astype(np.uint8)).save(
+            os.path.join(dirpath, "images", f"{i:02d}.png"))
+        Rt = np.asarray(R[i], np.float64).T
+        P[0, i] = K @ np.concatenate([Rt, -Rt @ np.asarray(t[i], np.float64)[:, None]], axis=1)
+    scipy.io.savemat(os.path.join(dirpath, "data.mat"), {"P": P})
 
 
 def evaluated_slots(packed, gidx, counts, origins, batch: int = 256):
@@ -1234,6 +1404,93 @@ def phase_hierarchical(smi: str, n: int = HIER_CAMERAS):
             raise AssertionError(f"hierarchical: median errors {np.median(rot):.4f} deg, {np.median(trans):.4f}")
 
 
+def phase_runner(smi: str, R, t) -> dict:
+    """The default entry point on `cuda`: the 32 ring views of runner_scene
+    at SPLAT_HW, f = SPLAT_FOCAL, rendered by the port on the card and
+    written as an Olsson folder, then ``gtsfm_tpu_torch.runner.main`` with
+    the unified config, in this process, cold and then warm, with every
+    launch count set to 0 just before each run and read just after. Each
+    run requires DoG-SIFT on `cuda` and nowhere else, a matcher launch per
+    chunk of RUNNER_PAIR_BATCH pairs at least, registered >= the JAX
+    reference's - 1, AUC@5 >= the reference's - 0.02, finite poses, the
+    metrics JSON of every group the run reports and a COLMAP export that
+    reads back with every registered camera. Returns the launches of the
+    warm run and its matcher shape {P, K}."""
+    import os
+    import tempfile
+
+    import torch
+
+    from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup
+    from gtsfm_tpu_torch.frontend.detectors import dog_sift
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
+    from gtsfm_tpu_torch.io import colmap
+    from gtsfm_tpu_torch.splat import rendering
+
+    dev = torch.device("cuda")
+    order = ring_order(t)
+    t0 = time.perf_counter()
+    views = ring_views(R, t, dev, runner_scene(np.asarray(t).mean(axis=0)), indices=order)
+    min_registered = RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK
+    min_auc5 = RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = os.path.join(work, "data")
+        write_olsson(data_dir, views, np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
+        print(f"runner: {len(order)} views of runner_scene at {SPLAT_HW[0]}x{SPLAT_HW[1]} rendered and written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        for run in ("cold", "warm"):
+            out = os.path.join(work, run)
+            dog_sift.calls_by_device.clear()
+            fused_matcher.launch_count = fused_attention.launch_count = rendering.launch_count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = runner.main(["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir,
+                              "--output_root", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
+                        "composite": rendering.launch_count}
+            detector = dict(dog_sift.calls_by_device)
+            mdir = os.path.join(out, "results", "metrics")
+            metrics = {g.name: {m.name: m for m in g.metrics}
+                       for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
+            missing = [g for g in RUNNER_METRICS if g not in metrics]
+            if rc != 0 or missing:
+                raise AssertionError(f"runner {run}: exit code {rc}, metrics groups missing {missing}")
+            fe = {k: m.scalar for k, m in metrics["frontend_summary"].items() if m.dist is None}
+            kps = metrics["frontend_summary"]["num_keypoints_per_image"].dist
+            pose = metrics["ba_pose_metrics"]
+            registered = len(pose["rotation_error_deg"].dist)
+            auc5 = pose["pose_auc_@5.0_deg"].scalar
+            back = colmap.read_scene(os.path.join(out, "results", "ba_output"))
+            pairs = int(fe["num_pairs"])
+            chunks = -(-pairs // RUNNER_PAIR_BATCH)
+            consistent = metrics["track_classification_metrics"]["fraction_tracks_gt_consistent"].scalar
+            sec = {k: fe[k] for k in ("detect_describe_sec", "retriever_duration_sec", "two_view_sec")}
+            sec["backend_sec"] = metrics["multiview_optimizer_metrics"]["backend_sec"].scalar
+            sec["total_runtime_sec"] = metrics["total_summary"]["total_runtime_sec"].scalar
+            print(f"runner {run}: {registered}/{len(order)} registered (bar {min_registered}), pose AUC@5 "
+                  f"{auc5:.4f} (bar {min_auc5:.4f}), {pairs} pairs ({int(fe['num_valid_pairs'])} valid, >= "
+                  f"{chunks} chunks of {RUNNER_PAIR_BATCH}), keypoints per image median "
+                  f"{float(np.median(kps)):.0f} min {int(np.min(kps))} max {int(np.max(kps))}, "
+                  f"{back.number_tracks()} tracks exported, DoG-SIFT calls by device {detector}, launches {launches}, "
+                  f"tracks consistent with GT {consistent:.4f}", flush=True)
+            print(f"runner {run} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in sec.items())
+                  + f" main {wall:.3f} | {smi}", flush=True)
+            if set(detector) != {"cuda"}:
+                raise AssertionError(f"runner {run}: DoG-SIFT ran on {detector}, not on cuda alone")
+            if launches["matcher"] < chunks:
+                raise AssertionError(f"runner {run}: {launches['matcher']} matcher launches for {pairs} pairs")
+            if registered < min_registered or auc5 < min_auc5:
+                raise AssertionError(f"runner {run}: registered {registered} (bar {min_registered}), AUC@5 "
+                                     f"{auc5:.4f} (bar {min_auc5:.4f})")
+            if back.number_images() != registered or not bool(torch.isfinite(back.poses.R).all()):
+                raise AssertionError(f"runner {run}: the COLMAP export reads back {back.number_images()} cameras, "
+                                     f"{registered} registered")
+    return launches
+
+
 def splat_trainer_inputs(R, t):
     """The full-width trainer's inputs: the splat scene's views from every
     ring camera (R, t) at SPLAT_HW, rendered by the port, and an SfmData of
@@ -1243,17 +1500,12 @@ def splat_trainer_inputs(R, t):
 
     from gtsfm_tpu_torch.common.sfm_data import SfmData
     from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
-    from gtsfm_tpu_torch.splat import rendering
-    from gtsfm_tpu_torch.splat.gs_data import GSData
 
     dev = torch.device("cuda")
     h, w = SPLAT_HW
     n = len(t)
     fields = splat_scene(np.asarray(t).mean(axis=0), n=SPLAT_GAUSSIANS)
-    scene = GSData(**{k: torch.as_tensor(v, device=dev) for k, v in fields.items()})
-    with torch.no_grad():
-        views = np.stack([rendering.render_tiled(scene, *splat_camera(R, t, i, dev), h, w)[0].cpu().numpy()
-                          for i in range(n)])
+    views = ring_views(R, t, dev, fields)
     rng = np.random.default_rng(1)
     pts = fields["means"][:SPLAT_POINTS] + rng.normal(0, 0.05, (SPLAT_POINTS, 3)).astype(np.float32)
     z = torch.zeros(n)
@@ -1313,8 +1565,17 @@ def phase_splat(R, t):
 def main() -> int:
     import torch
 
+    phase_sec = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_sec[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_sec[name]:.1f} s", flush=True)
+        return out
+
     smi = phase_device()
-    phase_build()
+    timed("build", phase_build)
 
     from gtsfm_tpu_torch.loader.synthetic import spectral_ring_poses
 
@@ -1323,11 +1584,12 @@ def main() -> int:
     R, t = gt.R.numpy(), gt.t.numpy()
     kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, NUM_KEYPOINTS)
 
-    err, ms, bound = phase_kernel(kp_mask, descs, pairs)
-    attn_err, attn_ms, attn_bound = phase_attention()
-    comp_err, comp_ms, comp_bound = phase_composite(R, t)
-    launches, slice_comp_launches = phase_slice(kp_xy, kp_mask, descs, pairs, R, t)
-    attn_launches, _sec, fwd = phase_lightglue(pairs, R, t)
+    err, ms_slice, bound_slice = timed("kernel", phase_kernel, kp_mask, descs, pairs)
+    err_runner, ms, bound = timed("kernel_runner", phase_kernel_runner)
+    attn_err, attn_ms, attn_bound = timed("attention", phase_attention)
+    comp_err, comp_ms, comp_bound = timed("composite", phase_composite, R, t)
+    slice_launches, slice_comp_launches = timed("slice", phase_slice, kp_xy, kp_mask, descs, pairs, R, t)
+    attn_launches, _sec, fwd = timed("lightglue", phase_lightglue, pairs, R, t)
     # the forward's 36 launches: per layer two self entries and one cross
     # entry (two launches), each at the timed P96_K2048 shape
     from gtsfm_tpu_torch.frontend.matchers.lightglue import LightGlueOptions
@@ -1338,9 +1600,11 @@ def main() -> int:
     print(f"lightglue forward: {fwd['kernel'] * 1e3:.3f} ms warm (host clock), of which the attention kernel "
           f"{attn_fwd_ms:.3f} ms ({layers} layers x (2 self + 1 cross entry) at the timed medians), "
           f"{attn_fwd_ms / (fwd['kernel'] * 1e3):.3f} of the forward", flush=True)
-    phase_gate()
-    phase_hierarchical(smi)
-    comp_launches = phase_splat(R, t)
+    timed("gate", phase_gate)
+    timed("hierarchical", phase_hierarchical, smi)
+    runner_launches = timed("runner", phase_runner, smi, R, t)
+    comp_launches = timed("splat", phase_splat, R, t)
+    print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1348,14 +1612,18 @@ def main() -> int:
         "route": "cuda",
         "source": "gtsfm_tpu_torch/csrc/fused_matcher.cu",
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
-        "launches": launches,
-        "max_abs_err": err,
+        "shape": "P64_K2048_D128",
+        "launches": runner_launches["matcher"],
+        "max_abs_err": max(err, err_runner),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
         "device_ms": ms["device"],
         "bound_ms": bound[0],
         "bound_by": bound[1],
         "library_ms": None,
+        "slice": {"shape": "P96_K1024_D128", "launches": slice_launches, "ms": ms_slice["kernel"],
+                  "plain_ms": ms_slice["plain"], "device_ms": ms_slice["device"], "bound_ms": bound_slice[0],
+                  "bound_by": bound_slice[1]},
     }, {
         "name": "fused_attention",
         "route": "cuda",

@@ -1,0 +1,72 @@
+"""Host-side image container with EXIF-based intrinsics inference.
+
+Port of gtsfm_tpu/common/image.py (``Image``, ``rgb_to_gray`` and the EXIF
+focal length and intrinsics; the patch extraction is not ported). Images
+stay host numpy until the detector takes a padded batch to the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from gtsfm_tpu_torch.common.sensor_db import SENSOR_WIDTHS_MM
+
+DEFAULT_FOCAL_RATIO = 1.2  # focal ~ 1.2 * max(h, w) when EXIF is absent
+
+
+@dataclasses.dataclass
+class Image:
+    value_array: np.ndarray  # (H, W, 3) uint8 or (H, W) grayscale
+    exif_data: Optional[dict] = None
+    file_name: Optional[str] = None
+
+    @property
+    def height(self) -> int:
+        return self.value_array.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.value_array.shape[1]
+
+    def focal_length_from_exif(self) -> Optional[float]:
+        """Focal length in pixels from EXIF, else None: from
+        FocalLengthIn35mmFilm (f35 / the 35 mm diagonal * the image
+        diagonal), else from FocalLength and the camera model's sensor
+        width."""
+        if not self.exif_data:
+            return None
+        max_size = max(self.height, self.width)
+        f35 = self.exif_data.get("FocalLengthIn35mmFilm")
+        if f35 and f35 > 0:
+            return float(f35) * np.hypot(self.width, self.height) / np.hypot(36.0, 24.0)
+        focal_mm = self.exif_data.get("FocalLength")
+        if not focal_mm or focal_mm <= 0:
+            return None
+        make = (self.exif_data.get("Make") or "").strip().lower()
+        model = (self.exif_data.get("Model") or "").strip().lower()
+        for key in (f"{make} {model}".strip(), model):
+            sensor_mm = SENSOR_WIDTHS_MM.get(key)
+            if sensor_mm:
+                return float(focal_mm) / sensor_mm * max_size
+        return None
+
+    def intrinsics_from_exif(self) -> tuple:
+        """(f, u0, v0) from EXIF, or the default focal-ratio prior, with
+        the principal point at the image center."""
+        f = self.focal_length_from_exif()
+        if f is None:
+            f = DEFAULT_FOCAL_RATIO * max(self.height, self.width)
+        return float(f), self.width / 2.0, self.height / 2.0
+
+
+def rgb_to_gray(value_array: np.ndarray) -> np.ndarray:
+    """ITU-R BT.601 luma, float32 in [0, 1]."""
+    arr = np.asarray(value_array).astype(np.float32)
+    if arr.max() > 1.5:
+        arr = arr / 255.0
+    if arr.ndim == 2:
+        return arr
+    return arr[..., 0] * 0.299 + arr[..., 1] * 0.587 + arr[..., 2] * 0.114

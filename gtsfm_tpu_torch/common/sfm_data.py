@@ -104,6 +104,43 @@ class SfmData(TensorStruct):
         return float(np.mean(vals)), float(np.median(vals))
 
     @classmethod
+    def from_cameras_and_tracks(cls, poses: SE3, cal, tracks, num_cameras: Optional[int] = None,
+                                meta: Optional[SceneMeta] = None) -> "SfmData":
+        """Host-side builder on the poses' device. tracks: a sequence of
+        (point_xyz, [(cam_idx, uv), ...]); every camera is marked posed."""
+        n = num_cameras if num_cameras is not None else poses.t.shape[0]
+        T = max(len(tracks), 1)
+        points = np.zeros((T, 3), np.float32)
+        mc, mt, muv = [], [], []
+        for j, (xyz, obs) in enumerate(tracks):
+            points[j] = xyz
+            for cam_idx, uv in obs:
+                mc.append(cam_idx)
+                mt.append(j)
+                muv.append(uv)
+        M = max(len(mc), 1)
+        meas_cam = np.zeros(M, np.int64)
+        meas_track = np.zeros(M, np.int64)
+        meas_uv = np.zeros((M, 2), np.float32)
+        meas_cam[: len(mc)] = mc
+        meas_track[: len(mt)] = mt
+        if muv:
+            meas_uv[: len(muv)] = np.asarray(muv, np.float32)
+        dev = poses.t.device
+        return cls(
+            poses=poses,
+            cal=cal,
+            pose_mask=torch.ones(n, dtype=torch.bool, device=dev),
+            points=torch.as_tensor(points, device=dev),
+            track_mask=torch.as_tensor(np.arange(T) < len(tracks), device=dev),
+            meas_cam=torch.as_tensor(meas_cam, device=dev),
+            meas_track=torch.as_tensor(meas_track, device=dev),
+            meas_uv=torch.as_tensor(meas_uv, device=dev),
+            meas_mask=torch.as_tensor(np.arange(M) < len(mc), device=dev),
+            meta=meta,
+        )
+
+    @classmethod
     def empty(cls, num_cameras: int, meta: Optional[SceneMeta] = None, device=None) -> "SfmData":
         n = max(num_cameras, 1)
         z = torch.zeros(n, device=device)

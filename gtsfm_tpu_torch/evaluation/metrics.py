@@ -1,14 +1,18 @@
 """Metrics containers and pose metrics.
 
-Port of gtsfm_tpu/evaluation/metrics.py: ``Metric``, ``MetricsGroup``,
-``pose_auc`` and ``precision_recall_from_errors`` (host numpy, unchanged),
-``relative_pose_errors`` on port tensors, and the relative pair errors of
-``evaluation/compare.py`` (``relative_rotation_angular_errors``,
-``translation_direction_errors_deg``, host numpy). The JSON summaries and export of the reference are not ported.
+Port of gtsfm_tpu/evaluation/metrics.py: ``Metric`` and ``MetricsGroup``
+with their summaries and JSON round trip, ``pose_auc``,
+``intrinsics_error_metrics`` and ``precision_recall_from_errors`` (host
+numpy, unchanged), ``relative_pose_errors`` on port tensors, and the
+relative pair errors of ``evaluation/compare.py``
+(``relative_rotation_angular_errors``, ``translation_direction_errors_deg``,
+host numpy).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,11 +37,58 @@ class Metric:
             self.scalar = None
             self.dist = arr
 
+    def summary(self) -> dict:
+        if self.dist is None:
+            return {self.name: self.scalar}
+        d = self.dist[np.isfinite(self.dist)]
+        if d.size == 0:
+            return {self.name: {"count": 0}}
+        return {
+            self.name: {
+                "count": int(d.size),
+                "min": float(d.min()),
+                "max": float(d.max()),
+                "mean": float(d.mean()),
+                "median": float(np.median(d)),
+                "stddev": float(d.std()),
+                "quartiles": [float(q) for q in np.percentile(d, [0, 25, 50, 75, 100])],
+            }
+        }
+
+    def to_dict(self) -> dict:
+        if self.dist is None:
+            return {self.name: self.scalar}
+        return {self.name: {"summary": self.summary()[self.name], "full_data": self.dist.tolist()}}
+
 
 class MetricsGroup:
     def __init__(self, name: str, metrics: Optional[Sequence[Metric]] = None):
         self.name = name
         self.metrics = list(metrics or [])
+
+    def add(self, metric: Metric):
+        self.metrics.append(metric)
+
+    def to_dict(self) -> dict:
+        out = {}
+        for m in self.metrics:
+            out.update(m.to_dict())
+        return {self.name: out}
+
+    def save_json(self, dirpath: str):
+        os.makedirs(dirpath, exist_ok=True)
+        with open(os.path.join(dirpath, f"{self.name}.json"), "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def from_json(cls, path: str) -> "MetricsGroup":
+        with open(path) as f:
+            d = json.load(f)
+        name = list(d.keys())[0]
+        g = cls(name)
+        for k, v in d[name].items():
+            g.add(Metric(k, v["full_data"] if isinstance(v, dict) and "full_data" in v else v))
+        return g
 
 
 def pose_auc(errors_deg: np.ndarray, thresholds_deg=POSE_AUC_THRESHOLDS_DEG) -> dict:
@@ -91,6 +142,26 @@ def translation_direction_errors_deg(wti_est: np.ndarray, wti_gt: np.ndarray, wR
     num = np.abs(np.sum(d_est * d_gt, axis=-1))
     den = np.linalg.norm(d_est, axis=-1) * np.linalg.norm(d_gt, axis=-1)
     return np.degrees(np.arccos(np.clip(num / np.maximum(den, 1e-12), -1.0, 1.0)))
+
+
+def intrinsics_error_metrics(est_cal, gt_cal, valid_mask=None) -> MetricsGroup:
+    """Per-camera intrinsics errors against GT: the focal length's absolute
+    and percentage error, and the radial k1 / k2 absolute errors where the
+    model has them."""
+    fx_est = np.atleast_1d(est_cal.fx.cpu().numpy().astype(np.float64))
+    fx_gt = np.atleast_1d(gt_cal.fx.cpu().numpy().astype(np.float64))
+    m = np.ones(fx_est.shape[0], bool) if valid_mask is None else np.asarray(valid_mask)
+    abs_err = np.abs(fx_est - fx_gt)[m]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pct = np.where(fx_gt > 0, np.abs(fx_est - fx_gt) / np.maximum(fx_gt, 1e-12) * 100.0, np.nan)[m]
+    g = MetricsGroup("intrinsics_metrics", [Metric("focal_length_error_px", abs_err),
+                                            Metric("focal_length_error_pct", pct[np.isfinite(pct)])])
+    for k in ("k1", "k2"):
+        if hasattr(est_cal, k) and hasattr(gt_cal, k):
+            e = np.abs(np.atleast_1d(getattr(est_cal, k).cpu().numpy().astype(np.float64))
+                       - np.atleast_1d(getattr(gt_cal, k).cpu().numpy().astype(np.float64)))[m]
+            g.add(Metric(f"{k}_error", e))
+    return g
 
 
 def precision_recall_from_errors(positive_errors, negative_errors, max_positive_error: float) -> tuple:

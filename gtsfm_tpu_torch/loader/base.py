@@ -1,66 +1,117 @@
-"""Loader base: image access and batched intrinsics.
+"""Loader base: image access with resolution capping, intrinsics, GT.
 
-Port of gtsfm_tpu/loader/base.py, the surface the reconstruction path uses:
-``__len__``, ``get_all_intrinsics``, ``load_grayscale_batch``,
-``get_gt_poses``, ``image_filenames``, ``is_valid_pair`` (the retrievers'
-pair filter) and ``batch_calibrations``. Images are
-host numpy arrays (the detector slot consumes numpy); poses and calibrations
-are port tensors, and their device is the device the reconstruction runs on.
+Port of gtsfm_tpu/loader/base.py: ``read_image`` (PIL, with EXIF), the
+``max_resolution`` short-side rescale of images and of ``Cal3Bundler``
+intrinsics, EXIF intrinsics when a loader has none,
+``load_grayscale_batch`` padding to a common (H, W), ``get_gt_poses``,
+``is_valid_pair`` (the retrievers' pair filter) and
+``batch_calibrations``. Images are host numpy arrays (the detector takes a
+padded numpy batch); poses and calibrations are port tensors on the CPU,
+which the scene optimizer moves to its device.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
+from PIL import Image as PILImage
+from PIL.ExifTags import TAGS
 
+from gtsfm_tpu_torch.common.image import Image, rgb_to_gray
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
 
+_EXIF_IFD = 0x8769  # the Exif sub-IFD: FocalLength and friends live there
 
-def rgb_to_gray(value_array: np.ndarray) -> np.ndarray:
-    """ITU-R BT.601 luma, float32 in [0, 1] (the reference's
-    common/image.py conversion)."""
-    arr = np.asarray(value_array).astype(np.float32)
-    if arr.max() > 1.5:
-        arr = arr / 255.0
-    if arr.ndim == 2:
-        return arr
-    return arr[..., 0] * 0.299 + arr[..., 1] * 0.587 + arr[..., 2] * 0.114
+
+def read_image(path: str) -> Image:
+    """An image file as RGB uint8 with its EXIF tags by name."""
+    with PILImage.open(path) as im:
+        exif = {}
+        raw = im.getexif()
+        if raw:
+            for tag_id, value in raw.items():
+                exif[TAGS.get(tag_id, tag_id)] = value
+            for tag_id, value in raw.get_ifd(_EXIF_IFD).items():
+                exif[TAGS.get(tag_id, tag_id)] = value
+        arr = np.asarray(im.convert("RGB"))
+    return Image(value_array=arr, exif_data=exif, file_name=os.path.basename(path))
+
+
+def _resize(arr: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    return np.asarray(PILImage.fromarray(arr).resize((new_w, new_h), PILImage.BILINEAR))
 
 
 class LoaderBase:
-    """Subclasses implement __len__, get_image(i) -> uint8 numpy image,
-    get_camera_intrinsics(i) and get_camera_pose(i). Resolution capping
-    (the reference's ``max_resolution`` rescale) is not ported: the
-    in-memory loaders serve images at their own size."""
+    """Subclasses implement __len__, _get_image_full_res(i) -> Image,
+    _get_intrinsics_full_res(i) -> Cal3Bundler or None (None: from EXIF)
+    and, where GT is known, get_camera_pose(i)."""
+
+    def __init__(self, max_resolution: int = 760):
+        self.max_resolution = max_resolution
+        self._scale_cache: dict = {}
 
     def __len__(self) -> int:
         raise NotImplementedError
 
-    def get_image(self, index: int) -> np.ndarray:
+    def _get_image_full_res(self, index: int) -> Image:
         raise NotImplementedError
 
-    def get_camera_intrinsics(self, index: int) -> Cal3Bundler:
+    def _get_intrinsics_full_res(self, index: int) -> Optional[Cal3Bundler]:
         raise NotImplementedError
 
     def get_camera_pose(self, index: int) -> Optional[SE3]:
+        """GT pose wTi if known, else None."""
         return None
 
     def image_filename(self, index: int) -> str:
-        return f"{index:04d}.jpg"
+        return self._get_image_full_res(index).file_name
 
     def is_valid_pair(self, idx1: int, idx2: int) -> bool:
         """Whether (idx1, idx2), idx1 < idx2, may be matched. Loaders with a
         temporal order or a benchmark pair list restrict this."""
         return 0 <= idx1 < idx2 < len(self)
 
+    def _scale_for(self, index: int, h: int, w: int) -> float:
+        """Downscale factor so that the short side is <= max_resolution."""
+        short = min(h, w)
+        if short <= self.max_resolution:
+            return 1.0
+        return self.max_resolution / short
+
+    def get_image(self, index: int) -> Image:
+        img = self._get_image_full_res(index)
+        s = self._scale_for(index, img.height, img.width)
+        self._scale_cache[index] = s
+        if s == 1.0:
+            return img
+        new_h, new_w = int(round(img.height * s)), int(round(img.width * s))
+        return Image(value_array=_resize(img.value_array, new_h, new_w), exif_data=img.exif_data,
+                     file_name=img.file_name)
+
+    def get_camera_intrinsics(self, index: int) -> Cal3Bundler:
+        cal = self._get_intrinsics_full_res(index)
+        if cal is None:
+            img = self._get_image_full_res(index)
+            f, u0, v0 = img.intrinsics_from_exif()
+            cal = Cal3Bundler.create(f, 0.0, 0.0, u0, v0)
+        s = self._scale_cache.get(index)
+        if s is None:
+            img = self._get_image_full_res(index)
+            s = self._scale_for(index, img.height, img.width)
+            self._scale_cache[index] = s
+        if s == 1.0:
+            return cal
+        return _rescale_cal(cal, s)
+
     def load_grayscale_batch(self, indices=None):
         """-> (images f32 (B, H, W) in [0, 1] zero-padded to a common size,
         list of (orig_h, orig_w))."""
         if indices is None:
             indices = range(len(self))
-        grays = [rgb_to_gray(self.get_image(i)) for i in indices]
+        grays = [rgb_to_gray(self.get_image(i).value_array) for i in indices]
         sizes = [(g.shape[0], g.shape[1]) for g in grays]
         H = max(s[0] for s in sizes)
         W = max(s[1] for s in sizes)
@@ -80,6 +131,13 @@ class LoaderBase:
 
     def image_filenames(self):
         return [self.image_filename(i) for i in range(len(self))]
+
+
+def _rescale_cal(cal: Cal3Bundler, s: float) -> Cal3Bundler:
+    """The calibration of an image downscaled by the factor s."""
+    if not isinstance(cal, Cal3Bundler):
+        raise NotImplementedError(f"{type(cal).__name__} is not ported (ROADMAP queue 1 item 2)")
+    return cal.replace(f=cal.f * s, u0=cal.u0 * s, v0=cal.v0 * s)
 
 
 def batch_calibrations(cals) -> Cal3Bundler:

@@ -13,6 +13,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gtsfm_tpu_torch.common.image import Image
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
 from gtsfm_tpu_torch.loader.base import LoaderBase
 
@@ -65,7 +66,9 @@ class SyntheticSceneLoader(LoaderBase):
         cal: Optional[Cal3Bundler] = None,
         image_size: Tuple[int, int] = (480, 640),
         names: Optional[Sequence[str]] = None,
+        max_resolution: int = 10_000,
     ):
+        super().__init__(max_resolution=max_resolution)
         self._poses = poses
         self._n = int(poses.t.shape[0])
         h, w = image_size
@@ -84,11 +87,11 @@ class SyntheticSceneLoader(LoaderBase):
     def __len__(self) -> int:
         return self._n
 
-    def get_image(self, index: int) -> np.ndarray:
+    def _get_image_full_res(self, index: int) -> Image:
         h, w = self._hw
-        return np.full((h, w), 128, np.uint8)
+        return Image(value_array=np.full((h, w), 128, np.uint8), file_name=self._names[index])
 
-    def get_camera_intrinsics(self, index: int) -> Cal3Bundler:
+    def _get_intrinsics_full_res(self, index: int) -> Cal3Bundler:
         return self._cal.map(lambda a: a[index])
 
     def get_camera_pose(self, index: int) -> Optional[SE3]:
@@ -96,6 +99,9 @@ class SyntheticSceneLoader(LoaderBase):
 
     def get_gt_poses(self) -> SE3:
         return self._poses
+
+    def get_all_intrinsics(self):
+        return [self._get_intrinsics_full_res(i) for i in range(self._n)]
 
     def image_filename(self, index: int) -> str:
         return self._names[index]

@@ -2,7 +2,8 @@
 compositing kernels against their plain PyTorch versions, the splat
 trainer, the back end's run-to-run reproducibility, and the card against
 the CPU on the synthetic direct branch (equal index outputs, no matcher
-launch) and on the merge's compacted BA (``run_compact``).
+launch), on the merge's compacted BA (``run_compact``) and on DoG-SIFT
+(its stable top-k, and the keypoints of a padded batch).
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -10,7 +11,8 @@ run it without tests/conftest.py, which sets JAX up for the reference tests:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Matcher shapes cover what the kernel takes beyond the slice's (P, 1024, 128):
+Matcher shapes cover the runner's (64, 2048, 128) and what the kernel takes
+beyond the slice's (P, 1024, 128):
 ragged K1 != K2, narrow and wide D, a single keypoint, an all-masked pair,
 exact ties, one pair, and the tiling's edges (K1 one below and one above
 the 128-row block, K2 one below and one above the 64-row desc2 tile, D =
@@ -71,6 +73,8 @@ SHAPES = {
     "cols65": (2, 200, 65, 128, 10),
     "d136": (2, 129, 33, 136, 11),
     "one_pair": (1, 300, 300, 128, 12),
+    # the unified config's two-view chunk: pair_batch_size 64, max_keypoints 2048
+    "runner_p64_k2048": (64, 2048, 2048, 128, 13),
 }
 
 
@@ -133,7 +137,7 @@ def test_kernel_matches_plain_version(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ragged", "ties", "d136"])
+@pytest.mark.parametrize("case", ["ragged", "ties", "d136", "runner_p64_k2048"])
 def test_kernel_is_bitwise_repeatable(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -513,3 +517,56 @@ def test_run_compact_on_the_card_agrees_with_the_cpu():
     assert (out_g.poses.t.cpu() - t_c).abs().max() <= 1e-4 * t_c.abs().max()
     assert torch.equal(out_g.poses.R.cpu()[~torch.as_tensor(pose_mask)], data.poses.R[~torch.as_tensor(pose_mask)])
     assert abs(m_g["final_cost"] - m_c["final_cost"]) <= 1e-3 * m_c["final_cost"] < m_c["initial_cost"]
+
+
+@pytest.mark.cuda
+def test_dog_sift_stable_topk_on_the_card_equals_the_cpu():
+    """torch.sort(stable=True) keeps equal values lowest index first on the
+    card too (jax.lax.top_k's order, which DoG-SIFT's selections need)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend.detectors.dog_sift import stable_topk
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, 3, size=(4, 307_200)).astype(np.float32))
+    x[:, -1] = -1.0
+    for k in (170, 2048):
+        vc, ic = stable_topk(x.cuda(), k)
+        vh, ih = stable_topk(x, k)
+        assert torch.equal(ic.cpu(), ih) and torch.equal(vc.cpu(), vh)
+
+
+@pytest.mark.cuda
+def test_dog_sift_on_the_card_finds_the_cpus_keypoints():
+    """A padded batch of two procedural images at 240x320, K=2048: the same
+    masked keypoint sets (coordinates and scales) on the card as on the CPU,
+    responses to 1e-5 relative + 1e-6, descriptors of the same keypoint to
+    1e-4 on at least 99% of them (test_torch_dog_sift.py's tolerances: the
+    convolutions and sums run in another order), and nothing run on the CPU
+    when the input lies on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import scipy.ndimage as ndi
+
+    from gtsfm_tpu_torch.frontend.detectors import dog_sift
+
+    rng = np.random.default_rng(3)
+    batch = np.zeros((2, 240, 320), np.float32)
+    for b, (h, w) in enumerate([(240, 320), (200, 280)]):
+        img = np.kron(rng.uniform(size=(h // 8, w // 8)), np.ones((8, 8)))
+        batch[b, :h, :w] = ndi.gaussian_filter(img, 1.0)
+    opts = dog_sift.DoGSiftOptions(max_keypoints=2048, contrast_threshold=0.01)
+    dog_sift.calls_by_device.clear()
+    card = [a.cpu().numpy() for a in dog_sift.detect_and_describe(torch.as_tensor(batch, device="cuda"), opts)]
+    assert dict(dog_sift.calls_by_device) == {"cuda": 1}
+    host = [a.numpy() for a in dog_sift.detect_and_describe(torch.as_tensor(batch), opts)]
+    for b in range(2):
+        (cc, cs, cr, cm, cd), (hc, hs, hr, hm, hd) = ([a[b] for a in card], [a[b] for a in host])
+        key_c = {k: i for i, k in enumerate(zip(cc[cm, 0], cc[cm, 1], cs[cm]))}
+        key_h = {k: i for i, k in enumerate(zip(hc[hm, 0], hc[hm, 1], hs[hm]))}
+        assert key_c.keys() == key_h.keys() and len(key_c) > 100
+        ic = np.flatnonzero(cm)[[key_c[k] for k in key_h]]
+        ih = np.flatnonzero(hm)[list(key_h.values())]
+        np.testing.assert_allclose(cr[ic], hr[ih], rtol=1e-5, atol=1e-6)
+        off = np.abs(cd[ic] - hd[ih]).max(axis=-1) > 1e-4
+        assert off.mean() <= 0.01, off.mean()

@@ -95,10 +95,17 @@ def test_port_imports_no_jax_flax_or_triton():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton', 'gtsfm_tpu'))\n"
-        "print('LEAKED', bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "missed = [m for m in sys.argv[1:] if m not in sys.modules]\n"
+        "print('LEAKED', bad, 'NOT WALKED', missed)\n"
+        "sys.exit(1 if bad or missed else 0)\n"
     )
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    # the modules of the default entry point must be among those walked
+    entry = ["gtsfm_tpu_torch." + m for m in (
+        "runner", "configs.config", "common.image", "common.sensor_db", "loader.olsson", "loader.colmap",
+        "io.colmap", "frontend.detectors.dog_sift", "frontend.global_descriptors.descriptors",
+        "frontend.registry", "retriever.bridge", "utils.ellipsoid", "utils.tracks")]
+    res = subprocess.run([sys.executable, "-c", code, *entry], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
 
 

@@ -43,6 +43,7 @@ from gtsfm_tpu.scene.scene_optimizer import (
 )
 from gtsfm_tpu_torch.evaluation.compare import compare_reconstructions
 from gtsfm_tpu_torch.frontend import reports
+from gtsfm_tpu_torch.frontend.detectors.dog_sift import DoGSift
 from gtsfm_tpu_torch.frontend.synthetic import SyntheticCorrespondenceGenerator, SyntheticOptions
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
 from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader
@@ -233,5 +234,6 @@ def test_direct_branch_needs_no_detector_or_retriever_and_raises_without_a_card(
         SceneOptimizer(SceneOptimizerOptions(hierarchical=True), correspondence=gen)
     so = SceneOptimizer(SceneOptimizerOptions(hierarchical=True, device="cpu"), correspondence=gen)
     assert isinstance(so.retriever, ret.SequentialRetriever) and so.detector is None
-    with pytest.raises(ValueError, match="detector"):
-        SceneOptimizer(SceneOptimizerOptions(device="cpu"))
+    # without a detector or a generator, DoG-SIFT with the options' detector settings
+    default = SceneOptimizer(SceneOptimizerOptions(device="cpu"))
+    assert isinstance(default.detector, DoGSift) and default.detector.max_keypoints == 1024

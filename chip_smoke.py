@@ -70,18 +70,34 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    >= the reference's 0.9739 - 0.02, and median rotation and translation
    errors after a Sim3 alignment to GT < 0.5 deg and < 0.3; prints the
    cluster tree and the stage seconds with the card's name and power limit;
-10. runner: the default entry point, gtsfm_tpu_torch.runner.main with the
-   unified config (DoG-SIFT K=2048, the joint retriever with the tiny
-   descriptor, the two-view batch at P=64 through the matcher kernel,
-   bridges, MVO, evaluation, COLMAP export), in this process, cold and
-   then warm, on an Olsson folder of the 32 ring views of runner_scene
-   below, rendered by the port at 480x640, f=600; each run requires
-   DoG-SIFT on `cuda` only, a matcher launch per 64 pairs, registered >=
-   the JAX reference's 31 - 1, AUC@5 >= its 0.7251 - 0.02 (the reference:
-   scripts/runner_reference.py), the metrics JSON and a COLMAP export that
-   reads back with every registered camera; prints the stage seconds, the
-   pair count and the keypoints per image;
-11. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
+10. ba_layouts: BundleAdjustment on `cuda` on ba_scene below, palace-281's
+   281 cameras with 20,000 points on tracks of 2-15 views (1 px noise, a
+   perturbed start, plain least squares), once in each layout (dense,
+   entry, scatter; 30 LM steps, 40 PCG steps): each must run in its own
+   layout (bundle.ba.layout_counts), end below 1e-2 of its initial cost,
+   and entry and scatter within 5% of dense's final cost; then the scene
+   plus one track seen by 200 cameras with layout="dense" must run in
+   entry (the dense layout holds 128 views at most); prints each solve's
+   seconds and costs;
+11. runner and 12. colmap_runner: the default entry point,
+   gtsfm_tpu_torch.runner.main with the unified config (DoG-SIFT K=2048,
+   the joint retriever with the tiny descriptor, the two-view batch at
+   P=64 through the matcher kernel, bridges, MVO, evaluation, COLMAP
+   export), in this process, cold and then warm, first on an Olsson folder
+   of the 32 ring views of runner_scene below, rendered by the port at
+   480x640, f=600, then with --loader colmap on a COLMAP folder of the same
+   views resampled through a known OPENCV camera (OPENCV_CAMERA: fx 600,
+   fy 606, k1 -0.05, k2 0.01, p1 5e-4, p2 -3e-4; the resampling map from
+   this file's own float64 Newton inversion of the model), whose Cal3DS2
+   sends MVO's dense BA to the entry layout; each run requires DoG-SIFT on
+   `cuda` only, a matcher launch per 64 pairs, registered >= the JAX
+   reference's - 1 and AUC@5 >= its - 0.02 (scripts/runner_reference.py and
+   scripts/colmap_runner_reference.py), the metrics JSON and a COLMAP
+   export that reads back with every registered camera; the colmap run
+   also at least one BA solve in entry and none in dense, and cameras.txt
+   exported as OPENCV with the distortion within 1e-3 of the truth; prints
+   the stage seconds, the pair count and the keypoints per image;
+13. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
    480x640 for 400 steps, on the 32 ring views of the splat scene rendered
    by the port; final L1 < 0.7 of the initial and >= 400 compositing
    launches required; seconds per step and peak device memory printed.
@@ -91,10 +107,12 @@ is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result.
 There is no CPU mode: without a CUDA device the script stops.
 
-The descriptor feed, the glue fixture, the splat scene and the runner scene
-are defined here once, with numpy only (ring_views and write_olsson render
-and write them through the port); the CPU tests and
-scripts/runner_reference.py import them from this file.
+The descriptor feed, the glue fixture, the splat scene, the runner scene,
+the OPENCV resampling and the BA scene are defined here once, with numpy
+only (ring_views, write_olsson, write_colmap_opencv and ba_sfm_data render,
+write and load them through the port); the CPU tests,
+scripts/runner_reference.py and scripts/colmap_runner_reference.py import
+them from this file.
 """
 
 from __future__ import annotations
@@ -164,6 +182,29 @@ RUNNER_AUC5_SLACK = 0.02
 RUNNER_PAIR_BATCH = 64  # pair_batch_size of the unified config: pairs per matcher launch
 RUNNER_METRICS = ("frontend_summary", "verifier_summary", "multiview_optimizer_metrics", "ba_pose_metrics",
                   "track_classification_metrics", "intrinsics_metrics", "total_summary")
+
+# the colmap_runner phase: the runner phase's views resampled through a
+# known OPENCV camera (the principal point at the image center), written as
+# a COLMAP folder; the JAX package on the CPU on the same folder
+# (scripts/colmap_runner_reference.py, JAX 0.9.0): 32 of 32 registered,
+# pose AUC@5 0.66694 (165 of 360 pairs valid), with the runner phase's slack
+OPENCV_CAMERA = {"fx": 600.0, "fy": 606.0, "cx": 320.0, "cy": 240.0, "k1": -0.05, "k2": 0.01, "p1": 5e-4,
+                 "p2": -3e-4}
+COLMAP_REF_REGISTERED = 32
+COLMAP_REF_AUC5 = 0.6669446383602917
+OPENCV_EXPORT_TOL = 1e-3  # the exported distortion against OPENCV_CAMERA
+
+# the ba_layouts phase: palace-281's camera count, BA_POINTS points on
+# tracks of BA_TRACK_LEN views, 1 px noise, a perturbed start; every layout
+# must bring the cost below BA_COST_RATIO of the initial, entry and scatter
+# within BA_LAYOUT_GAP of dense; then one track seen by BA_LONG_TRACK
+# cameras, which the dense layout cannot hold (128 at most)
+BA_CAMERAS = 281
+BA_POINTS = 20_000
+BA_TRACK_LEN = (2, 15)
+BA_COST_RATIO = 1e-2
+BA_LAYOUT_GAP = 0.05
+BA_LONG_TRACK = 200
 
 SPLAT_HW = (480, 640)  # the synthetic loader's default image size
 SPLAT_FOCAL = 600.0  # and focal length
@@ -367,6 +408,146 @@ def runner_scene(center, n: int = SPLAT_GAUSSIANS, seed: int = 0) -> dict:
         "colors": (gray[:, None] + rng.normal(0.0, 0.2, (n, 3))).astype(np.float32),
         "alive": np.ones(n, bool),
     }
+
+
+def opencv_distort(x: np.ndarray, y: np.ndarray, cam: dict) -> tuple:
+    """OpenCV's radial-tangential model (k1, k2, p1, p2) on normalized
+    coordinates, float64."""
+    r2 = x * x + y * y
+    g = 1.0 + cam["k1"] * r2 + cam["k2"] * r2 * r2
+    return (g * x + 2.0 * cam["p1"] * x * y + cam["p2"] * (r2 + 2.0 * x * x),
+            g * y + cam["p1"] * (r2 + 2.0 * y * y) + 2.0 * cam["p2"] * x * y)
+
+
+def opencv_undistort(xd: np.ndarray, yd: np.ndarray, cam: dict, iters: int = 8) -> tuple:
+    """The inverse of opencv_distort by Newton's method on the 2x2 system
+    (float64, from the distorted point): independent of the port's
+    fixed-point ``Cal3DS2.calibrate``."""
+    k1, k2, p1, p2 = cam["k1"], cam["k2"], cam["p1"], cam["p2"]
+    x, y = xd.astype(np.float64), yd.astype(np.float64)
+    for _ in range(iters):
+        fx, fy = opencv_distort(x, y, cam)
+        ex, ey = fx - xd, fy - yd
+        r2 = x * x + y * y
+        g = 1.0 + k1 * r2 + k2 * r2 * r2
+        gp2 = 2.0 * (k1 + 2.0 * k2 * r2)
+        a = g + gp2 * x * x + 2.0 * p1 * y + 6.0 * p2 * x
+        b = gp2 * x * y + 2.0 * p1 * x + 2.0 * p2 * y
+        d = g + gp2 * y * y + 6.0 * p1 * y + 2.0 * p2 * x
+        det = a * d - b * b
+        x, y = x - (d * ex - b * ey) / det, y - (a * ey - b * ex) / det
+    return x, y
+
+
+def resample_opencv(view: np.ndarray, focal: float, cam: dict) -> np.ndarray:
+    """A view (H, W, 3) of a distortion-free camera (``focal``, principal
+    point at the image center) as the OPENCV camera ``cam`` sees it: each
+    output pixel's normalized point (undistorted by opencv_undistort) read
+    bilinearly from the view."""
+    from scipy import ndimage
+
+    h, w = view.shape[:2]
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    x, y = opencv_undistort((u - cam["cx"]) / cam["fx"], (v - cam["cy"]) / cam["fy"], cam)
+    coords = [focal * y + h / 2.0, focal * x + w / 2.0]
+    return np.stack([ndimage.map_coordinates(view[..., c].astype(np.float64), coords, order=1, mode="nearest")
+                     for c in range(view.shape[2])], -1).astype(np.float32)
+
+
+def write_colmap_opencv(dirpath: str, views: np.ndarray, R, t, cam: dict) -> None:
+    """A COLMAP text folder: views (n, H, W, 3) in [0, 1] as
+    images/%02d.png (8-bit RGB), cameras.txt with one OPENCV camera
+    ``cam`` that every image shares, and images.txt with the GT poses
+    (camera-to-world (R_i, t_i) written as COLMAP's world-to-camera
+    quaternion and translation) and empty point lists."""
+    import os
+
+    from PIL import Image
+
+    from gtsfm_tpu_torch.io.colmap import _rotmat_to_quat_np
+
+    h, w = views.shape[1:3]
+    os.makedirs(os.path.join(dirpath, "images"), exist_ok=True)
+    with open(os.path.join(dirpath, "cameras.txt"), "w") as f:
+        f.write("# CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]\n")
+        f.write(f"1 OPENCV {w} {h} " + " ".join(repr(float(cam[k])) for k in
+                                                ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2")) + "\n")
+    lines = ["# IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME", "# POINTS2D[] as (X, Y, POINT3D_ID)"]
+    for i, v in enumerate(views):
+        Image.fromarray(np.round(np.clip(v, 0.0, 1.0) * 255.0).astype(np.uint8)).save(
+            os.path.join(dirpath, "images", f"{i:02d}.png"))
+        Rc = np.asarray(R[i], np.float64).T  # world to camera
+        tc = -Rc @ np.asarray(t[i], np.float64)
+        q = _rotmat_to_quat_np(Rc)
+        lines += [f"{i + 1} " + " ".join(repr(float(a)) for a in (*q, *tc)) + f" 1 {i:02d}.png", ""]
+    with open(os.path.join(dirpath, "images.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def ba_scene(n_cams: int = BA_CAMERAS, n_points: int = BA_POINTS, track_len: tuple = BA_TRACK_LEN,
+             noise_px: float = 1.0, long_track: int = 0, seed: int = 0) -> dict:
+    """A seeded bundle-adjustment problem (numpy): n_cams cameras on a ring
+    of radius 10 looking at its center (f = 600, 480x640, principal point
+    at the center), n_points points in [-2, 2]^3, each seen by a run of
+    consecutive ring cameras of a length drawn from ``track_len``, plus one
+    point seen by the first ``long_track`` cameras; ``noise_px`` Gaussian
+    pixel noise. The start: cameras 0 and 1 at the truth (the gauge), the
+    others rotated by N(0, 0.01 rad) and moved by N(0, 0.1), the points
+    moved by N(0, 0.1). Returns R0, t0, points0, meas_cam, meas_track,
+    meas_uv and the truth R, t, points."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n_cams) / n_cams
+    centers = np.stack([10 * np.cos(ang), 10 * np.sin(ang), np.zeros(n_cams)], 1)
+    z = -centers / 10.0
+    x = np.stack([-z[:, 1], z[:, 0], np.zeros(n_cams)], 1)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], 2)  # columns: the camera axes in the world
+    X = rng.uniform(-2, 2, (n_points + (1 if long_track else 0), 3))
+    lens = rng.integers(track_len[0], track_len[1] + 1, n_points)
+    start = rng.integers(0, n_cams, n_points)
+    meas_track = np.repeat(np.arange(n_points), lens)
+    meas_cam = (np.repeat(start, lens) + np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens)) % n_cams
+    if long_track:
+        meas_track = np.concatenate([meas_track, np.full(long_track, n_points)])
+        meas_cam = np.concatenate([meas_cam, np.arange(long_track)])
+    pc = np.einsum("mji,mj->mi", R[meas_cam], X[meas_track] - centers[meas_cam])
+    uv = 600.0 * pc[:, :2] / pc[:, 2:] + np.array([320.0, 240.0]) + rng.normal(0, noise_px, (len(pc), 2))
+    w = rng.normal(0, 0.01, (n_cams, 3))
+    w[:2] = 0
+    W = np.zeros((n_cams, 3, 3))
+    W[:, 0, 1], W[:, 0, 2], W[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    W = W - W.transpose(0, 2, 1)
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    th_safe = np.where(th < 1e-12, 1.0, th)
+    E = np.eye(3) + np.sin(th) / th_safe * W + (1 - np.cos(th)) / th_safe**2 * (W @ W)
+    dt = rng.normal(0, 0.1, (n_cams, 3))
+    dt[:2] = 0
+    return {"R0": (R @ E).astype(np.float32), "t0": (centers + dt).astype(np.float32),
+            "points0": (X + rng.normal(0, 0.1, X.shape)).astype(np.float32), "meas_cam": meas_cam,
+            "meas_track": meas_track, "meas_uv": uv.astype(np.float32), "R": R, "t": centers, "points": X}
+
+
+def ba_sfm_data(scene: dict, dev):
+    """The port's SfmData of a ba_scene on ``dev`` (Cal3Bundler f = 600)."""
+    import torch
+
+    from gtsfm_tpu_torch.common.sfm_data import SfmData
+    from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+
+    n, T, M = len(scene["t0"]), len(scene["points0"]), len(scene["meas_cam"])
+    z = torch.zeros(n)
+    return SfmData(
+        poses=SE3(R=torch.as_tensor(scene["R0"], device=dev), t=torch.as_tensor(scene["t0"], device=dev)),
+        cal=Cal3Bundler.create(torch.full((n,), 600.0), z, z, torch.full((n,), 320.0), torch.full((n,), 240.0),
+                               device=dev),
+        pose_mask=torch.ones(n, dtype=torch.bool, device=dev),
+        points=torch.as_tensor(scene["points0"], device=dev),
+        track_mask=torch.ones(T, dtype=torch.bool, device=dev),
+        meas_cam=torch.as_tensor(scene["meas_cam"], dtype=torch.int64, device=dev),
+        meas_track=torch.as_tensor(scene["meas_track"], dtype=torch.int64, device=dev),
+        meas_uv=torch.as_tensor(scene["meas_uv"], device=dev),
+        meas_mask=torch.ones(M, dtype=torch.bool, device=dev),
+    )
 
 
 def rotation_error_deg(Ra: np.ndarray, Rb: np.ndarray) -> np.ndarray:
@@ -1404,91 +1585,210 @@ def phase_hierarchical(smi: str, n: int = HIER_CAMERAS):
             raise AssertionError(f"hierarchical: median errors {np.median(rot):.4f} deg, {np.median(trans):.4f}")
 
 
-def phase_runner(smi: str, R, t) -> dict:
-    """The default entry point on `cuda`: the 32 ring views of runner_scene
-    at SPLAT_HW, f = SPLAT_FOCAL, rendered by the port on the card and
-    written as an Olsson folder, then ``gtsfm_tpu_torch.runner.main`` with
-    the unified config, in this process, cold and then warm, with every
-    launch count set to 0 just before each run and read just after. Each
-    run requires DoG-SIFT on `cuda` and nowhere else, a matcher launch per
-    chunk of RUNNER_PAIR_BATCH pairs at least, registered >= the JAX
-    reference's - 1, AUC@5 >= the reference's - 0.02, finite poses, the
-    metrics JSON of every group the run reports and a COLMAP export that
-    reads back with every registered camera. Returns the launches of the
-    warm run and its matcher shape {P, K}."""
+def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_auc5: float, smi: str,
+                 check_export=None) -> dict:
+    """``gtsfm_tpu_torch.runner.main(argv + --output_root)``, in this
+    process, cold and then warm, with every launch count and
+    ``ba.layout_counts`` set to 0 just before each run and read just after.
+    Each run requires DoG-SIFT on `cuda` and nowhere else, a matcher launch
+    per chunk of RUNNER_PAIR_BATCH pairs at least, registered >=
+    min_registered, AUC@5 >= min_auc5, finite poses, the metrics JSON of
+    every group the run reports and a COLMAP export that reads back with
+    every registered camera (``check_export(export dir, scene)`` checks
+    more). Returns the launches and BA layouts of the warm run."""
     import os
     import tempfile
 
     import torch
 
     from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.bundle import ba
     from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup
     from gtsfm_tpu_torch.frontend.detectors import dog_sift
     from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
     from gtsfm_tpu_torch.io import colmap
     from gtsfm_tpu_torch.splat import rendering
 
-    dev = torch.device("cuda")
-    order = ring_order(t)
-    t0 = time.perf_counter()
-    views = ring_views(R, t, dev, runner_scene(np.asarray(t).mean(axis=0)), indices=order)
-    min_registered = RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK
-    min_auc5 = RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK
     with tempfile.TemporaryDirectory() as work:
-        data_dir = os.path.join(work, "data")
-        write_olsson(data_dir, views, np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
-        print(f"runner: {len(order)} views of runner_scene at {SPLAT_HW[0]}x{SPLAT_HW[1]} rendered and written in "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
         for run in ("cold", "warm"):
             out = os.path.join(work, run)
             dog_sift.calls_by_device.clear()
+            ba.layout_counts.clear()
             fused_matcher.launch_count = fused_attention.launch_count = rendering.launch_count = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rc = runner.main(["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir,
-                              "--output_root", out])
+            rc = runner.main(argv + ["--output_root", out])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
                         "composite": rendering.launch_count}
             detector = dict(dog_sift.calls_by_device)
+            layouts = dict(ba.layout_counts)
             mdir = os.path.join(out, "results", "metrics")
             metrics = {g.name: {m.name: m for m in g.metrics}
                        for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
             missing = [g for g in RUNNER_METRICS if g not in metrics]
             if rc != 0 or missing:
-                raise AssertionError(f"runner {run}: exit code {rc}, metrics groups missing {missing}")
+                raise AssertionError(f"{name} {run}: exit code {rc}, metrics groups missing {missing}")
             fe = {k: m.scalar for k, m in metrics["frontend_summary"].items() if m.dist is None}
             kps = metrics["frontend_summary"]["num_keypoints_per_image"].dist
             pose = metrics["ba_pose_metrics"]
             registered = len(pose["rotation_error_deg"].dist)
             auc5 = pose["pose_auc_@5.0_deg"].scalar
-            back = colmap.read_scene(os.path.join(out, "results", "ba_output"))
+            export = os.path.join(out, "results", "ba_output")
+            back = colmap.read_scene(export)
             pairs = int(fe["num_pairs"])
             chunks = -(-pairs // RUNNER_PAIR_BATCH)
             consistent = metrics["track_classification_metrics"]["fraction_tracks_gt_consistent"].scalar
             sec = {k: fe[k] for k in ("detect_describe_sec", "retriever_duration_sec", "two_view_sec")}
             sec["backend_sec"] = metrics["multiview_optimizer_metrics"]["backend_sec"].scalar
             sec["total_runtime_sec"] = metrics["total_summary"]["total_runtime_sec"].scalar
-            print(f"runner {run}: {registered}/{len(order)} registered (bar {min_registered}), pose AUC@5 "
+            print(f"{name} {run}: {registered}/{n_views} registered (bar {min_registered}), pose AUC@5 "
                   f"{auc5:.4f} (bar {min_auc5:.4f}), {pairs} pairs ({int(fe['num_valid_pairs'])} valid, >= "
                   f"{chunks} chunks of {RUNNER_PAIR_BATCH}), keypoints per image median "
                   f"{float(np.median(kps)):.0f} min {int(np.min(kps))} max {int(np.max(kps))}, "
                   f"{back.number_tracks()} tracks exported, DoG-SIFT calls by device {detector}, launches {launches}, "
-                  f"tracks consistent with GT {consistent:.4f}", flush=True)
-            print(f"runner {run} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in sec.items())
+                  f"BA solves by layout {layouts}, tracks consistent with GT {consistent:.4f}", flush=True)
+            print(f"{name} {run} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in sec.items())
                   + f" main {wall:.3f} | {smi}", flush=True)
             if set(detector) != {"cuda"}:
-                raise AssertionError(f"runner {run}: DoG-SIFT ran on {detector}, not on cuda alone")
+                raise AssertionError(f"{name} {run}: DoG-SIFT ran on {detector}, not on cuda alone")
             if launches["matcher"] < chunks:
-                raise AssertionError(f"runner {run}: {launches['matcher']} matcher launches for {pairs} pairs")
+                raise AssertionError(f"{name} {run}: {launches['matcher']} matcher launches for {pairs} pairs")
             if registered < min_registered or auc5 < min_auc5:
-                raise AssertionError(f"runner {run}: registered {registered} (bar {min_registered}), AUC@5 "
+                raise AssertionError(f"{name} {run}: registered {registered} (bar {min_registered}), AUC@5 "
                                      f"{auc5:.4f} (bar {min_auc5:.4f})")
             if back.number_images() != registered or not bool(torch.isfinite(back.poses.R).all()):
-                raise AssertionError(f"runner {run}: the COLMAP export reads back {back.number_images()} cameras, "
+                raise AssertionError(f"{name} {run}: the COLMAP export reads back {back.number_images()} cameras, "
                                      f"{registered} registered")
-    return launches
+            if check_export is not None:
+                check_export(export, back, layouts)
+    return {"launches": launches, "layouts": layouts}
+
+
+def phase_runner(smi: str, R, t) -> dict:
+    """The default entry point on `cuda`: the 32 ring views of runner_scene
+    at SPLAT_HW, f = SPLAT_FOCAL, rendered by the port on the card and
+    written as an Olsson folder, then ``gtsfm_tpu_torch.runner.main`` with
+    the unified config through _runner_runs (cold and warm), registered >=
+    the JAX reference's - 1, AUC@5 >= the reference's - 0.02. Returns the
+    launches of the warm run."""
+    import os
+    import tempfile
+
+    import torch
+
+    dev = torch.device("cuda")
+    order = ring_order(t)
+    t0 = time.perf_counter()
+    views = ring_views(R, t, dev, runner_scene(np.asarray(t).mean(axis=0)), indices=order)
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = os.path.join(work, "data")
+        write_olsson(data_dir, views, np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
+        print(f"runner: {len(order)} views of runner_scene at {SPLAT_HW[0]}x{SPLAT_HW[1]} rendered and written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        out = _runner_runs("runner", ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir],
+                           len(order), RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
+                           RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK, smi)
+    return out["launches"]
+
+
+def colmap_opencv_views(R, t, dev) -> tuple:
+    """The runner phase's views (runner_scene from the ring, in ring order)
+    resampled through OPENCV_CAMERA: (views (32, H, W, 3), R, t in ring
+    order)."""
+    order = ring_order(t)
+    views = ring_views(R, t, dev, runner_scene(np.asarray(t).mean(axis=0)), indices=order)
+    views = np.stack([resample_opencv(v, SPLAT_FOCAL, OPENCV_CAMERA) for v in views])
+    return views, np.asarray(R)[order], np.asarray(t)[order]
+
+
+def phase_colmap_runner(smi: str, R, t) -> dict:
+    """The runner with ``--loader colmap`` on `cuda`: colmap_opencv_views
+    written as a COLMAP folder (one OPENCV camera, GT poses), then
+    _runner_runs with the unified config, cold and warm: DoG-SIFT on the
+    distorted images, the matcher kernel, two-view estimation through
+    Cal3DS2, MVO, whose dense BA falls back to the entry layout for
+    Cal3DS2, and the COLMAP export. Each run requires at least one BA solve
+    in the entry layout and none in dense, registered >= the JAX
+    reference's - 1, AUC@5 >= its - 0.02, and cameras.txt written as
+    OPENCV with the distortion within OPENCV_EXPORT_TOL of the truth.
+    Returns the launches of the warm run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from gtsfm_tpu_torch.geometry import Cal3DS2
+
+    t0 = time.perf_counter()
+    views, Ro, to = colmap_opencv_views(R, t, torch.device("cuda"))
+
+    def check_export(export, back, layouts):
+        if layouts.get("entry", 0) < 1 or layouts.get("dense", 0):
+            raise AssertionError(f"colmap_runner: BA solves by layout {layouts}; entry and no dense expected")
+        models = {ln.split()[1] for ln in open(os.path.join(export, "cameras.txt")) if not ln.startswith("#")}
+        cal = back.cal
+        err = max(float((getattr(cal, k) - OPENCV_CAMERA[k]).abs().max()) for k in ("k1", "k2", "p1", "p2"))
+        if models != {"OPENCV"} or not isinstance(cal, Cal3DS2) or err > OPENCV_EXPORT_TOL:
+            raise AssertionError(f"colmap_runner: exported models {models}, distortion off by {err}")
+        print(f"colmap_runner export: models {sorted(models)}, distortion off by at most {err:.3g} "
+              f"(tolerance {OPENCV_EXPORT_TOL})", flush=True)
+
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = os.path.join(work, "data")
+        write_colmap_opencv(data_dir, views, Ro, to, OPENCV_CAMERA)
+        print(f"colmap_runner: {len(views)} views of runner_scene resampled through OPENCV {OPENCV_CAMERA} and "
+              f"written in {time.perf_counter() - t0:.3f} s", flush=True)
+        out = _runner_runs("colmap_runner",
+                           ["--config_name", "unified", "--loader", "colmap", "--dataset_dirpath", data_dir],
+                           len(views), COLMAP_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
+                           COLMAP_REF_AUC5 - RUNNER_AUC5_SLACK, smi, check_export)
+    return out["launches"]
+
+
+def phase_ba_layouts(smi: str) -> None:
+    """The three BA layouts on `cuda` on ba_scene (BA_CAMERAS cameras,
+    BA_POINTS points, tracks of BA_TRACK_LEN views, 1 px, plain least
+    squares, cameras 0 and 1 fixed), each solved once with the default
+    30 LM steps and 40 PCG steps: each must run in its own layout
+    (``layout_counts``) and end below BA_COST_RATIO of its initial cost;
+    entry and scatter within BA_LAYOUT_GAP of dense. Then the same scene
+    plus one track seen by BA_LONG_TRACK cameras with layout="dense": it
+    must run in entry, finite and below its initial cost."""
+    import torch
+
+    from gtsfm_tpu_torch.bundle import ba
+
+    dev = torch.device("cuda")
+    data = ba_sfm_data(ba_scene(), dev)
+    fixed = torch.arange(BA_CAMERAS, device=dev) < 2
+    n_meas = int(data.meas_mask.sum())
+    final = {}
+    for layout in ("dense", "entry", "scatter", "dense_long"):
+        if layout == "dense_long":
+            data = ba_sfm_data(ba_scene(long_track=BA_LONG_TRACK), dev)
+        ba.layout_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, m = ba.BundleAdjustment(ba.BAOptions(robust_huber_px=0.0, layout=layout.split("_")[0])).run(
+            data, fixed_cam=fixed)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        ran = dict(ba.layout_counts)
+        print(f"ba_layouts {layout}: ran {ran}, {BA_CAMERAS} cameras, {data.number_tracks()} tracks, "
+              f"{int(data.meas_mask.sum())} measurements, {sec:.3f} s, cost {m['initial_cost']:.6g} -> "
+              f"{m['final_cost']:.6g} ({m['final_cost'] / m['initial_cost']:.3g}) | {smi}", flush=True)
+        want = "entry" if layout == "dense_long" else layout
+        if ran != {want: 1}:
+            raise AssertionError(f"ba_layouts {layout}: ran {ran}, not {want}")
+        if not (bool(torch.isfinite(out.points).all()) and m["final_cost"] < BA_COST_RATIO * m["initial_cost"]):
+            raise AssertionError(f"ba_layouts {layout}: cost {m['initial_cost']} -> {m['final_cost']}")
+        final[layout] = m["final_cost"]
+    gaps = {k: final[k] / final["dense"] - 1.0 for k in ("entry", "scatter")}
+    print(f"ba_layouts: final cost against dense {gaps} ({n_meas} measurements)", flush=True)
+    if max(abs(g) for g in gaps.values()) > BA_LAYOUT_GAP:
+        raise AssertionError(f"ba_layouts: entry / scatter final costs off dense's by {gaps}")
 
 
 def splat_trainer_inputs(R, t):
@@ -1602,7 +1902,9 @@ def main() -> int:
           f"{attn_fwd_ms / (fwd['kernel'] * 1e3):.3f} of the forward", flush=True)
     timed("gate", phase_gate)
     timed("hierarchical", phase_hierarchical, smi)
+    timed("ba_layouts", phase_ba_layouts, smi)
     runner_launches = timed("runner", phase_runner, smi, R, t)
+    colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
     comp_launches = timed("splat", phase_splat, R, t)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
 
@@ -1613,7 +1915,9 @@ def main() -> int:
         "source": "gtsfm_tpu_torch/csrc/fused_matcher.cu",
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
         "shape": "P64_K2048_D128",
-        "launches": runner_launches["matcher"],
+        "launches": runner_launches["matcher"] + colmap_launches["matcher"],
+        "runner_launches": runner_launches["matcher"],
+        "colmap_runner_launches": colmap_launches["matcher"],
         "max_abs_err": max(err, err_runner),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],

@@ -3,7 +3,7 @@
 Port of gtsfm_tpu/common/sfm_data.py:
 
   poses       SE3 [N]         camera poses wTi (identity where absent)
-  cal         Cal3Bundler [N]
+  cal         a calibration model [N] (any of geometry.CALIBRATION_TYPES)
   pose_mask   bool [N]
   points      f32 [T, 3]
   track_mask  bool [T]
@@ -92,6 +92,12 @@ class SfmData(TensorStruct):
         new_track = self.track_mask & (counts >= min_track_len)
         return self.replace(meas_mask=new_meas & new_track[self.meas_track], track_mask=new_track)
 
+    def filter_by_track_length(self, min_track_len: int) -> "SfmData":
+        """Mask out tracks with fewer than min_track_len valid measurements,
+        and their measurements."""
+        new_track = self.track_mask & (self.track_lengths() >= min_track_len)
+        return self.replace(track_mask=new_track, meas_mask=self.meas_mask & new_track[self.meas_track])
+
     def transform(self, sim: Sim3) -> "SfmData":
         """Apply a Sim3 to poses and points."""
         return self.replace(poses=sim.transform_pose(self.poses), points=sim.transform(self.points))
@@ -142,6 +148,9 @@ class SfmData(TensorStruct):
 
     @classmethod
     def empty(cls, num_cameras: int, meta: Optional[SceneMeta] = None, device=None) -> "SfmData":
+        """A scene with no posed camera and no track; its calibration is a
+        Cal3Bundler placeholder whatever the loader's model, as in the
+        reference."""
         n = max(num_cameras, 1)
         z = torch.zeros(n, device=device)
         return cls(

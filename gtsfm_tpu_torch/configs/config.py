@@ -58,8 +58,9 @@ def _build(nt_type, d: dict):
     kwargs = {}
     for k, v in (d or {}).items():
         if k not in nt_type._fields:
-            raise NotImplementedError(f"option {nt_type.__name__}.{k} is not in the port "
-                                      "(ROADMAP queue 1 item 2 lists the options still to port)")
+            raise NotImplementedError(f"option {nt_type.__name__}.{k} is not in the port (the options still "
+                                      "to port are the two-view, MVO and averaging ones of ROADMAP queue 1 "
+                                      "item 2, parts 2.3 and 2.4)")
         if k in _NESTED and isinstance(v, dict):
             kwargs[k] = _build(_NESTED[k], v)
         elif k == "reproj_thresholds" and isinstance(v, list):

@@ -67,7 +67,7 @@ def run_two_view_batch(
     desc2: torch.Tensor,
     kp_mask1: torch.Tensor,  # (P, K)
     kp_mask2: torch.Tensor,
-    cal1,  # Cal3Bundler batched (P,)
+    cal1,  # calibrations batched (P,)
     cal2,
     pair_mask: torch.Tensor,  # (P,)
     seed: int = 0,

@@ -3,9 +3,12 @@
 Port of the text half of gtsfm_tpu/io/colmap.py: the readers
 (``read_cameras_txt``, ``read_images_txt``, ``read_points3d_txt``,
 ``read_scene``) and the writer (``write_scene``), host numpy. The binary
-readers wait in ROADMAP queue 1 item 4. Only the camera models that map to
-``Cal3Bundler`` (SIMPLE_RADIAL, RADIAL) are read; the others need the
-calibration models of ROADMAP queue 1 item 2 and raise.
+readers wait in ROADMAP queue 1 item 4. Camera models: SIMPLE_PINHOLE and
+PINHOLE read as ``Cal3_S2``, SIMPLE_RADIAL and RADIAL as ``Cal3Bundler``,
+OPENCV and FULL_OPENCV (truncated to k1, k2, p1, p2, with a warning when
+k3..k6 are not 0) as ``Cal3DS2``, OPENCV_FISHEYE as ``Cal3Fisheye``; a
+scene must use one model. The writer writes RADIAL, PINHOLE, OPENCV or
+OPENCV_FISHEYE lines by the calibration's type.
 
 COLMAP stores the pose cTw (x_cam = R x_world + t); the port stores camera
 poses as wTi, so reading inverts and writing inverts back.
@@ -14,21 +17,13 @@ poses as wTi, so reading inverts and writing inverts back.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from gtsfm_tpu_torch.common.sfm_data import SceneMeta, SfmData
-from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler, so3
-
-# camera models whose calibration types the port does not have yet
-_UNPORTED_MODELS = {
-    "SIMPLE_PINHOLE": "Cal3_S2",
-    "PINHOLE": "Cal3_S2",
-    "OPENCV": "Cal3DS2",
-    "FULL_OPENCV": "Cal3DS2",
-    "OPENCV_FISHEYE": "Cal3Fisheye",
-}
+from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler, Cal3DS2, Cal3Fisheye, Cal3_S2, so3
 
 
 def _rotmat_to_quat_np(R: np.ndarray) -> np.ndarray:
@@ -64,15 +59,27 @@ def _quat_to_R(qw, qx, qy, qz) -> np.ndarray:
 
 
 def _parse_camera_params(model: str, params: list) -> tuple:
-    """COLMAP camera model -> (Cal3Bundler keyword arguments, Cal3Bundler)."""
+    """COLMAP camera model -> (calibration keyword arguments, calibration
+    type)."""
     p = [float(x) for x in params]
+    if model == "SIMPLE_PINHOLE":  # f, cx, cy
+        return dict(fx=p[0], fy=p[0], u0=p[1], v0=p[2]), Cal3_S2
+    if model == "PINHOLE":  # fx, fy, cx, cy
+        return dict(fx=p[0], fy=p[1], u0=p[2], v0=p[3]), Cal3_S2
     if model == "SIMPLE_RADIAL":  # f, cx, cy, k
         return dict(f=p[0], u0=p[1], v0=p[2], k1=p[3], k2=0.0), Cal3Bundler
     if model == "RADIAL":  # f, cx, cy, k1, k2
         return dict(f=p[0], u0=p[1], v0=p[2], k1=p[3], k2=p[4]), Cal3Bundler
-    if model in _UNPORTED_MODELS:
-        raise NotImplementedError(f"COLMAP camera model {model} needs {_UNPORTED_MODELS[model]}, which is not "
-                                  "ported yet (ROADMAP queue 1 item 2)")
+    if model == "OPENCV":  # fx, fy, cx, cy, k1, k2, p1, p2
+        return dict(fx=p[0], fy=p[1], u0=p[2], v0=p[3], k1=p[4], k2=p[5], p1=p[6], p2=p[7]), Cal3DS2
+    if model == "OPENCV_FISHEYE":  # fx, fy, cx, cy, k1, k2, k3, k4
+        return dict(fx=p[0], fy=p[1], u0=p[2], v0=p[3], k1=p[4], k2=p[5], k3=p[6], k4=p[7]), Cal3Fisheye
+    if model == "FULL_OPENCV":  # fx fy cx cy k1 k2 p1 p2 k3 k4 k5 k6, truncated to Cal3DS2
+        higher = p[8:12]
+        if any(abs(c) > 1e-9 for c in higher):
+            warnings.warn(f"FULL_OPENCV camera has non-zero k3..k6 {higher}; truncating to k1,k2,p1,p2 "
+                          "(Cal3DS2) — undistortion will be approximate.", stacklevel=3)
+        return dict(fx=p[0], fy=p[1], u0=p[2], v0=p[3], k1=p[4], k2=p[5], p1=p[6], p2=p[7]), Cal3DS2
     raise ValueError(f"Unsupported COLMAP camera model: {model}")
 
 
@@ -152,9 +159,13 @@ def read_scene(dirpath: str) -> SfmData:
     Rs = np.stack([im["R"] for im in images]) if n else np.zeros((0, 3, 3), np.float32)
     ts = np.stack([im["t"] for im in images]) if n else np.zeros((0, 3), np.float32)
     poses = SE3(R=torch.as_tensor(Rs), t=torch.as_tensor(ts))
+    # one model for the whole scene, as in the reference
+    cal_types = {cams[im["camera_id"]][1] for im in images}
+    if len(cal_types) > 1:
+        raise ValueError(f"Mixed COLMAP camera models not yet supported: {cal_types}")
     if n:
         kw = [cams[im["camera_id"]][0] for im in images]
-        cal = Cal3Bundler.create(**{k: np.array([c[k] for c in kw], np.float32) for k in kw[0]})
+        cal = cal_types.pop().create(**{k: np.array([c[k] for c in kw], np.float32) for k in kw[0]})
     else:
         cal = Cal3Bundler.create(torch.ones(1))
 
@@ -176,14 +187,25 @@ def read_scene(dirpath: str) -> SfmData:
     return SfmData.from_cameras_and_tracks(poses, cal, tracks, num_cameras=n, meta=meta)
 
 
+# COLMAP model and parameter order written for each calibration type
+_CAMERA_LINES = {
+    Cal3Bundler: ("RADIAL", ("f", "u0", "v0", "k1", "k2")),
+    Cal3_S2: ("PINHOLE", ("fx", "fy", "u0", "v0")),
+    Cal3DS2: ("OPENCV", ("fx", "fy", "u0", "v0", "k1", "k2", "p1", "p2")),
+    Cal3Fisheye: ("OPENCV_FISHEYE", ("fx", "fy", "u0", "v0", "k1", "k2", "k3", "k4")),
+}
+
+
 def _camera_line(idx: int, cal, width: int, height: int) -> str:
-    if not isinstance(cal, Cal3Bundler):
-        raise NotImplementedError(f"{type(cal).__name__} is not ported (ROADMAP queue 1 item 2)")
+    if type(cal) not in _CAMERA_LINES:
+        raise ValueError(f"Unsupported calibration type {type(cal)}")
+    model, names = _CAMERA_LINES[type(cal)]
 
     def g(attr):
-        return float(getattr(cal, attr).cpu().numpy()[idx])
+        v = getattr(cal, attr).cpu().numpy()
+        return float(v[idx] if v.ndim else v)
 
-    return f"{idx + 1} RADIAL {width} {height} {g('f')} {g('u0')} {g('v0')} {g('k1')} {g('k2')}"
+    return f"{idx + 1} {model} {width} {height} " + " ".join(str(g(k)) for k in names)
 
 
 def write_scene(data: SfmData, dirpath: str) -> None:

@@ -1,8 +1,8 @@
 """Loader base: image access with resolution capping, intrinsics, GT.
 
 Port of gtsfm_tpu/loader/base.py: ``read_image`` (PIL, with EXIF), the
-``max_resolution`` short-side rescale of images and of ``Cal3Bundler``
-intrinsics, EXIF intrinsics when a loader has none,
+``max_resolution`` short-side rescale of images and of the intrinsics
+(any calibration model), EXIF intrinsics when a loader has none,
 ``load_grayscale_batch`` padding to a common (H, W), ``get_gt_poses``,
 ``is_valid_pair`` (the retrievers' pair filter) and
 ``batch_calibrations``. Images are host numpy arrays (the detector takes a
@@ -12,6 +12,7 @@ which the scene optimizer moves to its device.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -22,6 +23,7 @@ from PIL.ExifTags import TAGS
 
 from gtsfm_tpu_torch.common.image import Image, rgb_to_gray
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+from gtsfm_tpu_torch.geometry.calibration import CALIBRATION_TYPES
 
 _EXIF_IFD = 0x8769  # the Exif sub-IFD: FocalLength and friends live there
 
@@ -46,7 +48,8 @@ def _resize(arr: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
 
 class LoaderBase:
     """Subclasses implement __len__, _get_image_full_res(i) -> Image,
-    _get_intrinsics_full_res(i) -> Cal3Bundler or None (None: from EXIF)
+    _get_intrinsics_full_res(i) -> a calibration or None (None: a
+    Cal3Bundler from EXIF)
     and, where GT is known, get_camera_pose(i)."""
 
     def __init__(self, max_resolution: int = 760):
@@ -59,7 +62,7 @@ class LoaderBase:
     def _get_image_full_res(self, index: int) -> Image:
         raise NotImplementedError
 
-    def _get_intrinsics_full_res(self, index: int) -> Optional[Cal3Bundler]:
+    def _get_intrinsics_full_res(self, index: int):
         raise NotImplementedError
 
     def get_camera_pose(self, index: int) -> Optional[SE3]:
@@ -91,7 +94,7 @@ class LoaderBase:
         return Image(value_array=_resize(img.value_array, new_h, new_w), exif_data=img.exif_data,
                      file_name=img.file_name)
 
-    def get_camera_intrinsics(self, index: int) -> Cal3Bundler:
+    def get_camera_intrinsics(self, index: int):
         cal = self._get_intrinsics_full_res(index)
         if cal is None:
             img = self._get_image_full_res(index)
@@ -133,15 +136,20 @@ class LoaderBase:
         return [self.image_filename(i) for i in range(len(self))]
 
 
-def _rescale_cal(cal: Cal3Bundler, s: float) -> Cal3Bundler:
-    """The calibration of an image downscaled by the factor s."""
-    if not isinstance(cal, Cal3Bundler):
-        raise NotImplementedError(f"{type(cal).__name__} is not ported (ROADMAP queue 1 item 2)")
-    return cal.replace(f=cal.f * s, u0=cal.u0 * s, v0=cal.v0 * s)
+def _rescale_cal(cal, s: float):
+    """The calibration of an image downscaled by the factor s: focal
+    lengths, skew and principal point scale, distortion does not."""
+    if isinstance(cal, Cal3Bundler):
+        return cal.replace(f=cal.f * s, u0=cal.u0 * s, v0=cal.v0 * s)
+    if isinstance(cal, CALIBRATION_TYPES):
+        return cal.replace(fx=cal.fx * s, fy=cal.fy * s, s=cal.s * s, u0=cal.u0 * s, v0=cal.v0 * s)
+    raise ValueError(type(cal))
 
 
-def batch_calibrations(cals) -> Cal3Bundler:
-    """Stack per-image calibrations into one batched Cal3Bundler."""
-    if not all(isinstance(c, Cal3Bundler) for c in cals):
-        raise TypeError("only Cal3Bundler calibrations are ported")
-    return Cal3Bundler(*(torch.stack([getattr(c, k) for c in cals]) for k in ("f", "k1", "k2", "u0", "v0")))
+def batch_calibrations(cals):
+    """Stack per-image calibrations of one model into one batched
+    calibration."""
+    t0 = type(cals[0])
+    if not all(type(c) is t0 for c in cals):
+        raise TypeError(f"mixed calibration types: {sorted({type(c).__name__ for c in cals})}")
+    return t0(**{f.name: torch.stack([getattr(c, f.name) for c in cals]) for f in dataclasses.fields(t0)})

@@ -2,7 +2,8 @@
 directory.
 
 Port of gtsfm_tpu/loader/colmap.py, on the text readers of
-``io/colmap.py`` (SIMPLE_RADIAL and RADIAL cameras, as Cal3Bundler).
+``io/colmap.py``: intrinsics of any of the four calibration models, by the
+camera's COLMAP model.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+from gtsfm_tpu_torch.geometry import SE3
 from gtsfm_tpu_torch.io import colmap as colmap_io
 from gtsfm_tpu_torch.loader.base import LoaderBase, read_image
 
@@ -49,7 +50,7 @@ class ColmapLoader(LoaderBase):
     def image_filename(self, index: int) -> str:
         return os.path.basename(self._records[index][2])
 
-    def _get_intrinsics_full_res(self, index: int) -> Optional[Cal3Bundler]:
+    def _get_intrinsics_full_res(self, index: int):
         cam = self._records[index][1]
         if not self.use_gt_intrinsics or cam is None:
             return None

@@ -36,7 +36,7 @@ class MergeOptions(NamedTuple):
     irls_iterations: int = 8
     inlier_threshold_factor: float = 3.0  # x median residual
     run_parent_ba: bool = True
-    parent_ba: BAOptions = BAOptions(max_iterations=15)
+    parent_ba: BAOptions = BAOptions(max_iterations=15, cg_iterations=30, layout="dense")
     parent_reproj_filter_px: float = 5.0
 
 

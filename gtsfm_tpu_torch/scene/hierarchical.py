@@ -79,12 +79,12 @@ class HierarchicalReconstruction:
         pairs: np.ndarray,
         tvr: dict,  # flat two-view outputs: numpy arrays or tensors
         keypoints_xy: np.ndarray,  # (N, K, 2)
-        cal,  # Cal3Bundler [N] on the device the back end runs on
+        cal,  # calibrations [N] on the device the back end runs on
         meta: Optional[SceneMeta] = None,
     ) -> tuple:
         """-> (SfmData over the global camera space, metrics dict)."""
         opts = self.options
-        dev = cal.f.device
+        dev = cal.u0.device  # a field of every calibration model
         host = {k: _host(tvr[k]) for k in ("valid", "num_inliers", "corr_i1", "corr_i2", "corr_mask")}
         rel_R = torch.as_tensor(tvr["i2Ri1"], dtype=torch.float32, device=dev)
         rel_U = torch.as_tensor(tvr["i2Ui1"], dtype=torch.float32, device=dev)

@@ -3,7 +3,8 @@
 Port of gtsfm_tpu/scene/mvo.py: two-pass cycle-consistency view-graph
 filtering -> largest connected component -> rotation averaging -> DSF
 tracks -> translation averaging (with camera->track directions) ->
-RANSAC-DLT triangulation -> staged dense-Schur bundle adjustment.
+RANSAC-DLT triangulation -> staged bundle adjustment (dense Schur; the
+entry layout for calibrations without closed-form dense Jacobians).
 
 Host-only stages run the port's copies of the reference's numpy modules
 (cycle consistency, graph utilities, DSF track linking). Numeric stages run
@@ -44,7 +45,7 @@ class MVOOptions(NamedTuple):
     view_graph: ViewGraphOptions = ViewGraphOptions()
     rotation: RotationAveragingOptions = RotationAveragingOptions()
     translation: TranslationAveragingOptions = TranslationAveragingOptions()
-    ba: BAOptions = BAOptions(max_iterations=30)
+    ba: BAOptions = BAOptions(max_iterations=30, cg_iterations=40, layout="dense")
     reproj_thresholds: tuple = (10.0, 5.0, 3.0)
     min_track_len: int = 2
     max_track_len: int = 15
@@ -77,7 +78,7 @@ class MultiViewOptimizer:
         corr_i2: np.ndarray,
         corr_mask: np.ndarray,
         keypoints_xy: np.ndarray,  # (N, K, 2)
-        cal,  # Cal3Bundler [N]
+        cal,  # calibrations [N]
         meta: Optional[SceneMeta] = None,
     ) -> tuple:
         """-> (SfmData, metrics dict)."""

@@ -313,7 +313,7 @@ class SceneOptimizer:
         is not padded: each pair's random stream is keyed by its global
         index, so chunking does not change the result."""
         opts = self.options
-        dev = cal.f.device
+        dev = cal.u0.device  # a field of every calibration model
         kp_dev = torch.as_tensor(kp_xy, dtype=torch.float32, device=dev)
         kpm_dev = torch.as_tensor(kp_mask, dtype=torch.bool, device=dev)
         d_dev = torch.as_tensor(descs, dtype=torch.float32, device=dev)

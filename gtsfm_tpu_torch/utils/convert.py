@@ -1,7 +1,7 @@
 """State carried between the reference's pytrees and the port's tensors.
 
-The reference's pytrees (``SE3``, ``Cal3Bundler``, ``SfmData``, two-view
-result dicts) reach the port as host numpy: objects or mappings whose
+The reference's pytrees (``SE3``, the four calibration models,
+``SfmData``, two-view result dicts) reach the port as host numpy: objects or mappings whose
 fields are numpy arrays (``jax.tree.map(np.asarray, x)`` gives one). These
 helpers build the port's dataclasses from them and turn port dataclasses
 back into dicts of numpy arrays. Nothing here imports JAX.
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from gtsfm_tpu_torch.common.sfm_data import SfmData
-from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+from gtsfm_tpu_torch.geometry import CALIBRATION_TYPES, SE3, Cal3Bundler, Cal3DS2, Cal3Fisheye, Cal3_S2
 from gtsfm_tpu_torch.splat.gs_data import GSData
 
 
@@ -41,14 +41,49 @@ def se3(src, device=None) -> SE3:
                t=tensor(_field(src, "t"), device, torch.float32))
 
 
+def _cal(cls, src, device):
+    return cls(**{f.name: tensor(_field(src, f.name), device, torch.float32) for f in dataclasses.fields(cls)})
+
+
 def cal3_bundler(src, device=None) -> Cal3Bundler:
-    return Cal3Bundler(*(tensor(_field(src, k), device, torch.float32) for k in ("f", "k1", "k2", "u0", "v0")))
+    return _cal(Cal3Bundler, src, device)
+
+
+def cal3_s2(src, device=None) -> Cal3_S2:
+    return _cal(Cal3_S2, src, device)
+
+
+def cal3ds2(src, device=None) -> Cal3DS2:
+    return _cal(Cal3DS2, src, device)
+
+
+def cal3_fisheye(src, device=None) -> Cal3Fisheye:
+    return _cal(Cal3Fisheye, src, device)
+
+
+_CAL_BY_NAME = {cls.__name__: cls for cls in CALIBRATION_TYPES}
+
+
+def calibration(src, device=None):
+    """A reference calibration of any of the four models -> the port's
+    model of the same name. ``src`` is the reference object (numpy leaves)
+    or a mapping of its fields; a mapping names its model by its fields
+    (Cal3DS2 has p1, p2; Cal3Fisheye k3, k4; Cal3Bundler f)."""
+    cls = _CAL_BY_NAME.get(type(src).__name__)
+    if cls is None:
+        if not isinstance(src, dict):
+            raise TypeError(f"not a calibration model: {type(src).__name__}")
+        keys = set(src)
+        cls = next((c for c in CALIBRATION_TYPES if {f.name for f in dataclasses.fields(c)} == keys), None)
+        if cls is None:
+            raise TypeError(f"no calibration model has the fields {sorted(keys)}")
+    return _cal(cls, src, device)
 
 
 def sfm_data(src, device=None) -> SfmData:
     return SfmData(
         poses=se3(_field(src, "poses"), device),
-        cal=cal3_bundler(_field(src, "cal"), device),
+        cal=calibration(_field(src, "cal"), device),
         pose_mask=tensor(_field(src, "pose_mask"), device, torch.bool),
         points=tensor(_field(src, "points"), device, torch.float32),
         track_mask=tensor(_field(src, "track_mask"), device, torch.bool),

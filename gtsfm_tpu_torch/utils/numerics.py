@@ -150,6 +150,19 @@ def jacobian_fwd(fn, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def jacobian_fwd_stacked(fn, x: torch.Tensor) -> torch.Tensor:
+    """``jacobian_fwd`` in one ``torch.func.jvp``: the batch x (B, n) is
+    stacked n times, (n, B, n), with the unit tangents, so ``fn`` must
+    broadcast over a leading axis. One call's host overhead instead of n,
+    for functions whose jvp costs more to dispatch than to run (the SE3
+    logs of BA's pose priors)."""
+    n = x.shape[-1]
+    xs = x.expand((n,) + tuple(x.shape)).clone()
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    tangent = eye.reshape((n,) + (1,) * (x.dim() - 1) + (n,)).expand_as(xs).clone()
+    return torch.func.jvp(fn, (xs,), (tangent,))[1].movedim(0, -1)
+
+
 def nullvec_pinned(AtA: torch.Tensor) -> torch.Tensor:
     """Nullvector of a rank-deficient (..., n, n) normal matrix by pinning
     the last coordinate to 1 and solving the leading (n-1) system (closed

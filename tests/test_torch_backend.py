@@ -211,7 +211,7 @@ def test_dense_ba_run_staged_matches_reference():
     out_j, m_j = JBA(JBAOptions(max_iterations=30, cg_iterations=40, layout="dense")).run_staged(
         data_j, fixed_cam=jnp.asarray(fixed))
     data_t = convert.sfm_data(jax.tree.map(np.asarray, data_j))
-    out_t, m_t = BundleAdjustment(BAOptions(max_iterations=30)).run_staged(
+    out_t, m_t = BundleAdjustment(BAOptions(max_iterations=30, cg_iterations=40, layout="dense")).run_staged(
         data_t, fixed_cam=torch.as_tensor(fixed))
     assert _angle_rad(out_t.poses.R.numpy(), np.asarray(out_j.poses.R)).max() < 1e-4
     t_j = np.asarray(out_j.poses.t)

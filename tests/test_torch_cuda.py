@@ -3,7 +3,9 @@ compositing kernels against their plain PyTorch versions, the splat
 trainer, the back end's run-to-run reproducibility, and the card against
 the CPU on the synthetic direct branch (equal index outputs, no matcher
 launch), on the merge's compacted BA (``run_compact``) and on DoG-SIFT
-(its stable top-k, and the keypoints of a padded batch).
+(its stable top-k, and the keypoints of a padded batch); the three BA
+layouts against each other and the CPU, the dense layout's fallback to
+entry past 128 views, and Cal3DS2's calibrate against the CPU.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -508,7 +510,7 @@ def test_run_compact_on_the_card_agrees_with_the_cpu():
     )
     fixed = torch.zeros(n, dtype=torch.bool)
     fixed[[0, 6]] = True  # two cameras: the gauge's scale is fixed too
-    ba = BundleAdjustment(BAOptions(max_iterations=15))
+    ba = BundleAdjustment(BAOptions(max_iterations=15, layout="dense"))
     out_c, m_c = ba.run_compact(data, fixed_cam=fixed)
     out_g, m_g = ba.run_compact(data.map(lambda a: a.cuda()), fixed_cam=fixed.cuda())
     rel = torch.einsum("nji,njk->nik", out_c.poses.R.double(), out_g.poses.R.cpu().double())
@@ -517,6 +519,76 @@ def test_run_compact_on_the_card_agrees_with_the_cpu():
     assert (out_g.poses.t.cpu() - t_c).abs().max() <= 1e-4 * t_c.abs().max()
     assert torch.equal(out_g.poses.R.cpu()[~torch.as_tensor(pose_mask)], data.poses.R[~torch.as_tensor(pose_mask)])
     assert abs(m_g["final_cost"] - m_c["final_cost"]) <= 1e-3 * m_c["final_cost"] < m_c["initial_cost"]
+
+
+@pytest.mark.cuda
+def test_ba_layouts_agree_on_the_card():
+    """Entry, scatter and dense on the card on a 24-camera ba_scene (plain
+    least squares, cameras 0 and 1 fixed): each runs in its own layout,
+    the three final costs agree to 1e-4 relative and the poses to 1e-4
+    (the iterative layouts are one PCG solver, dense solves exactly; at
+    convergence they meet), and entry on the card equals entry on the CPU
+    to the same tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import ba_scene, ba_sfm_data
+    from gtsfm_tpu_torch.bundle import ba
+
+    scene = ba_scene(n_cams=24, n_points=600, seed=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = ba_sfm_data(scene, dev)
+        fixed = torch.arange(24, device=dev) < 2
+        for layout in ("entry", "scatter", "dense") if dev == "cuda" else ("entry",):
+            ba.layout_counts.clear()
+            o, m = ba.BundleAdjustment(ba.BAOptions(robust_huber_px=0.0, layout=layout)).run(data, fixed_cam=fixed)
+            assert dict(ba.layout_counts) == {layout: 1}
+            out[dev, layout] = (m["final_cost"], o.poses.t.cpu(), m["initial_cost"])
+    c_ref, t_ref, c0 = out["cuda", "dense"]
+    assert c_ref < 1e-2 * c0
+    for key, (c, t, _) in out.items():
+        assert abs(c - c_ref) <= 1e-4 * c_ref, key
+        assert (t - t_ref).abs().max() <= 1e-4 * t_ref.abs().max(), key
+
+
+@pytest.mark.cuda
+def test_ba_dense_falls_back_to_entry_above_128_on_the_card():
+    """A track seen by 140 cameras: layout="dense" runs entry on the card
+    instead of raising, with the result of asking for entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import ba_scene, ba_sfm_data
+    from gtsfm_tpu_torch.bundle import ba
+
+    data = ba_sfm_data(ba_scene(n_cams=140, n_points=300, long_track=140, seed=2), "cuda")
+    fixed = torch.arange(140, device="cuda") < 2
+    ba.layout_counts.clear()
+    out_d, m_d = ba.BundleAdjustment(ba.BAOptions(max_iterations=5, layout="dense")).run(data, fixed_cam=fixed)
+    assert dict(ba.layout_counts) == {"entry": 1}
+    out_e, m_e = ba.BundleAdjustment(ba.BAOptions(max_iterations=5, layout="entry")).run(data, fixed_cam=fixed)
+    assert m_d["final_cost"] == m_e["final_cost"] < m_d["initial_cost"]
+    assert torch.equal(out_d.points, out_e.points)
+
+
+@pytest.mark.cuda
+def test_cal3ds2_calibrate_on_the_card_equals_the_cpu():
+    """Cal3DS2.calibrate (10 fixed-point steps) of chip_smoke's OPENCV
+    camera over a 480x640 pixel grid: the card within 1e-6 of the CPU in
+    normalized coordinates (float32 order only), and both within 1e-5 of
+    chip_smoke's float64 Newton inversion."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import OPENCV_CAMERA as cam, opencv_undistort
+    from gtsfm_tpu_torch.geometry import Cal3DS2
+
+    c = Cal3DS2.create(cam["fx"], cam["fy"], 0.0, cam["cx"], cam["cy"], cam["k1"], cam["k2"], cam["p1"], cam["p2"])
+    v, u = np.mgrid[0:480:7, 0:640:7].astype(np.float64)
+    uv = torch.as_tensor(np.stack([u, v], -1).reshape(-1, 2), dtype=torch.float32)
+    host = c.calibrate(uv)
+    card = c.map(lambda a: a.cuda()).calibrate(uv.cuda()).cpu()
+    assert (card - host).abs().max() <= 1e-6
+    x, y = opencv_undistort((u.reshape(-1) - cam["cx"]) / cam["fx"], (v.reshape(-1) - cam["cy"]) / cam["fy"], cam)
+    assert np.abs(host.numpy() - np.stack([x, y], -1)).max() <= 1e-5
 
 
 @pytest.mark.cuda

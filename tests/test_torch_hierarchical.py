@@ -239,7 +239,7 @@ def test_run_compact_matches_reference():
     fixed[2] = True
     out_j, m_j = JBA(JBAOptions(max_iterations=15, cg_iterations=30, layout="dense")).run_compact(
         data_a, fixed_cam=jnp.asarray(fixed))
-    out_t, m_t = BundleAdjustment(BAOptions(max_iterations=15)).run_compact(
+    out_t, m_t = BundleAdjustment(BAOptions(max_iterations=15, cg_iterations=30, layout="dense")).run_compact(
         convert.sfm_data(jax.tree.map(np.asarray, data_a)), fixed_cam=torch.as_tensor(fixed))
     live = np.asarray(data_a.pose_mask)
     assert _angle_rad(out_t.poses.R.numpy()[live], np.asarray(out_j.poses.R)[live]).max() < 1e-4

@@ -12,6 +12,7 @@ the accuracy bar: equal registered counts and pose AUC@5 within 0.02.
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from gtsfm_tpu_torch.configs import config
 from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup, intrinsics_error_metrics
 from gtsfm_tpu_torch.frontend import registry
 from gtsfm_tpu_torch.io import colmap
+from gtsfm_tpu_torch.loader.base import batch_calibrations
 from gtsfm_tpu_torch.loader.colmap import ColmapLoader
 from gtsfm_tpu_torch.loader.olsson import OlssonLoader
 from gtsfm_tpu_torch.loader.synthetic import spectral_ring_poses
@@ -46,7 +48,18 @@ from gtsfm_tpu_torch.utils.ellipsoid import align_scene_to_axes
 from gtsfm_tpu_torch.utils.tracks import tracks_from_sfm_data
 
 TOL = 1e-6
-SHIPPED = ("unified", "sift_front_end", "door", "cluster", "synthetic_front_end")
+# one camera of each COLMAP model the readers take (FULL_OPENCV with k3..k6
+# not 0: truncated, with a warning, in both packages)
+COLMAP_PARAMS = {
+    "SIMPLE_PINHOLE": "205.5 80.5 60.25",
+    "PINHOLE": "200 201 80 60",
+    "SIMPLE_RADIAL": "210.5 80.25 60.5 0.01",
+    "RADIAL": "190.0 81.0 59.0 -0.02 0.003",
+    "OPENCV": "200.5 202.0 80.5 59.5 -0.05 0.01 0.0005 -0.0003",
+    "FULL_OPENCV": "200.5 202.0 80.5 59.5 -0.05 0.01 0.0005 -0.0003 0.001 0.0 0.0 0.0",
+    "OPENCV_FISHEYE": "190.0 191.0 80.0 60.0 0.02 -0.005 0.001 -0.0001",
+}
+SHIPPED = ("unified", "sift_front_end", "door", "cluster", "synthetic_front_end", "unit_test")
 VIEWS = 8  # ring views of the end-to-end test
 
 
@@ -65,7 +78,8 @@ def _assert_loaders_agree(j, t):
     for i in range(len(j)):
         np.testing.assert_array_equal(t.get_image(i).value_array, j.get_image(i).value_array)
         cj, ct = j.get_camera_intrinsics(i), t.get_camera_intrinsics(i)
-        for k in ("f", "k1", "k2", "u0", "v0"):
+        assert type(ct).__name__ == type(cj).__name__
+        for k in ct.__dataclass_fields__:
             np.testing.assert_allclose(getattr(ct, k).numpy(), np.asarray(getattr(cj, k)), rtol=TOL, atol=TOL)
     gj, gt = j.get_gt_poses(), t.get_gt_poses()
     assert (gj is None) == (gt is None)
@@ -115,8 +129,7 @@ def _write_colmap(d, rng, models):
     cams = ["# cameras"]
     imgs = ["# images", "# two lines each"]
     for i, model in enumerate(models):
-        params = {"SIMPLE_RADIAL": "210.5 80.25 60.5 0.01", "RADIAL": "190.0 81.0 59.0 -0.02 0.003",
-                  "PINHOLE": "200 201 80 60"}[model]
+        params = COLMAP_PARAMS[model]
         cams.append(f"{i + 1} {model} 160 120 {params}")
         q = rng.normal(size=4)
         q /= np.linalg.norm(q)
@@ -135,10 +148,36 @@ def test_colmap_loader(tmp_path):
     _assert_loaders_agree(JColmapLoader(*args), ColmapLoader(*args))
 
 
-def test_colmap_loader_unported_camera_model_raises(tmp_path):
-    _write_colmap(tmp_path, np.random.default_rng(3), ["PINHOLE"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ColmapLoader(str(tmp_path), str(tmp_path / "images"))
+@pytest.mark.parametrize("model", sorted(COLMAP_PARAMS))
+def test_colmap_camera_model_reads_and_writes_as_the_reference(tmp_path, model):
+    """Each COLMAP camera model loads as the reference loads it (at full
+    size and rescaled by max_resolution, skew included), reads into the
+    same calibration type, and writes back the line the reference writes;
+    a scene mixing models raises ValueError as it does."""
+    _write_colmap(tmp_path, np.random.default_rng(3), [model, model])
+    args = (str(tmp_path), str(tmp_path / "images"))
+    for res in (760, 60):
+        _assert_loaders_agree(JColmapLoader(*args, max_resolution=res), ColmapLoader(*args, max_resolution=res))
+    cams_t = colmap.read_cameras_txt(str(tmp_path / "cameras.txt"))
+    cams_j = j_colmap.read_cameras_txt(str(tmp_path / "cameras.txt"))
+    for cid, (kw, cal_type, w, h) in cams_t.items():
+        kw_j, type_j, w_j, h_j = cams_j[cid]
+        assert (kw, cal_type.__name__, w, h) == (kw_j, type_j.__name__, w_j, h_j)
+    # the reference's own camera_line for a batched calibration of this type
+    cal_t = batch_calibrations([ColmapLoader(*args).get_camera_intrinsics(i) for i in range(2)])
+    cal_j = jax.tree.map(jnp.asarray, JColmapLoader(*args).get_camera_intrinsics(0))
+    cal_j = jax.tree.map(lambda *xs: jnp.stack(xs), cal_j, JColmapLoader(*args).get_camera_intrinsics(1))
+    for i in range(2):
+        assert colmap._camera_line(i, cal_t, 160, 120) == j_colmap._camera_line(i, cal_j, 160, 120)
+    mixed = tmp_path / "mixed"
+    mixed.mkdir()
+    other = "OPENCV_FISHEYE" if model != "OPENCV_FISHEYE" else "RADIAL"  # another calibration type
+    _write_colmap(mixed, np.random.default_rng(4), [model, other])
+    (mixed / "points3D.txt").write_text("")
+    with pytest.raises(ValueError, match="Mixed COLMAP camera models"):
+        j_colmap.read_scene(str(mixed))
+    with pytest.raises(ValueError, match="Mixed COLMAP camera models"):
+        colmap.read_scene(str(mixed))
 
 
 def _seeded_scene(n=5, tracks=40, seed=4):

@@ -97,6 +97,14 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    also at least one BA solve in entry and none in dense, and cameras.txt
    exported as OPENCV with the distortion within 1e-3 of the truth; prints
    the stage seconds, the pair count and the keypoints per image;
+   between the two, runner_options: the Olsson folder again with
+   RUNNER_OPTIONS (the homography and indeterminacy checks, LMedS scoring,
+   top-K-baseline triangulation, one cycle-filter pass, uniform rotation
+   weights, measurement-seeded MFAS directions), cold and warm, against
+   scripts/runner_options_reference.py's bars, with the pairs each check
+   rejected; then the first chunk's first 16 pairs through the two-view
+   batch on `cuda` and on the CPU with the same matches and draws (made on
+   the card): valid equal on every pair away from the thresholds;
 13. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
    480x640 for 400 steps, on the 32 ring views of the splat scene rendered
    by the port; final L1 < 0.7 of the initial and >= 400 compositing
@@ -120,6 +128,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -193,6 +202,26 @@ OPENCV_CAMERA = {"fx": 600.0, "fy": 606.0, "cx": 320.0, "cy": 240.0, "k1": -0.05
 COLMAP_REF_REGISTERED = 32
 COLMAP_REF_AUC5 = 0.6669446383602917
 OPENCV_EXPORT_TOL = 1e-3  # the exported distortion against OPENCV_CAMERA
+
+# the runner_options phase: the runner phase's folder with the two-view and
+# back-end options below (0.85 and 1e-5 are the values of the reference's
+# tests/frontend/test_two_view.py; YAML reads 1e-5 as a string, 1.0e-5 as a
+# float); the JAX package on the CPU with the same overrides
+# (scripts/runner_options_reference.py, JAX 0.9.0): 32 of 32 registered,
+# pose AUC@5 0.72535 (154 of 360 pairs valid), with the runner phase's slack
+RUNNER_OPTIONS_REF_REGISTERED = 32
+RUNNER_OPTIONS_REF_AUC5 = 0.7253539224853739
+RUNNER_OPTIONS = [
+    "scene_optimizer.two_view.homography_degeneracy_ratio=0.85",
+    "scene_optimizer.two_view.indeterminacy_eig_ratio=1.0e-5",
+    "scene_optimizer.two_view.ransac.scoring=lmeds",
+    "scene_optimizer.mvo.triangulation_mode=RANSAC_TOPK_BASELINES",
+    "scene_optimizer.mvo.run_view_graph_two_passes=false",
+    "scene_optimizer.mvo.rotation.weight_by_inliers=false",
+    "scene_optimizer.mvo.translation.mfas_uniform_sampling=false",
+]
+OPTIONS_CHECK_PAIRS = 16  # the card-against-CPU check of the first chunk's first pairs
+OPTIONS_CHECK_MARGIN = 1e-3  # decisive ratios this close (relative) to a threshold are not held
 
 # the ba_layouts phase: palace-281's camera count, BA_POINTS points on
 # tracks of BA_TRACK_LEN views, 1 px noise, a perturbed start; every layout
@@ -1594,8 +1623,8 @@ def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_a
     per chunk of RUNNER_PAIR_BATCH pairs at least, registered >=
     min_registered, AUC@5 >= min_auc5, finite poses, the metrics JSON of
     every group the run reports and a COLMAP export that reads back with
-    every registered camera (``check_export(export dir, scene)`` checks
-    more). Returns the launches and BA layouts of the warm run."""
+    every registered camera (``check_export(export dir, scene, layouts)``
+    checks more). Returns the launches and BA layouts of the warm run."""
     import os
     import tempfile
 
@@ -1666,15 +1695,15 @@ def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_a
     return {"launches": launches, "layouts": layouts}
 
 
-def phase_runner(smi: str, R, t) -> dict:
+def phase_runner(smi: str, R, t, work: str) -> tuple:
     """The default entry point on `cuda`: the 32 ring views of runner_scene
     at SPLAT_HW, f = SPLAT_FOCAL, rendered by the port on the card and
-    written as an Olsson folder, then ``gtsfm_tpu_torch.runner.main`` with
-    the unified config through _runner_runs (cold and warm), registered >=
-    the JAX reference's - 1, AUC@5 >= the reference's - 0.02. Returns the
-    launches of the warm run."""
+    written as an Olsson folder under ``work``, then
+    ``gtsfm_tpu_torch.runner.main`` with the unified config through
+    _runner_runs (cold and warm), registered >= the JAX reference's - 1,
+    AUC@5 >= the reference's - 0.02. Returns the launches of the warm run,
+    the folder (the runner_options phase reads it too) and its view count."""
     import os
-    import tempfile
 
     import torch
 
@@ -1682,14 +1711,121 @@ def phase_runner(smi: str, R, t) -> dict:
     order = ring_order(t)
     t0 = time.perf_counter()
     views = ring_views(R, t, dev, runner_scene(np.asarray(t).mean(axis=0)), indices=order)
-    with tempfile.TemporaryDirectory() as work:
-        data_dir = os.path.join(work, "data")
-        write_olsson(data_dir, views, np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
-        print(f"runner: {len(order)} views of runner_scene at {SPLAT_HW[0]}x{SPLAT_HW[1]} rendered and written in "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
-        out = _runner_runs("runner", ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir],
-                           len(order), RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
-                           RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK, smi)
+    data_dir = os.path.join(work, "runner_data")
+    write_olsson(data_dir, views, np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
+    print(f"runner: {len(order)} views of runner_scene at {SPLAT_HW[0]}x{SPLAT_HW[1]} rendered and written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out = _runner_runs("runner", ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir],
+                       len(order), RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
+                       RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK, smi)
+    return out["launches"], data_dir, len(order)
+
+
+def _check_rejections(res, opts) -> dict:
+    """Pairs of a TwoViewResult that pass the inlier support but fail the
+    homography check or the indeterminacy check."""
+    support = (res.num_inliers >= opts.min_num_inliers) & (res.inlier_ratio >= opts.min_inlier_ratio)
+    return {"homography": int((support & (res.hf_ratio >= opts.homography_degeneracy_ratio)).sum()),
+            "indeterminacy": int((support & ~(res.eig_ratio > opts.indeterminacy_eig_ratio)).sum()),
+            "pairs": int(res.valid.numel()), "valid": int(res.valid.sum())}
+
+
+def phase_runner_options(smi: str, data_dir: str, n_views: int) -> dict:
+    """The runner phase's folder through ``gtsfm_tpu_torch.runner.main``
+    with RUNNER_OPTIONS (the homography and indeterminacy checks, LMedS
+    scoring, top-K-baseline triangulation, one cycle-filter pass, uniform
+    rotation weights, measurement-seeded MFAS directions) through
+    _runner_runs, cold and warm: registered >= the JAX reference's - 1,
+    AUC@5 >= its - 0.02 (scripts/runner_options_reference.py), and both
+    checks on in the two-view batch; prints how many pairs each check
+    rejected in each run.
+
+    Then the card against the CPU on the two-view batch alone: the first
+    OPTIONS_CHECK_PAIRS pairs of the cold run's first chunk (its inputs
+    recorded as the run called ``run_two_view_batch``), matched once on the
+    card by kernel #1, their essential and homography minimal sets drawn on
+    the card (``two_view.draw_samples``), and ``run_two_view_batch`` with
+    those matches and draws on `cuda` and on the CPU: ``valid`` must agree
+    on every pair whose inlier ratio, H/F ratio and eigenvalue ratio lie
+    more than OPTIONS_CHECK_MARGIN (relative) from their thresholds on both
+    devices and whose inlier count is not within one of its bar. Returns the
+    launches of the warm run."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend import two_view
+    from gtsfm_tpu_torch.frontend.matchers.fused_matcher import fused_match_descriptors
+    from gtsfm_tpu_torch.scene import scene_optimizer
+
+    run_two_view = scene_optimizer.run_two_view_batch
+    first_call, rejected = [], {}
+
+    def recording(*args, **kwargs):
+        res = run_two_view(*args, **kwargs)
+        if not first_call:
+            first_call.append((args, kwargs))
+        for k, v in _check_rejections(res, kwargs["opts"]).items():
+            rejected[k] = rejected.get(k, 0) + v
+        return res
+
+    def check_export(export, back, layouts):
+        print(f"runner_options: pairs rejected by the homography check {rejected['homography']}, by the "
+              f"indeterminacy check {rejected['indeterminacy']} ({rejected['valid']} of {rejected['pairs']} "
+              f"valid)", flush=True)
+        rejected.clear()  # the counts of one run
+        opts = first_call[0][1]["opts"]
+        if not (opts.homography_degeneracy_ratio > 0 and opts.indeterminacy_eig_ratio > 0
+                and opts.ransac.scoring == "lmeds"):
+            raise AssertionError(f"runner_options: the two-view batch ran with {opts}")
+
+    scene_optimizer.run_two_view_batch = recording
+    try:
+        out = _runner_runs("runner_options", ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath",
+                                              data_dir] + RUNNER_OPTIONS,
+                           n_views, RUNNER_OPTIONS_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
+                           RUNNER_OPTIONS_REF_AUC5 - RUNNER_AUC5_SLACK, smi, check_export)
+    finally:
+        scene_optimizer.run_two_view_batch = run_two_view
+
+    args, kwargs = first_call[0]
+    n = OPTIONS_CHECK_PAIRS
+    opts = kwargs["opts"]
+    xy1, xy2, d1, d2, m1, m2 = (a[:n] for a in args[:6])
+    inputs = (xy1, xy2, d1, d2, m1, m2, args[6].map(lambda a: a[:n]), args[7].map(lambda a: a[:n]), args[8][:n])
+    pair_ids = kwargs["pair_ids"][:n]
+    midx, mmask, mscore = fused_match_descriptors(d1, d2, m1, m2, ratio=opts.matching_ratio)
+    sidx, hidx = two_view.draw_samples(mmask, mscore, inputs[-1], opts, kwargs["seed"], pair_ids)
+    draws = dict(seed=kwargs["seed"], opts=opts, pair_ids=pair_ids, sample_idx=sidx, h_sample_idx=hidx,
+                 match_idx=midx, match_mask=mmask, match_score=mscore)
+
+    def cpu(x):
+        return x.map(lambda a: a.cpu()) if hasattr(x, "map") else x.cpu() if torch.is_tensor(x) else x
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_two_view(*inputs, **draws)
+    torch.cuda.synchronize()
+    card_sec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = run_two_view(*(cpu(a) for a in inputs), **{k: cpu(v) for k, v in draws.items()})
+    host_sec = time.perf_counter() - t0
+    card = cpu(card)
+    far = torch.ones(n, dtype=torch.bool)
+    for r in (card, host):
+        for name, bar in (("inlier_ratio", opts.min_inlier_ratio), ("hf_ratio", opts.homography_degeneracy_ratio),
+                          ("eig_ratio", opts.indeterminacy_eig_ratio)):
+            far &= (getattr(r, name) - bar).abs() > OPTIONS_CHECK_MARGIN * bar
+        far &= (r.num_inliers - opts.min_num_inliers).abs() > 1
+    differ = card.valid != host.valid
+    both = card.valid & host.valid
+    rot = float((card.i2Ri1 - host.i2Ri1)[both].abs().max()) if bool(both.any()) else 0.0
+    print(f"runner_options card vs CPU: {n} pairs of the first chunk, {int(far.sum())} away from every threshold, "
+          f"valid {int(card.valid.sum())} on the card and {int(host.valid.sum())} on the CPU, {int(differ.sum())} "
+          f"differ ({int((differ & far).sum())} of them away from the thresholds); rejected on the card "
+          f"{_check_rejections(card, opts)}, on the CPU {_check_rejections(host, opts)}; max |R| difference of "
+          f"pairs valid on both {rot:.3g}; {card_sec:.3f} s on the card, {host_sec:.3f} s on the CPU", flush=True)
+    if bool((differ & far).any()):
+        raise AssertionError(f"runner_options: valid differs between the card and the CPU on pairs "
+                             f"{torch.nonzero(differ & far).flatten().tolist()} away from every threshold")
     return out["launches"]
 
 
@@ -1903,7 +2039,9 @@ def main() -> int:
     timed("gate", phase_gate)
     timed("hierarchical", phase_hierarchical, smi)
     timed("ba_layouts", phase_ba_layouts, smi)
-    runner_launches = timed("runner", phase_runner, smi, R, t)
+    with tempfile.TemporaryDirectory() as work:
+        runner_launches, runner_dir, runner_views = timed("runner", phase_runner, smi, R, t, work)
+        options_launches = timed("runner_options", phase_runner_options, smi, runner_dir, runner_views)
     colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
     comp_launches = timed("splat", phase_splat, R, t)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
@@ -1915,8 +2053,9 @@ def main() -> int:
         "source": "gtsfm_tpu_torch/csrc/fused_matcher.cu",
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
         "shape": "P64_K2048_D128",
-        "launches": runner_launches["matcher"] + colmap_launches["matcher"],
+        "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"],
         "runner_launches": runner_launches["matcher"],
+        "runner_options_launches": options_launches["matcher"],
         "colmap_runner_launches": colmap_launches["matcher"],
         "max_abs_err": max(err, err_runner),
         "ms": ms["kernel"],

@@ -1,11 +1,13 @@
 """Global rotation averaging: chordal initialization, the SO(p) staircase
 with its optimality certificate, then robust tangent-space Gauss-Newton.
 
-Port of gtsfm_tpu/averaging/rotation/averaging.py (default options:
-staircase_p_max=6, 30 robust GN iterations, re-refine after dropping edges
-whose residual exceeds 10 degrees). Dense linear algebra runs on the device
-of ``i2Ri1``; the certificate's eigendecomposition and the staircase's
-bookkeeping stay on the host in float64, as in the reference.
+Port of gtsfm_tpu/averaging/rotation/averaging.py (every option: edge
+weights by inlier count or uniform, staircase_p_max, robust GN iterations,
+the re-refine after dropping edges whose residual exceeds
+``rerefine_reject_deg``; and ``certify_rotation_solution``). Dense linear
+algebra runs on the device of ``i2Ri1``; the certificate's
+eigendecomposition and the staircase's bookkeeping stay on the host in
+float64, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ class RotationAveragingOptions(NamedTuple):
     max_iterations: int = 30
     robust_huber_rad: float = 0.1
     init_lambda: float = 1e-6
+    # edge weight proportional to the pair's inlier count (else uniform)
+    weight_by_inliers: bool = True
     rerefine_reject_deg: float = 10.0
     staircase_p_max: int = 6
 
@@ -316,7 +320,7 @@ class RotationAveraging:
             return eye_n, np.zeros(num_images, bool)
         if edge_mask is None:
             edge_mask = np.ones(E, bool)
-        if num_inliers is None:
+        if num_inliers is None or not self.options.weight_by_inliers:
             w = edge_mask.astype(np.float32)
         else:
             w = edge_mask * np.asarray(num_inliers, np.float32)
@@ -350,3 +354,28 @@ class RotationAveraging:
                                   torch.as_tensor(w2, dtype=torch.float32, device=dev), self.options)
         wRi = torch.where(torch.as_tensor(valid, device=dev)[:, None, None], wRi, eye_n)
         return wRi, valid
+
+
+def certify_rotation_solution(
+    num_images: int,
+    edges: np.ndarray,
+    i2Ri1: np.ndarray,
+    edge_weight: np.ndarray,
+    wRi: np.ndarray,
+    tol: float = 1e-6,
+) -> tuple:
+    """Global-optimality certificate of a rotation-averaging solution, on
+    the host in float64 as in the reference: with Q the block cost matrix
+    of sum_e w_e ||Y_i1 - i2Ri1^T Y_i2||^2 (Y_i = wRi^T) and
+    Lambda_i = sym(sum_j Q_ij Y_j Y_i^T), the solution is certified when
+    the least eigenvalue of Q - blockdiag(Lambda) is >= -tol (relative to
+    the largest). Returns (certified, min_eigenvalue)."""
+    n = num_images
+    Q = _build_cost_matrix(n, np.asarray(edges), i2Ri1, edge_weight).reshape(n, 3, n, 3).transpose(0, 2, 1, 3)
+    Y = np.transpose(np.asarray(wRi, np.float64), (0, 2, 1))
+    M = np.einsum("ijab,jbc,idc->iad", Q, Y, Y)  # sum_j Q_ij Y_j Y_i^T
+    S = Q.copy()
+    S[np.arange(n), np.arange(n)] -= 0.5 * (M + np.transpose(M, (0, 2, 1)))
+    vals = np.linalg.eigvalsh(S.transpose(0, 2, 1, 3).reshape(3 * n, 3 * n))
+    min_eig = float(vals[0])
+    return min_eig >= -tol * max(1.0, abs(vals[-1])), min_eig

@@ -1,17 +1,22 @@
 """Global translation averaging with 1DSfM outlier rejection.
 
-Port of gtsfm_tpu/averaging/translation/averaging.py with its default
-options: outlier rejection on, MFAS over the camera+track graph, uniform
-projection sampling. The rig-constrained variant is not ported. MFAS is a sequential host
-heuristic: the port binds its copy of the reference's native
-``libmfas.so`` (native/mfas.cpp, built by native/build.py into
-build/torch_native/) through ctypes, with the same numpy fallback. The position solve — a robust LUD alternation, then
-Huber Gauss-Newton on the direction residuals — runs on the device of the
+Port of gtsfm_tpu/averaging/translation/averaging.py with every option:
+outlier rejection on or off, MFAS over the camera graph alone or with the
+camera->track directions, uniform or measurement-seeded projection
+sampling, and the rig-constrained solve (cameras collapsed onto rig-body
+nodes with known world-frame offsets, the metric scale recovered in closed
+form). MFAS is a sequential host heuristic: the port binds its copy of the
+reference's native ``libmfas.so`` (native/mfas.cpp, built by
+native/build.py into build/torch_native/) through ctypes, with the same
+numpy fallback. The position solve (a robust LUD alternation, then Huber
+Gauss-Newton on the direction residuals) runs on the device of the
 rotations.
 
 The reference seeds the LUD phase with ``jax.random.normal(PRNGKey(0))``;
 the port draws its ``t0`` from a ``torch.Generator`` seeded with 0, or takes
-it as an argument (the tests replay the reference's draw).
+it as an argument (the tests replay the reference's draw). The projection
+directions come from ``numpy.random.default_rng(seed)`` with the
+reference's calls in the reference's order, so they are bit-equal.
 """
 
 from __future__ import annotations
@@ -35,6 +40,12 @@ class TranslationAveragingOptions(NamedTuple):
     robust_huber: float = 0.1
     num_projection_dirs: int = MAX_PROJECTION_DIRECTIONS
     outlier_weight_threshold: float = OUTLIER_WEIGHT_THRESHOLD
+    reject_outliers: bool = True
+    # run MFAS over the camera + track direction graph (else cameras only)
+    mfas_include_tracks: bool = True
+    # projection directions: uniform at the full budget (else half the
+    # measured directions, half random, up to max(E, 8))
+    mfas_uniform_sampling: bool = True
 
 
 _MFAS_LIB = None
@@ -189,13 +200,17 @@ def _solve_positions(
     opts: TranslationAveragingOptions,
     c: torch.Tensor | None = None,
     t0: torch.Tensor | None = None,
+    t_init: torch.Tensor | None = None,
 ) -> torch.Tensor:
+    """Node positions (n, 3) with t_i - t_j + c_e ~ s_e u_e: the LUD phase
+    from ``t0`` (default ``initial_positions``), then the GN polish; a
+    ``t_init`` (a metric warm start) skips the LUD phase."""
     n = num_nodes
     dev, dt = u.device, u.dtype
     i, j = edges[:, 0], edges[:, 1]
     if c is None:
         c = torch.zeros_like(u)
-    if t0 is None:
+    if t0 is None and t_init is None:
         t0 = initial_positions(n, dev)
     k = opts.robust_huber
     eye_n = torch.eye(n, dtype=dt, device=dev)
@@ -210,8 +225,8 @@ def _solve_positions(
         return torch.clamp(k / torch.clamp(rn, min=1e-12), max=1.0) if k > 0 else torch.ones_like(rn)
 
     # phase 1: robust LUD alternation (IRLS on direction residuals, s >= 1)
-    t = t0
-    for _ in range(opts.lud_iterations):
+    t = t0 if t_init is None else t_init
+    for _ in range(opts.lud_iterations if t_init is None else 0):
         d = t[i] - t[j] + c
         nrm = torch.clamp(torch.linalg.vector_norm(d, dim=-1), min=1e-9)
         rn = torch.linalg.vector_norm(d / nrm[:, None] - u, dim=-1)
@@ -281,8 +296,23 @@ class TranslationAveraging:
         edge_mask: np.ndarray | None = None,
         seed: int = 0,
         track_dirs: tuple | None = None,
+        rig_of: np.ndarray | None = None,
+        rig_offsets: np.ndarray | None = None,
         t0: torch.Tensor | None = None,
     ):
+        """track_dirs: camera->landmark directions (cam_idx (A,), track_node
+        (A,), w_dir (A, 3)[, weight (A,), 0 for padding]); track nodes are
+        virtual nodes after the camera (or rig-body) nodes.
+
+        rig_of (N,) / rig_offsets (N, 3): hard intra-rig constraints, each
+        camera at its rig body's position plus a known world-frame offset.
+        The solve runs over body nodes: a direction-only solve, the metric
+        scale in closed form from the offsets, then the GN polish with the
+        offsets from that warm start.
+
+        t0: the LUD phase's start over all solve nodes (default
+        ``initial_positions``)."""
+        opts = self.options
         dev = wRi.device
         edges = np.asarray(edges, np.int64)
         E = len(edges)
@@ -297,16 +327,17 @@ class TranslationAveraging:
         inlier_mask = edge_mask.copy()
         # MFAS gate counts padded edges too (E, not the kept count), as the
         # reference does
-        if E >= 3:
+        if opts.reject_outliers and E >= 3:
             rng = np.random.default_rng(seed)
             mfas_edges = edges[edge_mask]
             mfas_dirs = w_dirs[edge_mask]
             mfas_nodes = num_images
-            if track_dirs is not None:
+            if opts.mfas_include_tracks and track_dirs is not None:
                 tcam = np.asarray(track_dirs[0])
                 tnode = np.asarray(track_dirs[1])
                 tdir = np.asarray(track_dirs[2], np.float32)
-                twt = np.asarray(track_dirs[3], np.float32)
+                twt = (np.asarray(track_dirs[3], np.float32) if len(track_dirs) == 4
+                       else np.ones(len(tcam), np.float32))
                 real = twt > 0
                 if real.any():
                     te = np.stack([tnode[real].astype(np.int64) + num_images,
@@ -314,38 +345,70 @@ class TranslationAveraging:
                     mfas_edges = np.concatenate([mfas_edges.astype(np.int64), te])
                     mfas_dirs = np.concatenate([mfas_dirs, tdir[real]])
                     mfas_nodes = num_images + int(tnode[real].max()) + 1
-            proj_dirs = rng.normal(size=(self.options.num_projection_dirs, 3))
-            proj_dirs /= np.linalg.norm(proj_dirs, axis=-1, keepdims=True)
+            if opts.mfas_uniform_sampling:
+                proj_dirs = rng.normal(size=(opts.num_projection_dirs, 3))
+                proj_dirs /= np.linalg.norm(proj_dirs, axis=-1, keepdims=True)
+            else:
+                # half measured directions (of all E edges), half random
+                k = min(opts.num_projection_dirs, max(E, 8))
+                pick = rng.choice(E, size=min(k // 2, E), replace=False)
+                rand = rng.normal(size=(k - len(pick), 3))
+                rand /= np.linalg.norm(rand, axis=-1, keepdims=True)
+                proj_dirs = np.concatenate([w_dirs[pick], rand], axis=0)
             ow = mfas_outlier_weights(mfas_edges, mfas_dirs, mfas_nodes, proj_dirs)
-            keep = ow[: int(edge_mask.sum())] <= self.options.outlier_weight_threshold
+            keep = ow[: int(edge_mask.sum())] <= opts.outlier_weight_threshold
             inlier_mask[np.nonzero(edge_mask)[0][~keep]] = False
 
         valid = np.zeros(num_images, bool)
         np.logical_or.at(valid, edges[inlier_mask][:, 0], True)
         np.logical_or.at(valid, edges[inlier_mask][:, 1], True)
 
-        solve_edges = edges
+        if rig_of is not None:
+            rig_of = np.asarray(rig_of, np.int64)
+            rig_offsets = np.asarray(rig_offsets, np.float32).reshape(num_images, 3)
+            n_body = int(rig_of.max()) + 1
+            node_of = rig_of
+        else:
+            n_body = num_images
+            node_of = np.arange(num_images, dtype=np.int64)
+            rig_offsets = np.zeros((num_images, 3), np.float32)
+        solve_edges = node_of[edges]
+        solve_c = rig_offsets[edges[:, 0]] - rig_offsets[edges[:, 1]]
+        # intra-rig edges say nothing about body positions
+        solve_w = inlier_mask.astype(np.float32) * (solve_edges[:, 0] != solve_edges[:, 1])
         solve_dirs = w_dirs
-        solve_w = inlier_mask.astype(np.float32)
-        num_nodes = num_images
+        num_nodes = n_body
         if track_dirs is not None:
-            cam_idx, track_node, tdirs, tw = track_dirs
-            tw = 0.5 * np.asarray(tw, np.float32)
-            num_nodes = num_images + (int(np.max(track_node)) + 1 if len(track_node) else 0)
-            aug_edges = np.stack([np.asarray(track_node) + num_images, np.asarray(cam_idx)], axis=-1)
-            solve_edges = np.concatenate([solve_edges, aug_edges.astype(np.int64)])
-            solve_dirs = np.concatenate([w_dirs, np.asarray(tdirs, np.float32)])
+            cam_idx, track_node, tdirs = (np.asarray(a) for a in track_dirs[:3])
+            tw = 0.5 * (np.asarray(track_dirs[3], np.float32) if len(track_dirs) == 4
+                        else np.ones(len(cam_idx), np.float32))
+            num_nodes = n_body + (int(np.max(track_node)) + 1 if len(track_node) else 0)
+            aug_edges = np.stack([track_node.astype(np.int64) + n_body, node_of[cam_idx.astype(np.int64)]], axis=-1)
+            solve_edges = np.concatenate([solve_edges, aug_edges])
+            solve_c = np.concatenate([solve_c, -rig_offsets[cam_idx.astype(np.int64)]])
+            solve_dirs = np.concatenate([w_dirs, tdirs.astype(np.float32)])
             solve_w = np.concatenate([solve_w, tw])
         with precise():
-            t = _solve_positions(
-                num_nodes,
-                torch.as_tensor(solve_edges, dtype=torch.int64, device=dev),
-                torch.as_tensor(solve_dirs, dtype=torch.float32, device=dev),
-                torch.as_tensor(solve_w, dtype=torch.float32, device=dev),
-                self.options,
-                t0=t0,
-            )
-        t = t[:num_images] * torch.as_tensor(valid, device=dev)[:, None]
+            se = torch.as_tensor(solve_edges, dtype=torch.int64, device=dev)
+            sd = torch.as_tensor(solve_dirs, dtype=torch.float32, device=dev)
+            sw = torch.as_tensor(solve_w, dtype=torch.float32, device=dev)
+            sc = torch.as_tensor(solve_c, dtype=torch.float32, device=dev)
+            if rig_of is not None:
+                t_hat = _solve_positions(num_nodes, se, sd, sw, opts, t0=t0).cpu().numpy()
+                # metric scale: each edge wants a dt + c parallel to u,
+                # i.e. a (dt x u) = -(c x u)
+                dt = t_hat[solve_edges[:, 0]] - t_hat[solve_edges[:, 1]]
+                v = np.cross(dt, solve_dirs)
+                z = np.cross(solve_c, solve_dirs)
+                ww = solve_w[:, None]
+                a = -float(np.sum(ww * v * z)) / max(float(np.sum(ww * v * v)), 1e-12)
+                a = abs(a) if abs(a) > 1e-6 else 1.0
+                t = _solve_positions(num_nodes, se, sd, sw, opts, c=sc,
+                                     t_init=torch.as_tensor(a * t_hat, dtype=torch.float32, device=dev))
+            else:
+                t = _solve_positions(num_nodes, se, sd, sw, opts, c=sc, t0=t0)
+        t = t[torch.as_tensor(node_of, device=dev)] + torch.as_tensor(rig_offsets, device=dev)
+        t = torch.where(torch.as_tensor(valid, device=dev)[:, None], t, torch.zeros_like(t))
         return t, valid, inlier_mask
 
 

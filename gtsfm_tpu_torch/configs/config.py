@@ -6,7 +6,7 @@ NamedTuple option types by field name, with dotted CLI overrides
 retriever and the front-end components through frontend/registry.py. The
 named configs are the port's copies in this directory, those whose
 components are all ported. A config that names a component or an option
-the port does not have raises before any work.
+field that no option tuple has raises before any work.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import yaml
 from gtsfm_tpu_torch.averaging.rotation.averaging import RotationAveragingOptions
 from gtsfm_tpu_torch.averaging.translation.averaging import TranslationAveragingOptions
 from gtsfm_tpu_torch.bundle.ba import BAOptions
+from gtsfm_tpu_torch.bundle.triangulation import TriangulationMode
 from gtsfm_tpu_torch.frontend.detectors.dog_sift import DoGSiftOptions
 from gtsfm_tpu_torch.frontend.two_view import TwoViewOptions
 from gtsfm_tpu_torch.frontend.verifiers.essential import RansacOptions
@@ -58,11 +59,11 @@ def _build(nt_type, d: dict):
     kwargs = {}
     for k, v in (d or {}).items():
         if k not in nt_type._fields:
-            raise NotImplementedError(f"option {nt_type.__name__}.{k} is not in the port (the options still "
-                                      "to port are the two-view, MVO and averaging ones of ROADMAP queue 1 "
-                                      "item 2, parts 2.3 and 2.4)")
+            raise NotImplementedError(f"{nt_type.__name__} has no option {k!r} (fields: {', '.join(nt_type._fields)})")
         if k in _NESTED and isinstance(v, dict):
             kwargs[k] = _build(_NESTED[k], v)
+        elif k == "triangulation_mode" and isinstance(v, str):
+            kwargs[k] = TriangulationMode[v]
         elif k == "reproj_thresholds" and isinstance(v, list):
             kwargs[k] = tuple(v)
         else:

@@ -57,6 +57,9 @@ class LightGlueOptions(NamedTuple):
     # bf16 residual stream and transformer linears (float32 LayerNorm and
     # assignment); off for float32 parity tests
     mixed_precision: bool = True
+    # accepted for the reference's configs: on the card the attention
+    # kernel runs whatever its value, on the CPU its plain version
+    use_pallas_attention: bool = True
 
 
 def _merged_heads_ok(dim: int, heads: int) -> bool:

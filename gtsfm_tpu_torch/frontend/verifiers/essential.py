@@ -2,11 +2,12 @@
 locally-optimized refits, cheirality pose recovery and a Gauss-Newton
 polish on the essential manifold — batched over pairs.
 
-Port of gtsfm_tpu/frontend/verifiers/essential.py with its default
-options: MSAC scoring (the count and LMedS scorings are not ported) on a
-256-correspondence preemptive subset, 512 hypotheses, 3 LO rounds, two
-polish rounds. Where the reference vmaps one pair, every
-function here takes a leading pair axis: x1, x2 (P, K, 2), mask (P, K).
+Port of gtsfm_tpu/frontend/verifiers/essential.py: MSAC (the default),
+LMedS or inlier-count scoring on a preemptive subset, LO refits, two
+polish rounds, the pixel-space wrapper and the relative pose's
+information spectrum (the two-view indeterminacy check). Where the
+reference vmaps one pair, every function here takes a leading pair axis:
+x1, x2 (P, K, 2), mask (P, K).
 
 Hypotheses are solved as the reference's CPU branch does on every device:
 the einsum normal matrix and the unstacked pinned-nullvector elimination
@@ -29,8 +30,10 @@ from gtsfm_tpu_torch.geometry import so3
 from gtsfm_tpu_torch.utils.numerics import (
     counter_uniform,
     jacobian_fwd,
+    jacobian_fwd_stacked,
     mm,
     nullvec_pinned_scalarized,
+    precise,
 )
 
 # stage tags of the counter-based random streams
@@ -44,6 +47,10 @@ class RansacOptions(NamedTuple):
     min_inliers: int = 8
     polish_iterations: int = 8
     polish_huber: float = 2.0
+    # "msac": truncated-residual gain; "inliers": count voting; "lmeds":
+    # least median of squares. LMedS votes by the median but, as "msac",
+    # keeps the MSAC gain for LO and the dual-start pick.
+    scoring: str = "msac"
     score_subset: int = 256
 
 
@@ -150,6 +157,21 @@ def _essential_residual(params, R, t, x1, x2):
     return torch.sqrt(torch.clamp(err2, min=1e-18))
 
 
+@precise()
+def essential_information_spectrum(x1, x2, w, R, t):
+    """(min, max) eigenvalue (P,) of the 5-dof relative-pose Gauss-Newton
+    information J^T W J of the Sampson residual at (R, t): a near-zero
+    minimum against the maximum means the matches do not determine the
+    pose (the two-view indeterminacy check). x (P, K, 2), w (P, K),
+    R (P, 3, 3), t (P, 3). The Jacobian is one stacked jvp; a residual
+    below the 1e-18 floor has zero derivative, as in the reference."""
+    z5 = torch.zeros(x1.shape[:-2] + (5,), dtype=x1.dtype, device=x1.device)
+    J = jacobian_fwd_stacked(lambda p: _essential_residual(p, R, t, x1, x2), z5)  # (P, K, 5)
+    H = torch.einsum("pki,pkj->pij", J * w[..., None], J)
+    eigs = torch.linalg.eigvalsh(H)
+    return eigs[..., 0], eigs[..., -1]
+
+
 def _refine_essential(x1, x2, w, R0, t0, iters: int, huber: float, thresh):
     """Huber-weighted Gauss-Newton/LM on the 5-dof essential manifold,
     batched over pairs: x (P, K, 2), w (P, K), R0 (P, 3, 3), t0 (P, 3),
@@ -179,6 +201,39 @@ def _refine_essential(x1, x2, w, R0, t0, iters: int, huber: float, thresh):
         R, t = _perturb(torch.where(accept, delta, z5), R, t)
         lam = torch.clamp(torch.where(accept[:, 0], lam * 0.5, lam * 4.0), 1e-10, 1e4)
     return R, t
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` over the last dimension: the mean of the two middle
+    order statistics when the count is even (``torch.median`` returns the
+    lower one)."""
+    s = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
+    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+
+
+def hypothesis_votes(E_hyps, x1, x2, mask, thresh2, opts: RansacOptions = RansacOptions()) -> torch.Tensor:
+    """Votes (P, H) of hypotheses E (P, H, 3, 3) under ``opts.scoring``
+    (larger is better) on the preemptive subset of ``opts.score_subset``
+    points, a deterministic spread over each pair's valid set; thresh2
+    (P,) is the squared Sampson threshold."""
+    P, K = mask.shape
+    if 0 < opts.score_subset < K:
+        order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)  # valid first
+        S = opts.score_subset
+        pos = torch.arange(S, device=mask.device)[None] * torch.clamp(mask.sum(-1), min=1)[:, None] // S
+        sub = torch.gather(order, 1, pos)
+        x1 = torch.gather(x1, 1, sub[..., None].expand(P, S, 2))
+        x2 = torch.gather(x2, 1, sub[..., None].expand(P, S, 2))
+        mask = torch.gather(mask, 1, sub)
+    err_h = _sampson_error(E_hyps, x1[:, None], x2[:, None])  # (P, H, S)
+    ms = mask[:, None]
+    if opts.scoring == "lmeds":
+        return -_median(torch.where(ms, err_h, torch.full_like(err_h, float("inf"))))
+    if opts.scoring == "msac":
+        gain = torch.clamp(thresh2[:, None, None] - err_h, min=0.0)
+        return torch.sum(torch.where(ms, gain, torch.zeros_like(gain)), -1)
+    return (ms & (err_h < thresh2[:, None, None])).sum(-1).to(x1.dtype)
 
 
 def sample_minimal_sets(mask, sample_weights, num_hypotheses: int, seed: int, stream_ids):
@@ -239,25 +294,19 @@ def ransac_essential(
     AtA_h = torch.einsum("phkr,phks->phrs", A8, A8)
     E_hyps = nullvec_pinned_scalarized(AtA_h).reshape(P, H, 3, 3)
 
-    # preemptive scoring subset: deterministic spread over the valid set
-    if 0 < opts.score_subset < K:
-        order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)  # valid first
-        S = opts.score_subset
-        pos = torch.arange(S, device=dev)[None] * torch.clamp(n_valid, min=1)[:, None] // S
-        sub = torch.gather(order, 1, pos)
-        xs1 = torch.gather(x1, 1, sub[..., None].expand(P, S, 2))
-        xs2 = torch.gather(x2, 1, sub[..., None].expand(P, S, 2))
-        ms = torch.gather(mask, 1, sub)
-    else:
-        xs1, xs2, ms = x1, x2, mask
-    err_h = _sampson_error(E_hyps, xs1[:, None], xs2[:, None])  # (P, H, S)
-    zero = torch.zeros((), dtype=x1.dtype, device=dev)
-    votes = torch.sum(torch.where(ms[:, None], torch.clamp(thresh2[:, None, None] - err_h, min=0.0), zero), -1)
-    best = torch.argmax(votes, dim=-1)
+    votes = hypothesis_votes(E_hyps, x1, x2, mask, thresh2, opts)
+    best = torch.argmax(votes, dim=-1)  # first maximum, as jnp.argmax
     E_best = torch.gather(E_hyps, 1, best[:, None, None, None].expand(P, 1, 3, 3))[:, 0]
 
-    def quality(err):
-        return torch.sum(torch.where(mask, torch.clamp(thresh2[:, None] - err, min=0.0), zero), dim=-1)
+    # full-set model quality of LO and the dual-start pick: the inlier
+    # count under "inliers", the MSAC gain otherwise
+    zero = torch.zeros((), dtype=x1.dtype, device=dev)
+    if opts.scoring == "inliers":
+        def quality(err):
+            return (mask & (err < thresh2[:, None])).sum(-1).to(x1.dtype)
+    else:
+        def quality(err):
+            return torch.sum(torch.where(mask, torch.clamp(thresh2[:, None] - err, min=0.0), zero), dim=-1)
 
     def lo_round(E, mult):
         err = _sampson_error(E, x1, x2)
@@ -310,3 +359,17 @@ def ransac_essential(
         "num_inliers": num_inliers,
         "success": (num_inliers >= opts.min_inliers) & (n_valid >= 8),
     }
+
+
+@precise()
+def ransac_essential_pixels(uv1, uv2, mask, cal1, cal2, threshold_px: float = 4.0,
+                            opts: RansacOptions = RansacOptions(), **kwargs):
+    """``ransac_essential`` on pixel correspondences uv (P, K, 2): each
+    pair's calibrations (batched (P,)) normalize them, and the pixel
+    threshold becomes a normalized one through the pair's mean focal.
+    Keyword arguments (``sample_idx``, ``seed``, ``stream_ids``,
+    ``sample_weights``) pass through."""
+    x1 = cal1.map(lambda a: a[:, None]).calibrate(uv1)
+    x2 = cal2.map(lambda a: a[:, None]).calibrate(uv2)
+    thresh = threshold_px / torch.clamp(0.5 * (cal1.fx + cal2.fx), min=1e-6)
+    return ransac_essential(x1, x2, mask, thresh, opts=opts, **kwargs)

@@ -1,10 +1,11 @@
 """MultiViewOptimizer: the global back-end chain for one cluster.
 
-Port of gtsfm_tpu/scene/mvo.py: two-pass cycle-consistency view-graph
-filtering -> largest connected component -> rotation averaging -> DSF
-tracks -> translation averaging (with camera->track directions) ->
-RANSAC-DLT triangulation -> staged bundle adjustment (dense Schur; the
-entry layout for calibrations without closed-form dense Jacobians).
+Port of gtsfm_tpu/scene/mvo.py: cycle-consistency view-graph filtering
+(MIN then MEDIAN, or MIN alone) -> largest connected component -> rotation
+averaging -> DSF tracks -> translation averaging (with camera->track
+directions) -> DLT triangulation in the configured mode -> staged bundle
+adjustment (dense Schur; the entry layout for calibrations without
+closed-form dense Jacobians).
 
 Host-only stages run the port's copies of the reference's numpy modules
 (cycle consistency, graph utilities, DSF track linking). Numeric stages run
@@ -28,7 +29,7 @@ from gtsfm_tpu_torch.averaging.translation.averaging import (
     select_tracks_for_coverage,
 )
 from gtsfm_tpu_torch.bundle.ba import BAOptions, BundleAdjustment
-from gtsfm_tpu_torch.bundle.triangulation import triangulate_tracks
+from gtsfm_tpu_torch.bundle.triangulation import TriangulationMode, triangulate_tracks
 from gtsfm_tpu_torch.common.sfm_data import SceneMeta, SfmData
 from gtsfm_tpu_torch.geometry import SE3
 from gtsfm_tpu_torch.tracks.dsf import tracks_from_matches
@@ -43,12 +44,14 @@ from gtsfm_tpu_torch.view_graph.cycle_consistency import (
 
 class MVOOptions(NamedTuple):
     view_graph: ViewGraphOptions = ViewGraphOptions()
+    run_view_graph_two_passes: bool = True  # MIN then MEDIAN aggregation
     rotation: RotationAveragingOptions = RotationAveragingOptions()
     translation: TranslationAveragingOptions = TranslationAveragingOptions()
     ba: BAOptions = BAOptions(max_iterations=30, cg_iterations=40, layout="dense")
     reproj_thresholds: tuple = (10.0, 5.0, 3.0)
     min_track_len: int = 2
     max_track_len: int = 15
+    triangulation_mode: TriangulationMode = TriangulationMode.RANSAC_SAMPLE_UNIFORM
     triangulation_reproj_threshold_px: float = 10.0
     triangulation_hypotheses: int = 32
     min_triangulation_angle_deg: float = 1.0
@@ -92,7 +95,8 @@ class MultiViewOptimizer:
         i2Ri1_np = i2Ri1.cpu().numpy()
 
         t0 = time.perf_counter()
-        for agg in (EdgeErrorAggregation.MIN, EdgeErrorAggregation.MEDIAN):
+        passes = (EdgeErrorAggregation.MIN, EdgeErrorAggregation.MEDIAN)
+        for agg in passes if opts.run_view_graph_two_passes else passes[:1]:
             f = CycleConsistencyFilter(ViewGraphOptions(
                 max_cycle_error_deg=opts.view_graph.max_cycle_error_deg, aggregation=agg,
             ))
@@ -167,6 +171,7 @@ class MultiViewOptimizer:
             torch.as_tensor(track_mask, device=dev),
             reproj_threshold_px=opts.triangulation_reproj_threshold_px,
             num_hypotheses=opts.triangulation_hypotheses,
+            mode=opts.triangulation_mode,
             min_triangulation_angle_deg=opts.min_triangulation_angle_deg,
             seed=opts.seed,
         )

@@ -32,6 +32,9 @@ import torch
 from gtsfm_tpu.frontend.matchers import pallas_attention as jpa
 from gtsfm_tpu.frontend.matchers.lightglue import _attend as j_attend, _cross_attend as j_cross_attend
 from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 H, DH = 4, 64
 F32_TOL = 2e-5

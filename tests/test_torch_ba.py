@@ -15,6 +15,9 @@ the CPU), so each scenario holds several features.
 import numpy as np
 
 from tests.torch_ba_scenes import assert_same_solve, ring_scene, solve_both, with_uv
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 
 def test_huber_with_outliers_and_frozen_cameras_matches_reference():

@@ -24,6 +24,9 @@ from gtsfm_tpu_torch.bundle import ba
 from gtsfm_tpu_torch.geometry import PinholeCamera
 from gtsfm_tpu_torch.utils.numerics import jacobian_fwd
 from tests.torch_ba_scenes import assert_same_solve, ring_scene, solve_both, to_port
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 FIXED = np.arange(8) == 0
 

@@ -19,6 +19,9 @@ import torch
 
 from gtsfm_tpu_torch.bundle import ba
 from tests.torch_ba_scenes import assert_same_solve, ring_scene, solve_both, to_port
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 FIXED = np.arange(8) == 0
 

@@ -13,6 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.torch_ba_scenes import assert_same_solve, close, gt_poses, ring_scene, solve_both
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 
 def _rel(poses, edges):

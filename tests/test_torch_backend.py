@@ -29,6 +29,9 @@ from gtsfm_tpu_torch.averaging.translation.averaging import TranslationAveraging
 from gtsfm_tpu_torch.bundle.ba import BAOptions, BundleAdjustment
 from gtsfm_tpu_torch.bundle.triangulation import triangulate_tracks
 from gtsfm_tpu_torch.utils import convert
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 N = 10
 F = 300.0

@@ -19,6 +19,9 @@ from gtsfm_tpu.geometry import calibration as jcal
 from gtsfm_tpu_torch.geometry import calibration as tcal
 from gtsfm_tpu_torch.utils import convert
 from gtsfm_tpu_torch.utils.numerics import jacobian_fwd
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 N = 6
 MODELS = ("Cal3Bundler", "Cal3_S2", "Cal3DS2", "Cal3Fisheye")

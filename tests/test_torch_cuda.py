@@ -5,7 +5,9 @@ the CPU on the synthetic direct branch (equal index outputs, no matcher
 launch), on the merge's compacted BA (``run_compact``) and on DoG-SIFT
 (its stable top-k, and the keypoints of a padded batch); the three BA
 layouts against each other and the CPU, the dense layout's fallback to
-entry past 128 views, and Cal3DS2's calibrate against the CPU.
+entry past 128 views, and Cal3DS2's calibrate against the CPU; the
+two-view checks (the batched homography RANSAC on draws made on the card,
+LMedS votes, the information spectrum) on the card against the CPU.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -57,6 +59,11 @@ from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
 from gtsfm_tpu_torch.splat import rendering
 from gtsfm_tpu_torch.utils.numerics import precise
+# by its own name (pytest puts tests/ on the path): on a card's machine a
+# ``tests`` package in site-packages can shadow this directory
+from torch_threads import cap_threads
+
+cap_threads()
 
 # name: (P, K1, K2, D, seed)
 SHAPES = {
@@ -642,3 +649,127 @@ def test_dog_sift_on_the_card_finds_the_cpus_keypoints():
         np.testing.assert_allclose(cr[ic], hr[ih], rtol=1e-5, atol=1e-6)
         off = np.abs(cd[ic] - hd[ih]).max(axis=-1) > 1e-4
         assert off.mean() <= 0.01, off.mean()
+
+
+def _two_view_scene(P: int, K: int, seed: int, planar_every: int = 0):
+    """P two-view geometries in normalized coordinates (0.5 px noise at
+    f = 600), 20% outliers, a ragged mask; every ``planar_every``-th pair
+    has its points on one plane. Returns x1, x2 (P, K, 2), mask (P, K),
+    the true R (P, 3, 3), t (P, 3) and inlier flags (P, K)."""
+    rng = np.random.default_rng(seed)
+    x1s, x2s, Rs, ts, outs = [], [], [], [], []
+    for p in range(P):
+        pts = rng.uniform([-2, -2, 4], [2, 2, 8], (K, 3))
+        if planar_every and p % planar_every == 0:
+            pts[:, 2] = 6.0
+        w = rng.normal(size=3) * 0.15
+        th = np.linalg.norm(w)
+        Wx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        R = np.eye(3) + np.sin(th) / th * Wx + (1 - np.cos(th)) / th**2 * Wx @ Wx
+        t = np.array([1.0, 0.1, 0.2]) + 0.1 * rng.normal(size=3)
+        p2 = pts @ R.T + t
+        x1 = pts[:, :2] / pts[:, 2:] + rng.normal(0, 0.5 / 600, (K, 2))
+        x2 = p2[:, :2] / p2[:, 2:] + rng.normal(0, 0.5 / 600, (K, 2))
+        out = rng.random(K) < 0.2
+        x2[out] = rng.uniform(-0.5, 0.5, (out.sum(), 2))
+        x1s.append(x1)
+        x2s.append(x2)
+        Rs.append(R)
+        ts.append(t / np.linalg.norm(t))
+        outs.append(out)
+    mask = rng.random((P, K)) > 0.1
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    return f32(x1s), f32(x2s), torch.as_tensor(mask), f32(Rs), f32(ts), torch.as_tensor(mask & ~np.asarray(outs))
+
+
+@pytest.mark.cuda
+def test_homography_ransac_on_the_card_equals_the_cpu():
+    """ransac_homography at the runner phase's batch (64 pairs, 128
+    hypotheses) on K = 2048 pixel correspondences, a quarter of the pairs
+    planar, with the 4-point sets drawn on the card and handed to both: H
+    up to scale to 1e-4; inliers equal except points whose transfer error
+    lies within 2% of the threshold (an H 1e-4 apart moves a transfer error
+    at the threshold by about 2e-4 / sqrt(threshold), near 1% of it here);
+    the pairs the H/F rule flags equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend.verifiers.fundamental import (
+        _h_transfer_err,
+        _hartley_normalize,
+        gric_select_model,
+        ransac_homography,
+        sample_homography_sets,
+    )
+
+    x1, x2, mask, _, _, _ = _two_view_scene(64, 2048, seed=3, planar_every=4)
+    uv1, uv2 = x1 * 600 + 320, x2 * 600 + 240
+    idx = sample_homography_sets(mask.cuda(), 128, seed=0).cpu()
+    card = ransac_homography(uv1.cuda(), uv2.cuda(), mask.cuda(), 4.0, 128, sample_idx=idx.cuda())
+    host = ransac_homography(uv1, uv2, mask, 4.0, 128, sample_idx=idx)
+    Hc, Hh = card["H"].cpu(), host["H"]
+    Hc = Hc / torch.linalg.vector_norm(Hc, dim=(-2, -1), keepdim=True)
+    Hh = Hh / torch.linalg.vector_norm(Hh, dim=(-2, -1), keepdim=True)
+    sign = torch.sign((Hc * Hh).sum((-2, -1)))[:, None, None]
+    assert (Hc - sign * Hh).abs().max() <= 1e-4
+    maskf = mask.float()
+    x1n, T1 = _hartley_normalize(uv1, maskf)
+    x2n, T2 = _hartley_normalize(uv2, maskf)
+    t2 = ((4.0 * (0.5 * (T1[:, 0, 0] + T2[:, 0, 0]))) ** 2)[:, None]
+    off = (_h_transfer_err(Hh, x1n, x2n) - t2).abs() > 2e-2 * t2
+    assert not ((card["inliers"].cpu() != host["inliers"]) & off).any()
+    # a fifth of the correspondences are outliers: H explains about 0.8 of
+    # a planar pair's valid points, few of another's
+    planar = torch.arange(64) % 4 == 0
+    degen, _ = gric_select_model(mask, host["inliers"], mask, 0.5)
+    degen_c, _ = gric_select_model(mask.cuda(), card["inliers"], mask.cuda(), 0.5)
+    assert torch.equal(degen_c.cpu(), degen) and torch.equal(degen, planar)
+
+
+@pytest.mark.cuda
+def test_lmeds_votes_and_spectrum_on_the_card_equal_the_cpu():
+    """LMedS votes (minus the median Sampson error of 256 scored points, the
+    mean of the two middle ones) of 512 hypotheses a pair, each the true E
+    of the pair perturbed by 1e-2, at the runner's batch (64 pairs, K =
+    2048): to 1e-4 relative plus 1e-10 (float32 cancellation in x2^T E x1,
+    whose terms are of unit size, leaves the smallest medians, near 6e-7,
+    up to 1.2e-4 apart relative: measured), and the same winner wherever
+    the best two votes differ by more than 1e-4 relative; then the
+    information spectrum at the true poses with the true inliers (but for
+    residuals at the floor, see below): both extreme eigenvalues to 1e-4 of
+    the largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend.verifiers.essential import (
+        RansacOptions,
+        _sampson_error,
+        essential_information_spectrum,
+        hypothesis_votes,
+    )
+    from gtsfm_tpu_torch.geometry import so3
+
+    x1, x2, mask, R, t, inl = _two_view_scene(64, 2048, seed=4)
+    g = torch.Generator().manual_seed(0)
+    dR = so3.expmap(1e-2 * torch.randn((64, 512, 3), generator=g))
+    dt = 1e-2 * torch.randn((64, 512, 3), generator=g)
+    E = so3.hat(t[:, None] + dt) @ R[:, None] @ dR
+    thresh2 = torch.full((64,), (4.0 / 600) ** 2)
+    opts = RansacOptions(scoring="lmeds")
+    with precise():
+        card = hypothesis_votes(E.cuda(), x1.cuda(), x2.cuda(), mask.cuda(), thresh2.cuda(), opts).cpu()
+    host = hypothesis_votes(E, x1, x2, mask, thresh2, opts)
+    assert ((card - host).abs() <= 1e-4 * host.abs() + 1e-10).all()
+    top2 = host.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]).abs() > 1e-4 * top2[:, 0].abs()
+    assert clear.sum() > 32
+    assert torch.equal(card.argmax(-1)[clear], host.argmax(-1)[clear])
+    # the residual's 1e-9 floor (sqrt(max(err, 1e-18))) zeroes a Jacobian
+    # row; a residual within float32 cancellation (about 1e-8 here) of it
+    # can sit on one side on the card and on the other on the CPU (measured:
+    # one point of 64 x 2048, 1.45e-8 against 1e-9, its row 7e-4 of the
+    # largest eigenvalue), so such points are weighted 0
+    err = _sampson_error(so3.hat(t) @ R, x1, x2)
+    args = (x1, x2, (inl & (err > 1e-12)).float(), R, t)
+    mn_c, mx_c = essential_information_spectrum(*(a.cuda() for a in args))
+    mn_h, mx_h = essential_information_spectrum(*args)
+    assert ((mn_c.cpu() - mn_h).abs() <= 1e-4 * mx_h).all()
+    assert ((mx_c.cpu() - mx_h).abs() <= 1e-4 * mx_h).all()

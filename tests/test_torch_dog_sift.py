@@ -37,6 +37,9 @@ from gtsfm_tpu_torch.frontend.detectors.dog_sift import (
     stable_topk,
 )
 from gtsfm_tpu_torch.frontend.global_descriptors.descriptors import TinyImageDescriptor
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 RESP_RTOL, RESP_ATOL = 1e-5, 1e-6
 DESC_TOL = 1e-4

@@ -18,6 +18,9 @@ from gtsfm_tpu.utils import numerics as jnum
 from gtsfm_tpu_torch.geometry import SE3, PinholeCamera, so3
 from gtsfm_tpu_torch.geometry.sim3 import align_poses_sim3_robust
 from gtsfm_tpu_torch.utils import convert, numerics
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 TOL = 1e-5
 

@@ -50,6 +50,9 @@ from gtsfm_tpu_torch.partitioner import partitioners as part
 from gtsfm_tpu_torch.scene.hierarchical import HierarchicalOptions, HierarchicalReconstruction
 from gtsfm_tpu_torch.utils import convert
 from tests.frontend.test_two_view import make_pair_batch
+from tests.torch_threads import cap_threads, threads
+
+cap_threads()
 
 F = 300.0
 
@@ -270,8 +273,8 @@ def test_merge_children_with_parent_ba_matches_reference():
 # ---------------------------------------------------------------------------
 # hierarchical
 # ---------------------------------------------------------------------------
+@threads(4)
 def test_hierarchical_matches_reference_on_its_test_inputs():
-    torch.set_num_threads(4)
     n_cams = 10
     scene, pairs, batch = make_pair_batch(n_cams=n_cams, n_pts=200, desc_noise=0.01, seed=11)
     res = j_two_view(**batch, key=jax.random.PRNGKey(0),

@@ -24,6 +24,9 @@ from gtsfm_tpu_torch.native import build as native_build
 from gtsfm_tpu_torch.tracks import dsf
 from gtsfm_tpu_torch.utils import graph
 from gtsfm_tpu_torch.view_graph import cycle_consistency as cc
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

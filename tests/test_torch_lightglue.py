@@ -60,6 +60,9 @@ from gtsfm_tpu_torch.geometry import Cal3Bundler
 from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader
 from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
 from gtsfm_tpu_torch.utils import convert
+from tests.torch_threads import cap_threads, threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.as_tensor
@@ -211,8 +214,8 @@ def _scalars(groups):
     return {(g.name, m.name): m.scalar for g in groups for m in g.metrics if m.dist is None}
 
 
+@threads(4)
 def test_lightglue_slice_matches_reference_end_to_end():
-    torch.set_num_threads(4)
     N, K, L = 12, 256, 2
     H, W = chip_smoke.IMAGE_HW
     pairs = chip_smoke.ring_pairs(N)

@@ -23,6 +23,9 @@ from gtsfm_tpu.frontend.matchers.mutual_nn import match_descriptors as jax_match
 from gtsfm_tpu.frontend.matchers.pallas_matcher import pallas_match_descriptors
 from gtsfm_tpu_torch.frontend.matchers import fused_matcher
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 P, K, D = 4, 256, 128
 

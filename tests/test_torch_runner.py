@@ -46,6 +46,9 @@ from gtsfm_tpu_torch.retriever.bridge import find_bridge_pairs
 from gtsfm_tpu_torch.utils import convert
 from gtsfm_tpu_torch.utils.ellipsoid import align_scene_to_axes
 from gtsfm_tpu_torch.utils.tracks import tracks_from_sfm_data
+from tests.torch_threads import cap_threads, threads
+
+cap_threads()
 
 TOL = 1e-6
 # one camera of each COLMAP model the readers take (FULL_OPENCV with k3..k6
@@ -349,9 +352,9 @@ def test_unported_components_and_flags_raise_before_any_work(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         registry.build_correspondence({"name": "loftr"})
     assert registry.build_correspondence({"name": "synthetic"}).requires_gt
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="TwoViewOptions has no option 'no_such_option'"):
         config.build_scene_optimizer(config.load_config("unified",
-                                                        ["scene_optimizer.two_view.use_pallas_matcher=true"]))
+                                                        ["scene_optimizer.two_view.no_such_option=true"]))
     base = ["--dataset_dirpath", str(tmp_path), "--output_root", str(tmp_path / "out")]
     for flags in (["--loader", "hilti"], ["--bal", "x.txt"], ["--compare_to", "d"], ["--run_mvs"],
                   ["--cluster_optimizer", "vggt"], ["--use_cache"], ["--load_chunk_size", "4"], ["--prewarm"],
@@ -367,6 +370,7 @@ def _scalars(output_root):
             for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
 
 
+@threads(8)
 def test_runners_end_to_end(tmp_path):
     """Both runners' main on one Olsson folder of VIEWS neighbouring ring
     views of chip_smoke.runner_scene, rendered by the port on the CPU at
@@ -375,7 +379,6 @@ def test_runners_end_to_end(tmp_path):
     registers 4 of 8), so the views are rendered at full size, with 256
     slots a tile (about 1.5 s a view on the CPU, where the chip phase's 512
     take about 3 s)."""
-    torch.set_num_threads(8)
     n = chip_smoke.NUM_CAMERAS
     gt = spectral_ring_poses(chip_smoke.ring_pairs(n), n)
     R, t = gt.R.numpy(), gt.t.numpy()

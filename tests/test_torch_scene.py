@@ -32,6 +32,9 @@ from gtsfm_tpu_torch.geometry import Cal3Bundler
 from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader
 from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
 from gtsfm_tpu_torch.utils import convert
+from tests.torch_threads import cap_threads, threads
+
+cap_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, K = 12, 256
@@ -42,8 +45,8 @@ def _scalars(groups):
     return {(g.name, m.name): m.scalar for g in groups for m in g.metrics if m.dist is None}
 
 
+@threads(4)
 def test_slice_matches_reference_end_to_end():
-    torch.set_num_threads(4)
     pairs = chip_smoke.ring_pairs(N)
     gt = j_ring(pairs, N)
     R, t = np.array(gt.R), np.array(gt.t)

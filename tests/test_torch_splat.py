@@ -39,6 +39,9 @@ from gtsfm_tpu_torch.splat.gaussian_splatting import GaussianSplatting, GSTrainO
 from gtsfm_tpu_torch.splat.gs_data import GSData, export_ply, load_ply
 from gtsfm_tpu_torch.splat.merge import merge_gaussian_splats, transform_splats
 from gtsfm_tpu_torch.utils import convert
+from tests.torch_threads import cap_threads, threads
+
+cap_threads()
 
 FIELDS = ("means", "log_scales", "quats", "opacity_logit", "colors", "alive")
 K_TILED = np.array([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]], np.float32)
@@ -358,6 +361,7 @@ def test_transform_and_merge_splats_match_reference():
         np.testing.assert_allclose(_np(getattr(mt, k)), np.asarray(getattr(mj, k)), atol=1e-5)
 
 
+@threads(4)
 def test_scene_optimizer_runs_the_splat_back_end():
     """SceneOptimizer.run(run_gs=True) on the 12-camera ring of
     test_torch_scene.py, on the CPU: the splat metrics group is there,
@@ -366,7 +370,6 @@ def test_scene_optimizer_runs_the_splat_back_end():
     from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader, spectral_ring_poses
     from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
 
-    torch.set_num_threads(4)
     n, K = 12, 256
     H, W = chip_smoke.IMAGE_HW
     pairs = chip_smoke.ring_pairs(n)

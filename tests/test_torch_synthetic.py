@@ -49,6 +49,9 @@ from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
 from gtsfm_tpu_torch.loader.synthetic import SyntheticSceneLoader
 from gtsfm_tpu_torch.retriever import retrievers as ret
 from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer, SceneOptimizerOptions
+from tests.torch_threads import cap_threads, threads
+
+cap_threads()
 
 H, W = chip_smoke.IMAGE_HW
 F = chip_smoke.FOCAL
@@ -183,8 +186,8 @@ def _port_scene(n, pairs, R, t, options, points=600):
     return so, data, groups, poses
 
 
+@threads(4)
 def test_gate_twin_registers_all_32_cameras_above_the_bar():
-    torch.set_num_threads(4)
     n = 32
     pairs, R, t = _ring(n)
     so, data, groups, poses = _port_scene(n, pairs, R, t, SceneOptimizerOptions(device="cpu"))
@@ -196,8 +199,8 @@ def test_gate_twin_registers_all_32_cameras_above_the_bar():
     assert so.node_results == [] and "num_clusters" not in so.backend_metrics
 
 
+@threads(4)
 def test_hierarchical_scene_optimizer_matches_reference():
-    torch.set_num_threads(4)
     n = 24
     pairs, R, t = _ring(n)
     cal_j, _ = _cals(n)

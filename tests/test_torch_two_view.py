@@ -29,6 +29,9 @@ from gtsfm_tpu.loader.synthetic import spectral_ring_poses as j_ring
 from gtsfm_tpu_torch.frontend.two_view import run_two_view_batch
 from gtsfm_tpu_torch.frontend.verifiers.essential import RansacOptions, ransac_essential
 from gtsfm_tpu_torch.utils import convert
+from tests.torch_threads import cap_threads
+
+cap_threads()
 
 P, K, F = 3, 256, 300.0
 

@@ -108,16 +108,40 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
 13. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
    480x640 for 400 steps, on the 32 ring views of the splat scene rendered
    by the port; final L1 < 0.7 of the initial and >= 400 compositing
-   launches required; seconds per step and peak device memory printed.
+   launches required; seconds per step and peak device memory printed;
+14. deep_front_end: gtsfm_tpu_torch.runner.main with the deep_front_end
+   config (SuperPoint at K=2048, LightGlue at full width, NetVLAD, the
+   joint retriever, pair_batch_size 256) on the runner phase's Olsson
+   folder, with seeded SuperPoint and LightGlue checkpoints (NetVLAD on its
+   seeded init), cold and then warm at RANSAC seed 0, then warm at seeds 1
+   and 2: 36 attention launches per LightGlue forward, no matcher launch,
+   peak device memory; the pairs and each pair's LightGlue match count
+   against the JAX package's, the medians over the seeds of registered,
+   AUC@5 and valid pairs within its bars (DEEP_REFERENCE, from
+   scripts/deep_front_end_reference.py); the attention kernel on the inputs
+   LightGlue gave its merged self and cross entries in the warm run,
+   against the plain version and timed with scaled_dot_product_attention;
+   the card against the CPU: SuperPoint on 4 views and NetVLAD on 32 (each
+   also with TF32 on, where the check must fail), LightGlue on 4 pairs;
+15. megaloc_sift: the runner with megaloc_sift_frontend (MegaLoc ViT-B/14 at
+   322x322 from a seeded megaloc.torch, DoG-SIFT at K=5000, the similarity
+   retriever at 10) at seeds 0, 1, 2: DoG-SIFT on `cuda`, matcher
+   launches, the pairs, match counts and medians held as for
+   deep_front_end; the matcher kernel on the run's first chunk at K=5000
+   against its plain version and timed on 32 of its pairs, and alone on
+   the whole chunk; MegaLoc on the card against the CPU on 4 views (and
+   with TF32 on);
+16. deep_components: D2-Net, DISK and hloc's VGG16-NetVLAD at 480x640 (their
+   seeded inits) on 2 views, the card against the CPU (and with TF32 on).
 
 The seconds of each phase are printed as it ends. The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result.
 There is no CPU mode: without a CUDA device the script stops.
 
-The descriptor feed, the glue fixture, the splat scene, the runner scene,
-the OPENCV resampling and the BA scene are defined here once, with numpy
-only (ring_views, write_olsson, write_colmap_opencv and ba_sfm_data render,
+The descriptor feed, the glue fixture, the SuperPoint and MegaLoc
+fixtures, the splat scene, the runner scene, the OPENCV resampling and the
+BA scene are defined here once, with numpy only (ring_views, write_olsson, write_colmap_opencv and ba_sfm_data render,
 write and load them through the port); the CPU tests,
 scripts/runner_reference.py and scripts/colmap_runner_reference.py import
 them from this file.
@@ -125,6 +149,7 @@ them from this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -234,6 +259,50 @@ BA_TRACK_LEN = (2, 15)
 BA_COST_RATIO = 1e-2
 BA_LAYOUT_GAP = 0.05
 BA_LONG_TRACK = 200
+
+# the deep_front_end and megaloc_sift phases: the runner with the deep
+# configs on the runner phase's views and the seeded checkpoints of
+# write_deep_weights, once for each of DEEP_SEEDS (scene_optimizer.seed).
+# On these seeded nets the registered count, AUC@5 and valid pairs of both
+# runners move with RANSAC's draws, in both packages (PERF.md section 6,
+# PR 13), so each phase holds its medians over DEEP_SEEDS to the JAX
+# package's medians over the seeds of DEEP_REFERENCE (written by
+# scripts/deep_front_end_reference.py on the CPU: JAX 0.9.0, the same
+# folder and weights, pair_batch_size 16) with the runner phase's slack,
+# and DEEP_VALID_SLACK on the valid pairs. The seed does not move the front
+# end: at least DEEP_PAIR_SHARE of the retrieved pairs must be the
+# reference's (the card and XLA on the CPU order a near-tie of NetVLAD's
+# similarities their own way: 1 of deep_front_end's 390 pairs in a first
+# run; megaloc_sift's 213 were all equal), and on the common pairs each
+# pair's match count (LightGlue's, or the matcher kernel's) within
+# DEEP_MATCH_ABS + DEEP_MATCH_TOL of the reference's and their sum within
+# DEEP_MATCH_TOTAL_TOL of it (sums of bf16 products in another order move
+# the matches at the thresholds: in that run LightGlue's counts were 12
+# apart at worst, of 499, and 25 of 204,916 in sum; the matcher kernel's
+# 1 at worst, of 18, and 3 of 22,121)
+DEEP_REFERENCE = "scripts/deep_front_end_reference.json"
+DEEP_SEEDS = (0, 1, 2)
+DEEP_VALID_SLACK = 0.05  # of the reference's median valid pairs
+DEEP_PAIR_SHARE = 0.99
+DEEP_MATCH_ABS = 2
+DEEP_MATCH_TOL = 0.03
+DEEP_MATCH_TOTAL_TOL = 0.005
+LIGHTGLUE_HEADS = 4
+GLUE_LAUNCHES_PER_FORWARD = 36  # 9 layers x (2 self entries + 1 cross entry of 2 launches)
+DEEP_CPU_VIEWS = 4  # card against CPU: SuperPoint and MegaLoc on 4 views
+DEEP_CPU_PAIRS = 4  # and LightGlue on 4 pairs
+DEEP_COMPONENT_VIEWS = 2  # D2-Net, DISK and hloc NetVLAD on 2 views
+# card against CPU: the share of each image's valid keypoints found on both
+# (NMS ties, the top-K cut and D2-Net's equality tests on float32 features
+# move with the order of the sums: 2 of D2-Net's 327 keypoints of one view
+# in a first run on the card), and descriptor values (unit rows) to 4e-6:
+# float32 order alone left 3.8e-8 to 8.8e-7 (SuperPoint, NetVLAD, MegaLoc,
+# D2-Net, DISK, hloc NetVLAD), TF32 in cuDNN and matmuls 1.3e-5 (hloc
+# NetVLAD) to 4.0e-4 (DISK); each check also runs with TF32 on
+# (tf32_allowed), where it must fail
+DEEP_KEYPOINT_SHARE = 0.98
+DEEP_DESC_TOL = 4e-6
+MATCHER_SUBSET = 32  # pairs of the megaloc_sift chunk held against the plain matcher
 
 SPLAT_HW = (480, 640)  # the synthetic loader's default image size
 SPLAT_FOCAL = 600.0  # and focal length
@@ -376,6 +445,112 @@ def glue_fixture(seed: int = 0, dim: int = 256, num_layers: int = 9, num_heads: 
             sd[f"{la}.final_proj.weight"] = np.eye(dim, dtype=np.float32)
             sd[f"{la}.final_proj.bias"] = np.zeros(dim, np.float32)
     return sd
+
+
+def superpoint_fixture(seed: int = 0) -> dict:
+    """A SuperPoint state_dict in the MagicLeap layout (numpy float32) built
+    to act as a detector and descriptor without training: a test input,
+    not a trained model. PyTorch's default init gives every keypoint nearly
+    the same descriptor (the ReLU features share one positive mean), so
+    nothing matches; this one matches the runner's rendered views.
+
+    Every layer carries each feature twice, as itself and its negative
+    (2n channels for n features), so that the ReLU keeps its sign in one
+    half or the other: conv1a holds 32 zero-mean random 3x3 filters and
+    their negatives; every later 3x3 conv reads its input's features f =
+    (first half) - (second half) over the 3x3 neighbourhood through a
+    random Gaussian map (variance 1 / fan-in) and writes [g, -g]; convDb
+    projects convDa's 128 features to 256 dimensions, convPb scores them
+    into the 64 cell positions (gain 8) beside a zero dustbin. Every bias
+    is 0. The net is then blind to a brightness offset and to contrast
+    (the descriptors are unit rows) and odd in the image: its descriptors
+    are random projections of a neighbourhood's structure."""
+    from gtsfm_tpu_torch.frontend.detectors.superpoint import LAYERS
+
+    rng = np.random.default_rng(seed)
+
+    def signed(w):  # features (n_out, n_in, k, k) -> channels [g, -g] of inputs [f, -f]
+        return np.concatenate([np.concatenate([w, -w], axis=1), np.concatenate([-w, w], axis=1)])
+
+    def conv(n_in, n_out, k=3):
+        return signed(rng.standard_normal((n_out, n_in, k, k)) / np.sqrt(n_in * k * k))
+
+    f1 = rng.standard_normal((32, 1, 3, 3))
+    f1 = (f1 - f1.mean(axis=(1, 2, 3), keepdims=True)) / 3.0
+    w = {"conv1a": np.concatenate([f1, -f1]), "conv1b": conv(32, 32), "conv2a": conv(32, 32),
+         "conv2b": conv(32, 32), "conv3a": conv(32, 64), "conv3b": conv(64, 64), "conv4a": conv(64, 64),
+         "conv4b": conv(64, 64), "convDa": conv(64, 128)}
+    w["convDb"] = signed(rng.standard_normal((256, 128, 1, 1)) / np.sqrt(128))[:256]
+    w["convPa"] = conv(64, 128)
+    score = rng.standard_normal((65, 128, 1, 1)) * (8.0 / np.sqrt(128))
+    score[64] = 0.0
+    w["convPb"] = signed(score)[:65]
+    sd = {}
+    for name in LAYERS:
+        sd[f"{name}.weight"] = w[name].astype(np.float32)
+        sd[f"{name}.bias"] = np.zeros(w[name].shape[0], np.float32)
+    return sd
+
+
+def megaloc_fixture(seed: int = 0, options=None) -> dict:
+    """A MegaLoc state_dict in the megaloc.torch layout (numpy float32) at
+    ``options``' dims (MegaLocOptions() when None: ViT-B/14 at full width),
+    with the reference's ``init_params`` scales: linear and 1x1 weights
+    N(0, 1/fan_in), biases 0, norms and layer scales 1, the patch kernel,
+    class token and position embedding N(0, 0.02^2), dustbin 1. A test
+    input, not a trained model."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.global_descriptors.megaloc import MegaLocNet, MegaLocOptions
+
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):  # shapes without storage
+        shapes = {k: tuple(v.shape) for k, v in MegaLocNet(options or MegaLocOptions()).state_dict().items()}
+    sd = {}
+    for name, shape in shapes.items():
+        if name.endswith("bias"):
+            sd[name] = np.zeros(shape, np.float32)
+        elif "norm" in name or name.endswith("gamma") or name.endswith("dust_bin"):
+            sd[name] = np.ones(shape, np.float32)
+        elif name.endswith(("cls_token", "pos_embed", "patch_embed.proj.weight")):
+            sd[name] = (rng.standard_normal(shape, np.float32) * 0.02).astype(np.float32)
+        else:
+            sd[name] = (rng.standard_normal(shape, np.float32) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+    return sd
+
+
+def write_deep_weights(dirpath: str, names: tuple = ("superpoint", "lightglue", "megaloc")) -> dict:
+    """Write the deep front end's seeded checkpoints named in ``names``
+    under ``dirpath``: SuperPoint (``superpoint_fixture(0)``, the MagicLeap
+    layout), LightGlue (``glue_fixture(0)``, the official layout) and
+    MegaLoc (``megaloc_fixture(0)``, ViT-B/14 at full width, 915 MB).
+    Returns {name: path, "sumsq": {name: the sum of the squares of the
+    state_dict's values (float64)}, a checksum to print}."""
+    import os
+
+    import torch
+
+    out = {"sumsq": {}}
+    for name, fixture, file in (("superpoint", superpoint_fixture, "superpoint_v1.pth"),
+                                ("lightglue", glue_fixture, "superpoint_lightglue.pth"),
+                                ("megaloc", megaloc_fixture, "megaloc.torch")):
+        if name not in names:
+            continue
+        sd = fixture(0)
+        out[name] = os.path.join(dirpath, file)
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, out[name])
+        out["sumsq"][name] = float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
+    return out
+
+
+def deep_overrides(config_name: str, weights: dict) -> list:
+    """The runner's overrides that give a config the seeded checkpoints of
+    ``write_deep_weights`` (NetVLAD keeps its seeded init)."""
+    if config_name == "deep_front_end":
+        return [f"detector.weights_path={weights['superpoint']}", f"matcher.weights_path={weights['lightglue']}"]
+    if config_name == "megaloc_sift_frontend":
+        return [f"global_descriptor.weights_path={weights['megaloc']}"]
+    return []
 
 
 def splat_scene(center, n: int = SPLAT_GAUSSIANS, radius: float = 8.0, seed: int = 0) -> dict:
@@ -1998,6 +2173,545 @@ def phase_splat(R, t):
     return launches
 
 
+def _runner_once(tag: str, argv: list, out: str) -> dict:
+    """``gtsfm_tpu_torch.runner.main(argv + --output_root out)`` in this
+    process, with every launch count, the DoG-SIFT device count and
+    ``ba.layout_counts`` set to 0 just before and read just after, and the
+    peak device memory. A run whose back end failed has no pose metrics:
+    it counts 0 registered. Returns {"registered", "auc5", "pairs",
+    "valid", "sec", "launches", "detector", "peak_gib", "wall", "metrics",
+    "pair_list", "matches_per_pair"}: the last two per two-view pair, in
+    the order of the metrics."""
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.bundle import ba
+    from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup
+    from gtsfm_tpu_torch.frontend.detectors import dog_sift
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer
+    from gtsfm_tpu_torch.splat import rendering
+
+    two_view = SceneOptimizer._run_two_view
+    pair_list = []
+
+    def recorded(self, pairs, *args, **kwargs):
+        pair_list.extend(np.asarray(pairs).tolist())
+        return two_view(self, pairs, *args, **kwargs)
+
+    dog_sift.calls_by_device.clear()
+    ba.layout_counts.clear()
+    fused_matcher.launch_count = fused_attention.launch_count = rendering.launch_count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SceneOptimizer._run_two_view = recorded
+    t0 = time.perf_counter()
+    try:
+        rc = runner.main(argv + ["--output_root", out])
+        torch.cuda.synchronize()
+    finally:
+        SceneOptimizer._run_two_view = two_view
+    wall = time.perf_counter() - t0
+    launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
+                "composite": rendering.launch_count}
+    mdir = os.path.join(out, "results", "metrics")
+    metrics = {g.name: {m.name: m for m in g.metrics}
+               for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
+    if rc != 0 or "frontend_summary" not in metrics or "total_summary" not in metrics:
+        raise AssertionError(f"{tag}: exit code {rc}, metrics groups {sorted(metrics)}")
+    fe = {k: m.scalar for k, m in metrics["frontend_summary"].items() if m.dist is None}
+    pose = metrics.get("ba_pose_metrics", {})
+    sec = {k: fe[k] for k in ("detect_describe_sec", "retriever_duration_sec", "two_view_sec")}
+    sec["backend_sec"] = metrics["multiview_optimizer_metrics"]["backend_sec"].scalar
+    sec["total_runtime_sec"] = metrics["total_summary"]["total_runtime_sec"].scalar
+    return {"registered": len(pose["rotation_error_deg"].dist) if pose else 0,
+            "auc5": pose["pose_auc_@5.0_deg"].scalar if pose else 0.0,
+            "pairs": int(fe["num_pairs"]), "valid": int(fe["num_valid_pairs"]), "sec": sec, "launches": launches,
+            "detector": dict(dog_sift.calls_by_device), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "wall": wall, "metrics": metrics,
+            "pair_list": pair_list,
+            "matches_per_pair": metrics["frontend_summary"]["num_matches_per_pair"].dist.astype(int).tolist()}
+
+
+def _print_run(tag: str, res: dict, bars, smi: str) -> None:
+    """Print a _runner_once result; with ``bars`` (registered, AUC@5) hold
+    the run to them."""
+    kps = res["metrics"]["frontend_summary"]["num_keypoints_per_image"].dist
+    bar = f" (bars {bars[0]}, {bars[1]:.4f})" if bars else ""
+    print(f"{tag}: {res['registered']}/{NUM_CAMERAS} registered, pose AUC@5 {res['auc5']:.4f}{bar}, "
+          f"{res['pairs']} pairs ({res['valid']} valid), keypoints per image median "
+          f"{float(np.median(kps)):.0f} min {int(np.min(kps))} max {int(np.max(kps))}, launches {res['launches']}, "
+          f"DoG-SIFT calls by device {res['detector']}, peak device memory {res['peak_gib']:.2f} GiB", flush=True)
+    print(f"{tag} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in res["sec"].items())
+          + f" main {res['wall']:.3f} | {smi}", flush=True)
+    if bars and (res["registered"] < bars[0] or res["auc5"] < bars[1]):
+        raise AssertionError(f"{tag}: registered {res['registered']} (bar {bars[0]}), AUC@5 {res['auc5']:.4f} "
+                             f"(bar {bars[1]:.4f})")
+
+
+def deep_reference(config: str) -> dict:
+    """The JAX package's runs of ``config`` in DEEP_REFERENCE: the medians
+    over its seeds of registered, AUC@5 and valid pairs, the values by
+    seed, and the first run's pairs and per-pair match counts (the seed
+    moves neither)."""
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), DEEP_REFERENCE)) as f:
+        runs = [r for r in json.load(f)["runs"] if r["config"] == config]
+    by_seed = {"registered": [r["registered"] for r in runs], "auc5": [r["pose_auc_@5.0_deg"] for r in runs],
+               "valid": [r["num_valid_pairs"] for r in runs]}
+    seeds = [int(o.split("=")[1]) for r in runs for o in r["overrides"] if o.startswith("scene_optimizer.seed=")]
+    return {"seeds": seeds, "median": {k: float(np.median(v)) for k, v in by_seed.items()}, "by_seed": by_seed,
+            "pairs": runs[0]["pairs"], "matches": np.asarray(runs[0]["num_matches_per_pair"])}
+
+
+def _hold_to_reference(tag: str, runs: list, ref: dict) -> dict:
+    """The runs of a deep config, one for each of DEEP_SEEDS, against the
+    JAX package's (deep_reference): the first run (seed 0, as the
+    reference's first) holds at least DEEP_PAIR_SHARE of the reference's
+    pairs, and on the common pairs its match counts within
+    DEEP_MATCH_ABS + DEEP_MATCH_TOL each and DEEP_MATCH_TOTAL_TOL in sum
+    (relative); the medians of registered, AUC@5 and valid pairs within
+    the bars. Returns the medians, the pair share and the match counts'
+    differences."""
+    mine = dict(zip(map(tuple, runs[0]["pair_list"]), runs[0]["matches_per_pair"]))
+    theirs = dict(zip(map(tuple, ref["pairs"]), ref["matches"].tolist()))
+    common = [p for p in theirs if p in mine]
+    share = len(common) / max(len(theirs), len(mine))
+    got, want = np.asarray([mine[p] for p in common]), np.asarray([theirs[p] for p in common])
+    off = np.abs(got - want)
+    worst = int(np.argmax(off / (DEEP_MATCH_ABS + DEEP_MATCH_TOL * want)))
+    share_of_tol = float(off[worst] / (DEEP_MATCH_ABS + DEEP_MATCH_TOL * want[worst]))
+    total = abs(int(got.sum()) - int(want.sum())) / max(int(want.sum()), 1)
+    med = {k: float(np.median([r[k] for r in runs])) for k in ("registered", "auc5", "valid")}
+    bars = {"registered": ref["median"]["registered"] - RUNNER_REGISTERED_SLACK,
+            "auc5": ref["median"]["auc5"] - RUNNER_AUC5_SLACK,
+            "valid": ref["median"]["valid"] * (1.0 - DEEP_VALID_SLACK)}
+    print(f"{tag} against the JAX package: {len(common)} of its {len(theirs)} pairs retrieved ({share:.4f}, bar "
+          f"{DEEP_PAIR_SHARE}; only here {sorted(set(mine) - set(theirs))}, only there "
+          f"{sorted(set(theirs) - set(mine))}); matches on them {int(got.sum())} (the reference's {int(want.sum())}, "
+          f"{total:.5f} apart, tol {DEEP_MATCH_TOTAL_TOL}), {int((got == want).sum())} pairs equal, by pair at "
+          f"worst {int(got[worst])} against {int(want[worst])} ({share_of_tol:.3f} of the tolerance "
+          f"{DEEP_MATCH_ABS} + {DEEP_MATCH_TOL} of the reference's)", flush=True)
+    print(f"{tag} over seeds {DEEP_SEEDS}: registered {[r['registered'] for r in runs]}, AUC@5 "
+          f"{[round(r['auc5'], 4) for r in runs]}, valid {[r['valid'] for r in runs]}; medians "
+          + ", ".join(f"{k} {v:.4f} (bar {bars[k]:.4f})" for k, v in med.items())
+          + f"; the reference's over seeds {ref['seeds']}: registered {ref['by_seed']['registered']}, AUC@5 "
+          f"{[round(a, 4) for a in ref['by_seed']['auc5']]}, valid {ref['by_seed']['valid']}", flush=True)
+    if share < DEEP_PAIR_SHARE or share_of_tol > 1.0 or total > DEEP_MATCH_TOTAL_TOL:
+        raise AssertionError(f"{tag}: pairs {share:.4f} in common, match counts {share_of_tol:.3f} of the "
+                             f"tolerance apart at worst and {total:.5f} in sum")
+    low = [k for k in med if med[k] < bars[k]]
+    if low:
+        raise AssertionError(f"{tag}: medians {med} below the bars {bars} ({low})")
+    return {"median": med, "bars": bars, "pair_share": share, "match_share_of_tol": share_of_tol,
+            "match_rel_total": total}
+
+
+def _capture(module, names: tuple, store: dict):
+    """Wrap ``module``'s functions ``names`` so that each keeps the
+    arguments of its first call in ``store``; returns the function that
+    restores them. The wrapped calls run (and count) as before."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def f(*args, **kwargs):
+            store.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+        return f
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+    return restore
+
+
+def keypoints_agree(xy_a, m_a, d_a, xy_b, m_b, d_b, tol: float = 0.05) -> tuple:
+    """Two detections of one image (coordinates (K, 2), masks (K,),
+    descriptors (K, D), numpy): the share of the valid keypoints found in
+    both (a valid keypoint of the other within ``tol`` px) over the larger
+    valid count, and the largest descriptor difference over those pairs."""
+    from scipy.spatial import cKDTree
+
+    a, b = xy_a[m_a], xy_b[m_b]
+    if len(a) == 0 or len(b) == 0:
+        return float(len(a) == len(b)), 0.0
+    dist, j = cKDTree(b).query(a, distance_upper_bound=tol)
+    hit = np.isfinite(dist)
+    share = int(hit.sum()) / max(len(a), len(b))
+    err = float(np.abs(d_a[m_a][hit] - d_b[m_b][j[hit]]).max()) if hit.any() else 0.0
+    return share, err
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """Every ``precise()`` of the port turns TF32 on for matmuls and cuDNN
+    instead of off: the negative control of the card-against-CPU checks,
+    which must fail with it."""
+    import torch
+
+    from gtsfm_tpu_torch.utils import numerics
+
+    @contextlib.contextmanager
+    def loose():
+        flags = torch.backends.cuda.matmul, torch.backends.cudnn
+        prev = tuple(f.allow_tf32 for f in flags)
+        for f in flags:
+            f.allow_tf32 = True
+        try:
+            yield
+        finally:
+            for f, v in zip(flags, prev):
+                f.allow_tf32 = v
+
+    strict = numerics.precise
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("gtsfm_tpu_torch.") and getattr(m, "precise", None) is strict]
+    for m in mods:
+        m.precise = loose
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.precise = strict
+
+
+def _hold_detector(tag: str, det, images) -> dict:
+    """A registry detector on the card and on the CPU on the same images:
+    each image's valid keypoints in both >= DEEP_KEYPOINT_SHARE (the top-K
+    cut and NMS ties move with float32 order), descriptors of the common
+    ones within DEEP_DESC_TOL; the card run with TF32 on must fail that.
+    Returns the card call's seconds and the worst share and error, with
+    TF32 off and on."""
+    import torch
+
+    x = torch.as_tensor(images, device="cuda")
+    det.detect_batch(x)  # first call: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = det.detect_batch(x)
+    torch.cuda.synchronize()
+    card_sec = time.perf_counter() - t0
+    cpu = det.detect_batch(torch.as_tensor(images))
+    with tf32_allowed():
+        loose = det.detect_batch(x)
+
+    def held(got):
+        res = [keypoints_agree(*(a[b] for a in got), *(a[b] for a in cpu)) for b in range(len(images))]
+        return min(r[0] for r in res), max(r[1] for r in res)
+
+    (share, err), (share32, err32) = held(card), held(loose)
+    n_valid = [int(m.sum()) for m in card[1]]
+    print(f"{tag} card vs CPU on {len(images)} views at {images.shape[1]}x{images.shape[2]}: valid keypoints "
+          f"{n_valid}, worst share in both {share:.4f} (bar {DEEP_KEYPOINT_SHARE}), descriptors max |d| {err:.3g} "
+          f"(tol {DEEP_DESC_TOL}); with TF32 on {share32:.4f}, {err32:.3g}; card {card_sec:.4f} s a batch",
+          flush=True)
+    if share < DEEP_KEYPOINT_SHARE or err > DEEP_DESC_TOL or min(n_valid) == 0:
+        raise AssertionError(f"{tag}: the card and the CPU disagree (share {share:.4f}, descriptors {err:.3g})")
+    if share32 >= DEEP_KEYPOINT_SHARE and err32 <= DEEP_DESC_TOL:
+        raise AssertionError(f"{tag}: the check passes with TF32 on too (share {share32:.4f}, descriptors {err32:.3g})")
+    return {"card_sec": card_sec, "share": share, "desc_err": err, "valid": n_valid, "tf32_share": share32,
+            "tf32_desc_err": err32}
+
+
+def _hold_descriptor(tag: str, desc, images) -> dict:
+    """A global descriptor on the card and on the CPU: every value within
+    DEEP_DESC_TOL (unit rows); with TF32 on, not."""
+    import torch
+
+    x = torch.as_tensor(images, device="cuda")
+    desc.describe_batch(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = desc.describe_batch(x)
+    torch.cuda.synchronize()
+    card_sec = time.perf_counter() - t0
+    cpu = desc.describe_batch(torch.as_tensor(images))
+    with tf32_allowed():
+        loose = desc.describe_batch(x)
+    err, err32 = float(np.abs(card - cpu).max()), float(np.abs(loose - cpu).max())
+    print(f"{tag} card vs CPU on {len(images)} views: {card.shape[1]}-d, max |d| {err:.3g} (tol {DEEP_DESC_TOL}), "
+          f"with TF32 on {err32:.3g}; largest |value| {float(np.abs(cpu).max()):.3g}; card {card_sec:.4f} s a batch",
+          flush=True)
+    if err > DEEP_DESC_TOL or not np.isfinite(card).all():
+        raise AssertionError(f"{tag}: the card and the CPU disagree by {err:.3g}")
+    if err32 <= DEEP_DESC_TOL:
+        raise AssertionError(f"{tag}: the check passes with TF32 on too ({err32:.3g})")
+    return {"card_sec": card_sec, "err": err, "tf32_err": err32}
+
+
+def _attention_flops(q, mask_k, dh_total) -> float:
+    """Operations of one attention direction on this data: every query row
+    against the valid keys, q.k and p.v, 2 per multiply-add."""
+    return 4.0 * dh_total * q.shape[1] * float(mask_k.sum())
+
+
+def _attention_at_runner_shape(captured: dict, heads: int) -> dict:
+    """The merged self and cross entries on the inputs LightGlue gave them
+    in the runner (their first calls): kernel against plain
+    (attention_agrees), then each timed in turns with its plain version and
+    scaled_dot_product_attention (10 samples for the plain version at this
+    size). The bound counts this data's valid keys. Returns {entry:
+    {"err", "ratio", "kernel", "plain", "library", "bound", "shape"}}."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
+
+    out = {}
+    (q, k, v, h), kw = captured["fused_attention_merged"]
+    mask = kw.get("kv_mask")
+    (qk0, qk1, v0, v1, h2), kw2 = captured["fused_cross_attention_merged"]
+    m0, m1 = kw2.get("mask0"), kw2.get("mask1")
+    C = q.shape[-1]
+    cases = {
+        "fused_attention_merged": (lambda: [fa.fused_attention_merged(q, k, v, h, kv_mask=mask)],
+                                   lambda: [fa.attend_merged(q, k, v, h, mask)], [v],
+                                   attention_library(*(x.contiguous() for x in (q, k, q, v)), mask, mask,
+                                                     h)["fused_attention_merged"],
+                                   _attention_flops(q, mask, C),
+                                   4 * q.nbytes + mask.nbytes),
+        "fused_cross_attention_merged": (
+            lambda: list(fa.fused_cross_attention_merged(qk0, qk1, v0, v1, h2, m0, m1)),
+            lambda: list(fa.cross_attend_merged(qk0, qk1, v0, v1, h2, m0, m1)), [v1, v0],
+            attention_library(*(x.contiguous() for x in (qk0, qk1, v0, v1)), m0, m1,
+                              h2)["fused_cross_attention_merged"],
+            _attention_flops(qk0, m1, C) + _attention_flops(qk1, m0, C),
+            2 * (qk0.nbytes + qk1.nbytes + v0.nbytes + v1.nbytes) + m0.nbytes + m1.nbytes),
+    }
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    with precise():
+        for entry, (kern, plain, vs, lib, flops, nbytes) in cases.items():
+            got, want = kern(), plain()
+            res = [attention_agrees(g, w, vv) for g, w, vv in zip(got, want, vs)]
+            err, ratio = max(r[0] for r in res), max(r[1] for r in res)
+            del got, want
+            if ratio > 1.0 or not all(r[2] for r in res):
+                raise AssertionError(f"attention kernel disagrees at the runner's shape / {entry}: max abs err "
+                                     f"{err:.4g}, {ratio:.3f} of the tolerance")
+            bound = max((flops / PEAK_BF16 * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
+            calls = {"kernel": kern, "plain": plain, "library": lib}
+            runs = [(w, _median_ms(calls[w], reps=10, batch=1) if w == "plain" else _median_ms(calls[w]))
+                    for w in ("kernel", "library", "plain", "plain", "library", "kernel")]
+            ms = {w: float(np.median([t for kk, t in runs if kk == w])) for w in calls}
+            shape = f"P{q.shape[0]}_K{q.shape[1]}_{h}x{C // h}"
+            out[entry] = dict(ms, err=err, ratio=ratio, bound=bound, shape=shape, flops=flops)
+            print(f"attention at the runner's shape {shape} {entry}: max abs err {err:.4g} ({ratio:.3f} of the "
+                  f"tolerance) | kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+                  f"scaled_dot_product_attention {ms['library']:.4f} ms (median of samples, CUDA events, in "
+                  f"turns) | {flops / ms['kernel'] / 1e9:.1f} TFLOP/s on the valid keys, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), {bound[0] / ms['kernel']:.3f} of it | runs {runs}", flush=True)
+    return out
+
+
+def phase_deep_front_end(smi: str, data_dir: str) -> dict:
+    """The deep front end through the entry point on `cuda`:
+    ``gtsfm_tpu_torch.runner.main`` with ``deep_front_end`` (SuperPoint at
+    K=2048 on the 480x640 views, LightGlue at full width, NetVLAD, the
+    joint retriever, pair_batch_size 256) on the runner phase's Olsson
+    folder, with the seeded SuperPoint and LightGlue checkpoints by
+    ``weights_path`` (NetVLAD keeps its seeded init), cold and then warm:
+    36 attention launches per LightGlue forward, no matcher launch,
+    registered and AUC@5 within the JAX package's bars
+    (scripts/deep_front_end_reference.py); then the attention kernel on the
+    inputs LightGlue gave it in the warm run against its plain version and
+    timed; then the card against the CPU: SuperPoint on DEEP_CPU_VIEWS
+    views, NetVLAD on all 32, LightGlue on DEEP_CPU_PAIRS pairs (the
+    matches on every decisive row). Returns the warm run's results and the
+    attention timings."""
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch.frontend import registry
+    from gtsfm_tpu_torch.frontend.global_descriptors.descriptors import NetVLADDescriptor
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
+    from gtsfm_tpu_torch.frontend.matchers import lightglue
+    from gtsfm_tpu_torch.loader.olsson import OlssonLoader
+
+    with tempfile.TemporaryDirectory() as work:
+        weights = write_deep_weights(work, ("superpoint", "lightglue"))
+        netvlad = NetVLADDescriptor()
+        sumsq = dict(weights["sumsq"], netvlad=float(sum(v.double().square().sum()
+                                                            for v in netvlad.net.state_dict().values())))
+        print(f"deep_front_end weights: sums of squares {sumsq}", flush=True)
+        argv = ["--config_name", "deep_front_end", "--loader", "olsson", "--dataset_dirpath", data_dir] + \
+            deep_overrides("deep_front_end", weights)
+        forwards = [0]
+        orig = lightglue.LightGlueMatcher.log_assignment
+
+        def counted(self, *args, **kwargs):
+            forwards[0] += 1
+            return orig(self, *args, **kwargs)
+
+        captured = {}
+        results = {}
+        lightglue.LightGlueMatcher.log_assignment = counted
+        try:
+            for run, seed in [("cold", DEEP_SEEDS[0]), ("warm", DEEP_SEEDS[0])] + \
+                    [(f"seed {s}", s) for s in DEEP_SEEDS[1:]]:
+                forwards[0] = 0
+                restore = _capture(fa, ("fused_attention_merged", "fused_cross_attention_merged"),
+                                   captured) if run == "warm" else (lambda: None)
+                try:
+                    res = _runner_once(f"deep_front_end {run}", argv + [f"scene_optimizer.seed={seed}"],
+                                       os.path.join(work, run.replace(" ", "")))
+                finally:
+                    restore()
+                res["forwards"] = forwards[0]
+                _print_run(f"deep_front_end {run}", res, None, smi)
+                print(f"deep_front_end {run}: {forwards[0]} LightGlue forwards, {res['launches']['attention']} "
+                      f"attention launches ({GLUE_LAUNCHES_PER_FORWARD} a forward required)", flush=True)
+                if forwards[0] < -(-res["pairs"] // 256) or \
+                        res["launches"]["attention"] != GLUE_LAUNCHES_PER_FORWARD * forwards[0]:
+                    raise AssertionError(f"deep_front_end {run}: {res['launches']['attention']} attention launches "
+                                         f"for {forwards[0]} forwards over {res['pairs']} pairs")
+                if res["launches"]["matcher"] != 0:
+                    raise AssertionError(f"deep_front_end {run}: the mutual-NN kernel ran")
+                results[run] = res
+        finally:
+            lightglue.LightGlueMatcher.log_assignment = orig
+        held = _hold_to_reference("deep_front_end", [results["warm"]] + [results[f"seed {s}"] for s in DEEP_SEEDS[1:]],
+                                  deep_reference("deep_front_end"))
+        attn = _attention_at_runner_shape(captured, LIGHTGLUE_HEADS)
+        del captured
+        torch.cuda.empty_cache()
+
+        images, _sizes = OlssonLoader(data_dir).load_grayscale_batch()
+        det = registry.build_detector({"name": "superpoint", "max_keypoints": 2048,
+                                       "weights_path": weights["superpoint"]})
+        sp = _hold_detector("deep_front_end SuperPoint", det, images[:DEEP_CPU_VIEWS])
+        nv = _hold_descriptor("deep_front_end NetVLAD", netvlad, images)
+        xy, mask, desc = det.detect_batch(torch.as_tensor(images[: DEEP_CPU_PAIRS + 1], device="cuda"))
+        matcher = registry.build_matcher({"name": "lightglue", "weights_path": weights["lightglue"]})
+        i1, i2 = np.arange(DEEP_CPU_PAIRS), np.arange(1, DEEP_CPU_PAIRS + 1)
+        hw = images.shape[1:]
+        z = {}
+        for dev in ("cuda", "cpu"):
+            t = [torch.as_tensor(a, device=dev) for a in (desc[i1], desc[i2], xy[i1], xy[i2], mask[i1], mask[i2])]
+            z[dev] = matcher.log_assignment(*t, image_size=(hw[1], hw[0])).float().cpu()
+        m0, m1 = torch.as_tensor(mask[i1]), torch.as_tensor(mask[i2])
+        idx = {d: matcher._postprocess(z[d], m0, m1)[0] for d in z}
+        decisive = glue_decisive(z["cpu"], m0, m1, matcher.options.match_threshold)
+        bad = int((decisive & (idx["cuda"] != idx["cpu"])).sum())
+        valid = torch.nn.functional.pad(m0, (0, 1), value=True)[:, :, None] & \
+            torch.nn.functional.pad(m1, (0, 1), value=True)[:, None, :]
+        zerr = float(torch.where(valid, (z["cuda"] - z["cpu"]).abs(), 0.0).max())
+        print(f"deep_front_end LightGlue card vs CPU on {DEEP_CPU_PAIRS} pairs of SuperPoint keypoints: "
+              f"log-assignment max |d| {zerr:.4g}; {int(decisive.sum())} decisive rows (gap {GLUE_GAP}), {bad} "
+              f"differ; {int((idx['cuda'] >= 0).sum())} matches on the card, {int((idx['cpu'] >= 0).sum())} on "
+              f"the CPU", flush=True)
+        if bad or int(decisive.sum()) == 0:
+            raise AssertionError(f"LightGlue's matches on the card differ from the CPU's on {bad} of "
+                                 f"{int(decisive.sum())} decisive rows")
+    return {"warm": results["warm"], "cold": results["cold"], "attention": attn, "superpoint": sp, "netvlad": nv,
+            "lightglue_z_err": zerr, "held": held}
+
+
+def phase_megaloc_sift(smi: str, data_dir: str) -> dict:
+    """``gtsfm_tpu_torch.runner.main`` with ``megaloc_sift_frontend`` on
+    `cuda` (MegaLoc ViT-B/14 at 322x322 from the seeded megaloc.torch by
+    ``global_descriptor.weights_path``, DoG-SIFT at K=5000, the similarity
+    retriever at 10, the two-view batch through the matcher kernel) on the
+    runner phase's folder, once for each of DEEP_SEEDS: DoG-SIFT on
+    `cuda` only, matcher launches, no attention launch in each run; the
+    pairs, each pair's match count and the medians held to the JAX
+    package's (_hold_to_reference); then the matcher kernel on the inputs
+    of the first run's first chunk: held
+    against its plain version and timed on its first MATCHER_SUBSET pairs
+    (the plain version's (P, K, K) similarity at the whole chunk would take
+    25.6 GB), the kernel alone also on the whole chunk; MegaLoc on the card
+    against the CPU on DEEP_CPU_VIEWS views."""
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch.frontend import registry, two_view
+    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+    from gtsfm_tpu_torch.loader.olsson import OlssonLoader
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    with tempfile.TemporaryDirectory() as work:
+        weights = write_deep_weights(work, ("megaloc",))
+        print(f"megaloc_sift weights: sums of squares {weights['sumsq']}", flush=True)
+        argv = ["--config_name", "megaloc_sift_frontend", "--loader", "olsson", "--dataset_dirpath", data_dir] + \
+            deep_overrides("megaloc_sift_frontend", weights)
+        captured = {}
+        runs = []
+        for seed in DEEP_SEEDS:
+            restore = _capture(two_view, ("fused_match_descriptors",), captured) if not runs else (lambda: None)
+            try:
+                res = _runner_once(f"megaloc_sift seed {seed}", argv + [f"scene_optimizer.seed={seed}"],
+                                   os.path.join(work, f"out{seed}"))
+            finally:
+                restore()
+            _print_run(f"megaloc_sift seed {seed}", res, None, smi)
+            if set(res["detector"]) != {"cuda"} or res["launches"]["matcher"] < 1 or res["launches"]["attention"]:
+                raise AssertionError(f"megaloc_sift: DoG-SIFT ran on {res['detector']}, launches {res['launches']}")
+            runs.append(res)
+        held = _hold_to_reference("megaloc_sift", runs, deep_reference("megaloc_sift_frontend"))
+        res = runs[0]
+
+        (a, b, ma, mb), _kw = captured["fused_match_descriptors"]
+        del captured
+        n = min(MATCHER_SUBSET, a.shape[0])
+        sa, sb, sma, smb = (x[:n].contiguous() for x in (a, b, ma, mb))
+        with precise():
+            got = fused_matcher.fused_match_descriptors(sa, sb, sma, smb)
+            want = match_descriptors(sa, sb, sma, smb)
+            err, n_dec, bad = kernel_agrees(got, want, sa, sb, sma, smb)
+        name = f"P{n}_K{a.shape[1]}_D{a.shape[2]}"
+        print(f"kernel check {name} (the megaloc_sift run's first chunk): max|best| err {err:.3g}, {n_dec} decisive "
+              f"rows agree, {int(got[1].sum())} matches", flush=True)
+        if err > KERNEL_TOL_BEST or bad or n_dec == 0:
+            raise AssertionError(f"kernel disagrees on {name}: max|best| err {err:.3g}, {bad}/{n_dec} decisive "
+                                 f"rows differ")
+        del got, want
+        torch.cuda.empty_cache()
+        ms, bound = _time_matcher(name, sa, sb, sma, smb)
+        with precise():
+            full_ms = _graph_ms(lambda: fused_matcher.fused_match_descriptors(a, b, ma, mb))
+        P, K1, D = a.shape
+        full_bound = max((2.0 * P * K1 * b.shape[1] * D / PEAK_BF16 * 1e3, "operations"),
+                         ((a.nbytes + b.nbytes + ma.nbytes + mb.nbytes + P * K1 * 9) / PEAK_BYTES * 1e3, "bytes"))
+        print(f"kernel timing P{P}_K{K1}_D{D} (the whole chunk, a CUDA graph of {TIMING_BATCH} calls): "
+              f"{full_ms:.4f} ms, bound {full_bound[0]:.4f} ms ({full_bound[1]}), {full_bound[0] / full_ms:.3f} of it",
+              flush=True)
+        del a, b, ma, mb
+        torch.cuda.empty_cache()
+
+        images, _sizes = OlssonLoader(data_dir).load_grayscale_batch()
+        ml = registry.build_global_descriptor({"name": "megaloc", "weights_path": weights["megaloc"]})
+        megaloc = _hold_descriptor("megaloc_sift MegaLoc", ml, images[:DEEP_CPU_VIEWS])
+    return {"run": res, "runs": runs, "err": err, "ms": ms, "bound": bound, "shape": name, "full_ms": full_ms,
+            "full_bound": full_bound, "full_shape": f"P{P}_K{K1}_D{D}", "megaloc": megaloc, "held": held}
+
+
+def phase_deep_components(data_dir: str) -> dict:
+    """D2-Net, DISK and hloc's VGG16-NetVLAD at full width (their seeded
+    inits, through the registry) on the first DEEP_COMPONENT_VIEWS views of
+    the runner phase's folder at 480x640, each on the card against the
+    CPU: keypoints and descriptors as for SuperPoint, the NetVLAD rows
+    within DEEP_DESC_TOL."""
+    from gtsfm_tpu_torch.frontend import registry
+    from gtsfm_tpu_torch.loader.olsson import OlssonLoader
+
+    images, _sizes = OlssonLoader(data_dir).load_grayscale_batch(indices=list(range(DEEP_COMPONENT_VIEWS)))
+    out = {}
+    for name in ("d2net", "disk"):
+        out[name] = _hold_detector(f"deep_components {name}", registry.build_detector({"name": name}), images)
+    out["hloc_netvlad"] = _hold_descriptor("deep_components hloc_netvlad",
+                                           registry.build_global_descriptor({"name": "hloc_netvlad"}), images)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2042,8 +2756,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         runner_launches, runner_dir, runner_views = timed("runner", phase_runner, smi, R, t, work)
         options_launches = timed("runner_options", phase_runner_options, smi, runner_dir, runner_views)
-    colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
-    comp_launches = timed("splat", phase_splat, R, t)
+        colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
+        comp_launches = timed("splat", phase_splat, R, t)
+        deep = timed("deep_front_end", phase_deep_front_end, smi, runner_dir)
+        megaloc = timed("megaloc_sift", phase_megaloc_sift, smi, runner_dir)
+        timed("deep_components", phase_deep_components, runner_dir)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
 
     print(smi, flush=True)
@@ -2053,11 +2770,12 @@ def main() -> int:
         "source": "gtsfm_tpu_torch/csrc/fused_matcher.cu",
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
         "shape": "P64_K2048_D128",
-        "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"],
+        "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"]
+        + sum(r["launches"]["matcher"] for r in megaloc["runs"]),
         "runner_launches": runner_launches["matcher"],
         "runner_options_launches": options_launches["matcher"],
         "colmap_runner_launches": colmap_launches["matcher"],
-        "max_abs_err": max(err, err_runner),
+        "max_abs_err": max(err, err_runner, megaloc["err"]),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
         "device_ms": ms["device"],
@@ -2067,6 +2785,12 @@ def main() -> int:
         "slice": {"shape": "P96_K1024_D128", "launches": slice_launches, "ms": ms_slice["kernel"],
                   "plain_ms": ms_slice["plain"], "device_ms": ms_slice["device"], "bound_ms": bound_slice[0],
                   "bound_by": bound_slice[1]},
+        "megaloc_sift": {"shape": megaloc["shape"], "launches": sum(r["launches"]["matcher"] for r in megaloc["runs"]),
+                         "max_abs_err": megaloc["err"], "ms": megaloc["ms"]["kernel"],
+                         "plain_ms": megaloc["ms"]["plain"], "device_ms": megaloc["ms"]["device"],
+                         "bound_ms": megaloc["bound"][0], "bound_by": megaloc["bound"][1], "library_ms": None,
+                         "chunk": {"shape": megaloc["full_shape"], "device_ms": megaloc["full_ms"],
+                                   "bound_ms": megaloc["full_bound"][0], "bound_by": megaloc["full_bound"][1]}},
     }, {
         "name": "fused_attention",
         "route": "cuda",
@@ -2074,13 +2798,27 @@ def main() -> int:
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_attention.py:127",
         "also_replaces": ["gtsfm_tpu/frontend/matchers/pallas_attention.py:99",
                           "gtsfm_tpu/frontend/matchers/pallas_attention.py:29"],
-        "launches": attn_launches,
-        "max_abs_err": attn_err,
-        "ms": attn_ms["fused_attention_merged"]["kernel"],
-        "plain_ms": attn_ms["fused_attention_merged"]["plain"],
-        "bound_ms": attn_bound[0],
-        "bound_by": attn_bound[1],
-        "library_ms": attn_ms["fused_attention_merged"]["library"],
+        "shape": deep["attention"]["fused_attention_merged"]["shape"],
+        "launches": deep["warm"]["launches"]["attention"],
+        "lightglue_forwards": deep["warm"]["forwards"],
+        "max_abs_err": max([attn_err] + [e["err"] for e in deep["attention"].values()]),
+        "ms": deep["attention"]["fused_attention_merged"]["kernel"],
+        "plain_ms": deep["attention"]["fused_attention_merged"]["plain"],
+        "bound_ms": deep["attention"]["fused_attention_merged"]["bound"][0],
+        "bound_by": deep["attention"]["fused_attention_merged"]["bound"][1],
+        "library_ms": deep["attention"]["fused_attention_merged"]["library"],
+        "entries": {e: {"replaces": r, "max_abs_err": v["err"], "ms": v["kernel"], "plain_ms": v["plain"],
+                        "bound_ms": v["bound"][0], "bound_by": v["bound"][1], "library_ms": v["library"]}
+                    for (e, v), r in zip(deep["attention"].items(),
+                                         ("gtsfm_tpu/frontend/matchers/pallas_attention.py:127",
+                                          "gtsfm_tpu/frontend/matchers/pallas_attention.py:99"))},
+        "slice": {"shape": "P96_K2048_4x64", "launches": attn_launches, "max_abs_err": attn_err,
+                  "ms": attn_ms["fused_attention_merged"]["kernel"],
+                  "plain_ms": attn_ms["fused_attention_merged"]["plain"],
+                  "bound_ms": attn_bound[0], "bound_by": attn_bound[1],
+                  "library_ms": attn_ms["fused_attention_merged"]["library"],
+                  "split_layout_ms": attn_ms["fused_attention"]["kernel"],
+                  "split_layout_library_ms": attn_ms["fused_attention"]["library"]},
     }, {
         "name": "splat_composite",
         "route": "cuda",

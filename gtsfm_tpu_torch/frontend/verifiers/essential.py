@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from gtsfm_tpu_torch.geometry import so3
+from gtsfm_tpu_torch.utils import numerics
 from gtsfm_tpu_torch.utils.numerics import (
     counter_uniform,
     jacobian_fwd,
@@ -68,14 +69,14 @@ def _normal_matrix(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch
 
 def _project_essential(E: torch.Tensor) -> torch.Tensor:
     """Singular values (1, 1, 0)."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = numerics.svd(E)
     S = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
     return mm(U * S, Vt)
 
 
 def _eight_point(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact weighted 8-point (eigh) with manifold projection."""
-    _, vecs = torch.linalg.eigh(_normal_matrix(x1, x2, w))
+    _, vecs = numerics.eigh(_normal_matrix(x1, x2, w))
     return _project_essential(vecs[..., :, 0].unflatten(-1, (3, 3)))
 
 
@@ -113,7 +114,7 @@ def _triangulate_midpoint(R, t, x1, x2):
 def recover_pose_from_essential(E, x1, x2, w):
     """The four (R, t) decompositions of E (..., 3, 3), picked by a
     weighted cheirality vote. Returns (i2Ri1 (..., 3, 3), i2Ui1 (..., 3))."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = numerics.svd(E)
     U = U * torch.sign(torch.linalg.det(U))[..., None, None]
     Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
     W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype, device=E.device)

@@ -23,6 +23,7 @@ import torch
 
 from gtsfm_tpu_torch.frontend.verifiers.essential import _homog, _normal_matrix
 from gtsfm_tpu_torch.geometry import so3
+from gtsfm_tpu_torch.utils import numerics
 from gtsfm_tpu_torch.utils.numerics import counter_uniform, mm, nullvec_pinned, precise
 
 # stage tags of the counter-based random streams (essential.py uses 1-2,
@@ -62,7 +63,7 @@ def _hartley_normalize(x: torch.Tensor, w: torch.Tensor):
 
 
 def _rank2(F: torch.Tensor) -> torch.Tensor:
-    U, S, Vt = torch.linalg.svd(F)
+    U, S, Vt = numerics.svd(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
     return mm(U * S[..., None, :], Vt)
 
@@ -184,7 +185,7 @@ def ransac_fundamental(
         err = _sampson_f(F, x1n, x2n)
         inl = mask & (err < thresh2[:, None] * mult**2)
         w_soft = inl.to(uv1.dtype) / (1.0 + err / torch.clamp(thresh2[:, None], min=1e-20))
-        _, vecs = torch.linalg.eigh(_normal_matrix(x1n, x2n, w_soft))
+        _, vecs = numerics.eigh(_normal_matrix(x1n, x2n, w_soft))
         F_new = _rank2(vecs[..., :, 0].unflatten(-1, (3, 3)))
         better = count(F_new) >= (mask & (err < thresh2[:, None])).sum(-1)
         return torch.where(better[:, None, None], F_new, F)
@@ -228,7 +229,7 @@ def _degensac_recover(x1n, x2n, mask, F, thresh2, h_ratio, u_h, u_pp):
     for _ in range(3):
         e_c = _h_transfer_err(H, x1n, x2n)
         w_c = torch.where(f_inl, torch.clamp(1.0 - e_c / t2, min=0.0), torch.zeros_like(e_c))
-        _, vecs = torch.linalg.eigh(_h_normal_matrix(x1n, x2n, w_c))
+        _, vecs = numerics.eigh(_h_normal_matrix(x1n, x2n, w_c))
         H_new = vecs[..., :, 0].unflatten(-1, (3, 3))
         n_new = (f_inl & (_h_transfer_err(H_new, x1n, x2n) < t2)).sum(-1)
         n_old = (f_inl & (e_c < t2)).sum(-1)
@@ -268,7 +269,7 @@ def _degensac_recover(x1n, x2n, mask, F, thresh2, h_ratio, u_h, u_pp):
         w_l = torch.where(off[:, None], torch.clamp(1.0 - err_c / thresh2[:, None, None], min=0.0),
                           torch.zeros_like(err_c))
         L = torch.einsum("pki,pck,pkj->pcij", lines, w_l, lines)
-        _, vecs = torch.linalg.eigh(L)
+        _, vecs = numerics.eigh(L)
         F_new, _ = from_epipole(vecs[..., :, 0])
         better = (off_msac(F_new) >= off_msac(F_c)) & ((w_l > 0).sum(-1) >= 2)
         return torch.where(better[..., None, None], F_new, F_c)
@@ -298,7 +299,7 @@ def _degensac_recover(x1n, x2n, mask, F, thresh2, h_ratio, u_h, u_pp):
 def fundamental_to_essential(F: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor) -> torch.Tensor:
     """E = K2^T F K1 (..., 3, 3) projected to the essential manifold."""
     E = mm(mm(K2.transpose(-1, -2), F), K1)
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = numerics.svd(E)
     S = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
     return mm(U * S, Vt)
 

@@ -6,6 +6,18 @@ Port of gtsfm_tpu/runner.py, with the same flags:
         --loader olsson --dataset_dirpath <dir> [--output_root <out>] \\
         [scene_optimizer.device=cpu mvo.ba.max_iterations=50 ...]
 
+The named configs are the port's copies in configs/: ``unified`` (the
+default: DoG-SIFT, the fused mutual-NN matcher, the tiny descriptor),
+``deep_front_end`` (SuperPoint, LightGlue, NetVLAD, the joint retriever),
+``megaloc_sift_frontend`` (MegaLoc retrieval, DoG-SIFT at K=5000),
+``onedsfm_front_end`` (NetVLAD retrieval, DoG-SIFT), and the others there.
+A learned net takes its checkpoint by override
+(``detector.weights_path=superpoint_v1.pth``,
+``matcher.weights_path=superpoint_lightglue.pth``,
+``global_descriptor.weights_path=megaloc.torch``); without one it runs on
+its seeded random init. The registry also builds the ``d2net`` and
+``disk`` detectors and the ``hloc_netvlad`` descriptor.
+
 The run goes to the CUDA card unless an override sets
 ``scene_optimizer.device=cpu``. ``--loader olsson`` and ``--loader colmap``
 work, as do ``--run_gs`` and ``--hierarchical``. The flags whose modules

@@ -1,9 +1,10 @@
 """SceneOptimizer: top-level orchestration of a reconstruction.
 
 Port of gtsfm_tpu/scene/scene_optimizer.py, ``_run_impl`` and
-``_finalize``: load -> detect (the default DoG-SIFT, or the detector slot)
-and describe globally (the tiny descriptor, when the retriever ranks by
-similarity), or generate correspondences (the synthetic direct branch) ->
+``_finalize``: load -> detect (the default DoG-SIFT, or the detector slot:
+SuperPoint, D2-Net, DISK) and describe globally (the tiny descriptor, or
+the global-descriptor slot: NetVLAD, hloc NetVLAD, MegaLoc, when the
+retriever ranks by similarity), or generate correspondences (the synthetic direct branch) ->
 retrieve pairs -> chunked batched two-view estimation -> bridge
 reconnection -> MultiViewOptimizer, or with ``hierarchical`` the
 partitioned back end (METIS partition, per-cluster MVO, Sim3 merges with

@@ -159,3 +159,118 @@ def lightglue_state_dict(params) -> dict:
         for name in ("final_proj", "matchability"):
             dense(f"log_assignment.{i}.{name}", params["assign"][name])
     return sd
+
+
+# ---- the deep front end's nets: the reference's flax params (numpy leaves)
+# -> the port's state_dicts. Flax convs are (kh, kw, I, O), torch's (O, I,
+# kh, kw); flax Dense kernels are (in, out), torch Linear weights (out, in).
+
+
+def _f32(a) -> torch.Tensor:
+    return tensor(np.asarray(a), dtype=torch.float32)
+
+
+def _put_conv(sd: dict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _f32(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{key}.bias"] = _f32(p["bias"])
+
+
+def superpoint_state_dict(params) -> dict:
+    """``SuperPointNet``'s params -> the MagicLeap-layout state_dict."""
+    from gtsfm_tpu_torch.frontend.detectors.superpoint import LAYERS
+
+    sd = {}
+    for name in LAYERS:
+        _put_conv(sd, name, params[name])
+    return sd
+
+
+def netvlad_state_dict(params) -> dict:
+    """``NetVLADNet``'s params -> the port's ``NetVLADNet`` state_dict."""
+    sd = {}
+    for name in ("conv1", "conv2", "conv3", "conv4"):
+        _put_conv(sd, name, params[name])
+    sd["centers"] = _f32(params["centers"])
+    for name in ("assign", "proj"):
+        sd[f"{name}.weight"] = _f32(np.asarray(params[name]["kernel"]).T)
+        sd[f"{name}.bias"] = _f32(params[name]["bias"])
+    return sd
+
+
+def hloc_netvlad_state_dict(params) -> dict:
+    """``NetVLADVGG16``'s params -> hloc's checkpoint layout."""
+    from gtsfm_tpu_torch.frontend.global_descriptors.descriptors import VGG16_CONV_IDS
+
+    sd = {}
+    for i in VGG16_CONV_IDS:
+        _put_conv(sd, f"backbone.{i}", params[f"conv{i}"])
+    sd["netvlad.score_proj.weight"] = _f32(np.asarray(params["score_proj"]["kernel"]).T[:, :, None])
+    sd["netvlad.centers"] = _f32(params["centers"])
+    sd["whiten.weight"] = _f32(np.asarray(params["whiten"]["kernel"]).T)
+    sd["whiten.bias"] = _f32(params["whiten"]["bias"])
+    return sd
+
+
+def megaloc_state_dict(params) -> dict:
+    """MegaLoc's param tree (``init_params`` / ``load_torch_weights``) ->
+    the megaloc.torch layout."""
+    sd = {}
+    bb, pre = params["backbone"], "backbone.model."
+
+    def linear(key, kernel, bias):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(np.asarray(kernel).T), _f32(bias)
+
+    def norm(key, p):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(p["scale"]), _f32(p["bias"])
+
+    sd[pre + "cls_token"] = _f32(bb["cls_token"])
+    sd[pre + "pos_embed"] = _f32(bb["pos_embed"])
+    sd[pre + "patch_embed.proj.weight"] = _f32(np.asarray(bb["patch_kernel"]).transpose(3, 2, 0, 1))
+    sd[pre + "patch_embed.proj.bias"] = _f32(bb["patch_bias"])
+    for i, blk in enumerate(bb["blocks"]):
+        b = f"{pre}blocks.{i}."
+        norm(b + "norm1", blk["norm1"])
+        linear(b + "attn.qkv", blk["attn"]["qkv_kernel"], blk["attn"]["qkv_bias"])
+        linear(b + "attn.proj", blk["attn"]["proj_kernel"], blk["attn"]["proj_bias"])
+        sd[b + "ls1.gamma"] = _f32(blk["ls1"])
+        norm(b + "norm2", blk["norm2"])
+        linear(b + "mlp.fc1", blk["mlp"]["fc1_kernel"], blk["mlp"]["fc1_bias"])
+        linear(b + "mlp.fc2", blk["mlp"]["fc2_kernel"], blk["mlp"]["fc2_bias"])
+        sd[b + "ls2.gamma"] = _f32(blk["ls2"])
+    norm(pre + "norm", bb["norm"])
+    agg, salad = "aggregator.agg.", params["salad"]
+    linear(agg + "token_features.0", salad["token"]["fc1_kernel"], salad["token"]["fc1_bias"])
+    linear(agg + "token_features.2", salad["token"]["fc2_kernel"], salad["token"]["fc2_bias"])
+    for name, key in (("cluster", "cluster_features"), ("score", "score")):
+        for src, dst in (("fc1", "0"), ("fc2", "3")):
+            linear(f"{agg}{key}.{dst}", salad[name][f"{src}_kernel"], salad[name][f"{src}_bias"])
+            sd[f"{agg}{key}.{dst}.weight"] = sd[f"{agg}{key}.{dst}.weight"][:, :, None, None]
+    sd[agg + "dust_bin"] = _f32(salad["dust_bin"])
+    linear("aggregator.linear", params["linear"]["kernel"], params["linear"]["bias"])
+    return sd
+
+
+def d2net_state_dict(params) -> dict:
+    """``D2NetTrunk``'s params -> the d2net checkpoint layout."""
+    from gtsfm_tpu_torch.frontend.detectors.d2net import CONV_IDS
+
+    sd = {}
+    for i in CONV_IDS:
+        _put_conv(sd, f"dense_feature_extraction.model.{i}", params[f"conv{i}"])
+    return sd
+
+
+def disk_state_dict(params) -> dict:
+    """DISK's param tree (``init_params`` / ``load_torch_weights``) -> the
+    DISK U-Net layout."""
+    sd = {}
+    for k, blk in enumerate(params["down"]):
+        if k == 0:
+            _put_conv(sd, "unet.path_down.0.1.0", blk)
+        else:
+            sd[f"unet.path_down.{k}.1.1.weight"] = _f32(blk["slope"])
+            _put_conv(sd, f"unet.path_down.{k}.1.2", blk)
+    for j, blk in enumerate(params["up"]):
+        sd[f"unet.path_up.{j}.conv.1.weight"] = _f32(blk["slope"])
+        _put_conv(sd, f"unet.path_up.{j}.conv.2", blk)
+    return sd

@@ -53,6 +53,31 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _nan_where_nonfinite(M: torch.Tensor):
+    """(M with its non-finite matrices zeroed, a NaN-or-0 offset per matrix)."""
+    bad = ~torch.isfinite(M).flatten(-2).all(-1)
+    return torch.where(bad[..., None, None], 0.0, M), torch.where(bad, torch.nan, 0.0).to(M.dtype)
+
+
+def svd(M: torch.Tensor):
+    """``torch.linalg.svd`` (reduced) with ``jnp.linalg.svd``'s answer for a
+    matrix that holds a NaN or an infinity: NaN factors, where torch raises.
+    The two-view batch meets such matrices on pairs with one or two matches
+    (every minimal set repeats a point); the reference marks those pairs
+    invalid and goes on."""
+    M, nan = _nan_where_nonfinite(M)
+    U, S, Vh = torch.linalg.svd(M)
+    return U + nan[..., None, None], S + nan[..., None], Vh + nan[..., None, None]
+
+
+def eigh(M: torch.Tensor):
+    """``torch.linalg.eigh`` with NaN eigenpairs for a matrix that holds a
+    NaN or an infinity, as ``jnp.linalg.eigh`` gives (see ``svd``)."""
+    M, nan = _nan_where_nonfinite(M)
+    w, V = torch.linalg.eigh(M)
+    return w + nan[..., None], V + nan[..., None, None]
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Matmul for small geometry matrices (float32; callers run under
     ``precise()``)."""

@@ -7,7 +7,11 @@ launch), on the merge's compacted BA (``run_compact``) and on DoG-SIFT
 layouts against each other and the CPU, the dense layout's fallback to
 entry past 128 views, and Cal3DS2's calibrate against the CPU; the
 two-view checks (the batched homography RANSAC on draws made on the card,
-LMedS votes, the information spectrum) on the card against the CPU.
+LMedS votes, the information spectrum) on the card against the CPU; the
+deep front end's nets (SuperPoint, D2-Net, DISK, NetVLAD, hloc NetVLAD,
+MegaLoc, on their seeded inits) on the card against the CPU, with
+chip_smoke's DEEP_KEYPOINT_SHARE and DEEP_DESC_TOL, and RANSAC on a
+one-match pair (NaN hypotheses) without a raise.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -49,11 +53,14 @@ import torch
 from chip_smoke import (
     COMPOSITE_TOL,
     COMPOSITE_TOL_STOP,
+    DEEP_DESC_TOL,
+    DEEP_KEYPOINT_SHARE,
     KERNEL_TOL_BEST,
     attention_agrees,
     attention_entries,
     composite_plain,
     kernel_agrees,
+    keypoints_agree,
 )
 from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
 from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
@@ -773,3 +780,75 @@ def test_lmeds_votes_and_spectrum_on_the_card_equal_the_cpu():
     mn_h, mx_h = essential_information_spectrum(*args)
     assert ((mn_c.cpu() - mn_h).abs() <= 1e-4 * mx_h).all()
     assert ((mx_c.cpu() - mx_h).abs() <= 1e-4 * mx_h).all()
+
+
+def _smooth_images(n: int, hw: tuple, seed: int) -> np.ndarray:
+    x = torch.as_tensor(np.random.default_rng(seed).uniform(0, 1, (n,) + hw).astype(np.float32))
+    return torch.nn.functional.avg_pool2d(x[:, None], 5, stride=1, padding=2, count_include_pad=False)[:, 0].numpy()
+
+
+# D2-Net keeps a pixel whose feature equals both its channel maximum and its
+# 3x3 maximum, so float32 order decides ties: the card's order moved 4 of
+# the first image's 189 keypoints below (0.9788) in a first run on the card
+D2NET_KEYPOINT_SHARE = 0.97
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["superpoint", "d2net", "disk"])
+def test_deep_detectors_on_the_card_find_the_cpus_keypoints(name):
+    """Each detector through the registry (its seeded init) on two 240x320
+    images: on each image at least DEEP_KEYPOINT_SHARE (D2-Net:
+    D2NET_KEYPOINT_SHARE) of the valid keypoints found on both devices (NMS
+    ties and the top-K cut move with float32 order), their descriptors
+    within DEEP_DESC_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend import registry
+
+    det = registry.build_detector({"name": name, "max_keypoints": 1024})
+    x = _smooth_images(2, (240, 320), 0)
+    card = det.detect_batch(torch.as_tensor(x, device="cuda"))
+    host = det.detect_batch(torch.as_tensor(x))
+    for b in range(2):
+        assert card[1][b].sum() > 0
+        share, err = keypoints_agree(*(a[b] for a in card), *(a[b] for a in host))
+        bar = D2NET_KEYPOINT_SHARE if name == "d2net" else DEEP_KEYPOINT_SHARE
+        assert share >= bar and err <= DEEP_DESC_TOL, (share, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["netvlad", "hloc_netvlad", "megaloc"])
+def test_global_descriptors_on_the_card_equal_the_cpu(name):
+    """Each global descriptor through the registry (its seeded init, full
+    width) on two 240x320 images: unit rows within DEEP_DESC_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend import registry
+
+    desc = registry.build_global_descriptor({"name": name})
+    x = _smooth_images(2, (240, 320), 1)
+    card = desc.describe_batch(torch.as_tensor(x, device="cuda"))
+    host = desc.describe_batch(torch.as_tensor(x))
+    assert np.isfinite(card).all() and np.abs(card - host).max() <= DEEP_DESC_TOL
+
+
+@pytest.mark.cuda
+def test_ransac_on_a_one_match_pair_runs_on_the_card():
+    """A pair whose minimal sets repeat its one match gives NaN hypotheses:
+    numerics.svd / eigh turn them into NaN factors on the card as on the
+    CPU, where torch's own would raise; the pair comes out unsuccessful."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend.verifiers.essential import ransac_essential
+
+    rng = np.random.default_rng(0)
+    x1 = torch.as_tensor((rng.normal(size=(2, 16, 2)) * 0.3).astype(np.float32))
+    x2 = torch.as_tensor((rng.normal(size=(2, 16, 2)) * 0.3).astype(np.float32))
+    x1[0, 0] = torch.tensor([-0.2633333206176758, -0.03166666626930237])
+    x2[0, 0] = torch.tensor([-0.23666661977767944, -0.11166666448116302])
+    mask = torch.zeros((2, 16), dtype=torch.bool)
+    mask[0, 0] = True
+    idx = torch.arange(8).expand(2, 512, 8)
+    out = ransac_essential(x1.cuda(), x2.cuda(), mask.cuda(), torch.full((2,), 0.0067, device="cuda"),
+                           sample_idx=idx.cuda())
+    assert not out["success"].any() and (out["num_inliers"].cpu() <= mask.sum(-1)).all()

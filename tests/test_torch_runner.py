@@ -341,12 +341,10 @@ def test_shipped_configs_build_as_the_reference(name):
 
 
 def test_unported_components_and_flags_raise_before_any_work(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        registry.build_detector({"name": "superpoint"})
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        registry.build_detector({"name": "sift"})
     with pytest.raises(ValueError, match="Unknown detector"):
         registry.build_detector({"name": "nope"})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        registry.build_global_descriptor({"name": "netvlad"})
     with pytest.raises(ValueError):
         registry.build_global_descriptor({"name": "nope"})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):

@@ -217,3 +217,33 @@ def test_run_two_view_batch_with_precomputed_matches_matches_reference_on_replay
     np.testing.assert_allclose(got.i2Ui1.numpy(), ref.i2Ui1, atol=1e-4)
     assert np.abs(got.num_inliers.numpy() - ref.num_inliers).max() <= 1
     assert (got.corr_mask.numpy() != ref.corr_mask).sum() <= 3
+
+
+
+def test_ransac_essential_on_one_match_matches_reference():
+    """A pair with a single match (a learned matcher's sparse output) and a
+    pair with none. Every minimal set of the first repeats its one point
+    over seven masked rows, and the pinned elimination of that rank-1
+    system gives float garbage: finite in XLA's rounding, NaN in torch's.
+    The reference's SVD then returns NaN factors and goes on; torch's SVD
+    and eigh raise. The port takes them through ``numerics.svd`` /
+    ``eigh``, which give NaN as the reference's do: no raise, both pairs
+    unsuccessful as in the reference, and at most the one match an inlier
+    (the reference counts it, the port's NaN model does not)."""
+    Kk = 16
+    rng = np.random.default_rng(0)
+    x1 = (rng.normal(size=(2, Kk, 2)) * 0.3).astype(np.float32)
+    x2 = (rng.normal(size=(2, Kk, 2)) * 0.3).astype(np.float32)
+    x1[0, 0], x2[0, 0] = (-0.2633333206176758, -0.03166666626930237), (-0.23666661977767944, -0.11166666448116302)
+    mask = np.zeros((2, Kk), bool)
+    mask[0, 0] = True
+    thresh = np.float32(0.0067)
+    sample_idx = torch.arange(8).expand(2, 512, 8)  # the one point, then masked rows
+    out = ransac_essential(*(torch.as_tensor(a) for a in (x1, x2, mask)), torch.full((2,), float(thresh)),
+                           sample_idx=sample_idx)
+    for p in range(2):
+        ref = j_ransac(jnp.asarray(x1[p]), jnp.asarray(x2[p]), jnp.asarray(mask[p]), jax.random.PRNGKey(p),
+                       threshold=thresh)
+        assert bool(out["success"][p]) == bool(ref["success"]) is False
+        assert int(out["num_inliers"][p]) <= int(mask[p].sum())
+        assert int(ref["num_inliers"]) <= int(mask[p].sum())

@@ -132,7 +132,28 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    the whole chunk; MegaLoc on the card against the CPU on 4 views (and
    with TF32 on);
 16. deep_components: D2-Net, DISK and hloc's VGG16-NetVLAD at 480x640 (their
-   seeded inits) on 2 views, the card against the CPU (and with TF32 on).
+   seeded inits) on 2 views, the card against the CPU (and with TF32 on);
+17. feedforward: the runner with the vggt, fastvggt and anysplat --run_gs
+   configs (the feed-forward cluster slots, the compact model at its full
+   width on feedforward_fixture's seeded weights), first on FF_VIEWS
+   numpy-made views (feedforward_views) held to the JAX package's runs on
+   the same weights and views (FEEDFORWARD_REFERENCE, written by
+   scripts/feedforward_reference.py on the CPU): the forward's poses,
+   depth, confidences and track features, the feed-forward track count,
+   registered cameras, AUC@5, the post-BA cost and the anysplat trainer's
+   L1; then on the runner phase's 32 rendered views, timed, anysplat's
+   trainer at 400 steps through the compositing kernel (its launches join
+   the kernels line as feedforward_launches); no matcher or attention
+   launch in any of these runs;
+18. vggt_full: VGGT at the public VGGT-1B widths (VGGTOptions(),
+   TrackOptions()): with the depth cut (VGGT_CHECK_DEPTH) its forward and
+   track head on 2 views at 392x518 against the same file; then the full
+   model's seeded weights in the public layout (vggt_fixture, LayerScale
+   0.01, about 5 GB) through the runner with vggt and anysplat and
+   scene_optimizer.feedforward_backbone=vggt_exact on the 32 rendered
+   views: each aggregator pass, head, the tracker and post-BA timed, the
+   attention's share of the aggregator, peak memory; every camera
+   registered with finite poses.
 
 The seconds of each phase are printed as it ends. The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
@@ -140,11 +161,12 @@ is the kernel table as JSON; the last line is {"ok": true, "device":
 There is no CPU mode: without a CUDA device the script stops.
 
 The descriptor feed, the glue fixture, the SuperPoint and MegaLoc
-fixtures, the splat scene, the runner scene, the OPENCV resampling and the
-BA scene are defined here once, with numpy only (ring_views, write_olsson, write_colmap_opencv and ba_sfm_data render,
-write and load them through the port); the CPU tests,
-scripts/runner_reference.py and scripts/colmap_runner_reference.py import
-them from this file.
+fixtures, the feed-forward views and weights, the splat scene, the runner
+scene, the OPENCV resampling and the BA scene are defined here once, with
+numpy only (VGGT's key layout read off the port's module; ring_views,
+write_olsson, write_colmap_opencv and ba_sfm_data render, write and load
+them through the port); the CPU tests and the reference scripts
+(scripts/*_reference.py) import them from this file.
 """
 
 from __future__ import annotations
@@ -329,6 +351,57 @@ PEAK_BYTES = 3.35e12
 # calls per timed sample (_median_ms); the plain versions, at tens of ms a
 # call, take one
 TIMING_BATCH = 5
+
+# the feedforward and vggt_full phases (the feed-forward cluster slots).
+# The feedforward phase holds the port's runner with the vggt, fastvggt and
+# anysplat --run_gs configs, on FF_VIEWS numpy-made views
+# (feedforward_views) and the seeded compact model (feedforward_fixture),
+# to the JAX package's runs in FEEDFORWARD_REFERENCE (written by
+# scripts/feedforward_reference.py on the CPU, where the global block's
+# scores over 32 views of 480x640 would take 24 GB); then it times all 32
+# rendered views of the runner phase. The vggt_full phase holds VGGT at
+# the public widths (VGGTOptions(), TrackOptions()) with its depth cut
+# (VGGT_CHECK_DEPTH) on VGGT_CHECK_VIEWS views at the public 518-pixel
+# width to the same file, then runs VGGT-1B at full depth through the
+# runner on the 32 views.
+FEEDFORWARD_REFERENCE = "scripts/feedforward_reference.json"
+FF_VIEWS = 8
+FF_SEED = 0
+FF_GS_STEPS = 40  # the held anysplat --run_gs run's trainer steps (its L1: the first and the last 20)
+FF_NEAR_CELLS = (24, 48)  # feedforward_views' checkers, latitude x longitude
+FF_FAR_CELLS = (36, 72)
+FF_DEPTH_STEP = 16  # the depth held every 16 pixels (the compact patch)
+FF_FEAT_STEP = 5  # the track features held every 5 patches, their first 16 channels
+FF_FEAT_CHANNELS = 16
+VGGT_CHECK_VIEWS = 2
+VGGT_CHECK_HW = (392, 518)  # 480x640 at VGGT's public width, the height on the 14-pixel grid
+VGGT_CHECK_FOCAL = SPLAT_FOCAL * 518.0 / 640.0
+VGGT_CHECK_QUERIES = 64
+VGGT_CHECK_DEPTH = {"depth": 2, "dino_depth": 2, "camera_trunk_depth": 1, "intermediate_layer_idx": (0, 0, 1, 1)}
+VGGT_CHECK_TRACK_DEPTH = 2
+VGGT_SEED = 0
+# the feedforward phase's bars against the JAX package: forward values
+# (poses, focal ratios, patch confidences, unit track features) to the
+# aggregator tolerance of tests/frontend/test_vggt_exact.py, depth (an exp)
+# relative to its depth tolerance; the post-BA initial cost relative (one
+# set of tracks); the anysplat trainer's initial L1 relative
+FF_TOL = 2e-4
+FF_TOL_DEPTH = 5e-4
+FF_COST_TOL = 1e-3
+FF_TRACK_SLACK = 2  # feed-forward tracks: queries at the 0.5 and 0.6 thresholds may flip
+FF_L1_TOL = 1e-2
+# the vggt_full check: cameras and depth as the reference test's tolerances
+# (relative); the tracker after 1 iteration as test_vggt_track_exact.py's
+# (px, and visibility and confidence); after 4 iterations the seeded
+# tracker amplifies float32 rounding 50-100 times an iteration (the port
+# against the JAX package on the CPU: 3e-5, 1.6e-3, 0.23 and 0.67 px after
+# iterations 1-4, visibility and confidence 7e-3 apart)
+VGGT_TOL_CAM = 2e-4
+VGGT_TOL_DEPTH = 5e-4
+VGGT_TOL_TRACK_1 = 5e-3
+VGGT_TOL_VIS_1 = 1e-4
+VGGT_TOL_TRACK = 2.0
+VGGT_TOL_VIS = 0.02
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +624,204 @@ def deep_overrides(config_name: str, weights: dict) -> list:
     if config_name == "megaloc_sift_frontend":
         return [f"global_descriptor.weights_path={weights['megaloc']}"]
     return []
+
+
+# ---------------------------------------------------------------------------
+# the feed-forward phases' fixtures (numpy; VGGT's key layout is read off
+# the port's module)
+# ---------------------------------------------------------------------------
+
+
+def feedforward_views(R, t, indices, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL,
+                      seed: int = 0) -> np.ndarray:
+    """Views of a seeded scene made by numpy alone, (n, H, W, 3) gray in
+    [0.1, 0.9]: each ring camera's rays (camera-to-world R, center t, the
+    principal point at the center of ``hw``) cast on a sphere of radius 4
+    around the ring's center before an enclosing sphere of radius 40, each
+    painted with a checker of gray cells (FF_NEAR_CELLS and FF_FAR_CELLS in
+    latitude and longitude). Every pixel is one cell's level, so the 8-bit
+    images are the same on any machine, whatever renders the runner's
+    scene."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    tables = [rng.uniform(0.1, 0.9, cells) for cells in (FF_NEAR_CELLS, FF_FAR_CELLS)]
+    center = np.asarray(t, np.float64).mean(axis=0)
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([(u - w / 2.0) / focal, (v - h / 2.0) / focal, np.ones_like(u)], axis=-1).reshape(-1, 3)
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    out = []
+    for i in indices:
+        d = rays @ np.asarray(R[i], np.float64).T
+        o = np.asarray(t[i], np.float64) - center
+        b = d @ o
+        gray = np.empty(len(d))
+        hit = np.zeros(len(d), bool)
+        for radius, table, near in ((4.0, tables[0], True), (40.0, tables[1], False)):
+            disc = b * b - (o @ o - radius * radius)
+            s = -b - np.sqrt(np.maximum(disc, 0.0)) if near else -b + np.sqrt(np.maximum(disc, 0.0))
+            sel = ~hit & (disc >= 0) & (s > 0)
+            p = o + s[sel, None] * d[sel]
+            p /= np.linalg.norm(p, axis=1, keepdims=True)
+            lat = np.minimum((np.arccos(np.clip(p[:, 2], -1.0, 1.0)) / np.pi * table.shape[0]).astype(int),
+                             table.shape[0] - 1)
+            lon = np.minimum(((np.arctan2(p[:, 1], p[:, 0]) + np.pi) / (2 * np.pi) * table.shape[1]).astype(int),
+                             table.shape[1] - 1)
+            gray[sel] = table[lat, lon]
+            hit |= sel
+        out.append(np.repeat(gray.reshape(h, w, 1), 3, axis=2).astype(np.float32))
+    return np.stack(out)
+
+
+def feedforward_fixture(seed: int = 0, hw: tuple = SPLAT_HW, stride: int = 1) -> dict:
+    """The compact FeedforwardNet's params at its default widths (dim 256,
+    6 layer pairs, 4 heads, patch 16, track width 64) for frames of ``hw``,
+    in the reference's Flax layout (numpy float32; with ``stride`` > 1 the
+    FastVGGT global blocks): Dense and conv kernels N(0, 1/fan_in), biases,
+    LayerNorm offsets and the three embeddings N(0, 0.02^2), LayerNorm
+    scales 1 + N(0, 0.02^2); then two heads are set so that the slots'
+    whole path runs: the depth head's kernel scaled by 0.1 and its bias
+    raised by log 10 (depths near 10, where the unscaled head spans 1e-3
+    to 1e3), the confidence head's bias raised by 1.3 (about half the
+    patches pass the slots' 0.5, where 5% of them would)."""
+    rng = np.random.default_rng(seed)
+    D, P, depth = 256, 16, 6
+
+    def normal(shape, sd):
+        return (rng.standard_normal(shape) * sd).astype(np.float32)
+
+    def dense(cin, cout):
+        return {"kernel": normal((cin, cout), cin**-0.5), "bias": normal((cout,), 0.02)}
+
+    def norm():
+        return {"scale": 1.0 + normal((D,), 0.02), "bias": normal((D,), 0.02)}
+
+    def block(fast: bool):
+        attn = ({"q": dense(D, D), "kv": dense(D, 2 * D), "proj": dense(D, D)} if fast
+                else {"qkv": dense(D, 3 * D), "proj": dense(D, D)})
+        p = {f"LayerNorm_{i}": norm() for i in range(3 if fast else 2)}
+        return {**p, "attn": attn, "Dense_0": dense(D, 4 * D), "Dense_1": dense(4 * D, D)}
+
+    params = {"patch_embed": {"kernel": normal((P, P, 1, D), P**-1.0), "bias": normal((D,), 0.02)},
+              "pos_embed": normal((1, (hw[0] // P) * (hw[1] // P), D), 0.02),
+              "camera_token": normal((1, 1, D), 0.02), "frame_embed": normal((32, D), 0.02)}
+    for i in range(depth):
+        params[f"frame_{i}"] = block(False)
+        params[f"global_{i}"] = block(stride > 1)
+    for name, cout in (("pose_head", 7), ("depth_head", P * P), ("conf_head", 1), ("track_head", 64)):
+        params[name] = dense(D, cout)
+    params["depth_head"]["kernel"] *= 0.1
+    params["depth_head"]["bias"] += np.float32(np.log(10.0))
+    params["conf_head"]["bias"] += np.float32(1.3)
+    return params
+
+
+def vggt_fixture(seed: int = 0, options=None, track_options=None) -> dict:
+    """A state_dict (numpy float32) in the public facebook/VGGT-1B layout:
+    the port's VGGTNet at ``options`` (VGGTOptions() with the public camera
+    trunk, which has no qk norm, by default) with the point head and a
+    track head at ``track_options`` (TrackOptions()), its keys and shapes
+    read off the module on the meta device. Weights, tokens and embeddings
+    N(0, 0.02^2), biases N(0, 0.02^2), norm scales 1 + N(0, 0.02^2),
+    LayerScales 0.01 (the public init), the virtual tracks N(0, 1); drawn
+    in the state_dict's key order."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.vggt import VGGTNet, VGGTOptions
+    from gtsfm_tpu_torch.frontend.vggt_track import TrackOptions
+
+    options = options or VGGTOptions(camera_qk_norm=False)
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in VGGTNet(options, track_options or TrackOptions(),
+                                                        point_head=True).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        parts = k.split(".")
+        leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+        if leaf == "gamma":
+            sd[k] = np.full(shape, 0.01, np.float32)
+            continue
+        v = rng.standard_normal(shape, dtype=np.float32)
+        if k.endswith("virual_tracks"):
+            sd[k] = v
+        elif leaf == "weight" and "norm" in parent:
+            sd[k] = 1.0 + 0.02 * v
+        else:
+            v *= 0.02
+            sd[k] = v
+    return sd
+
+
+def ff_forward_record(R, t, focal, depth, conf, track_feat) -> dict:
+    """The values of one compact forward (numpy) that the feedforward phase
+    holds: the poses, focal ratios and patch confidences, the depth at the
+    center of every FF_DEPTH_STEP-pixel cell, the track features of every
+    FF_FEAT_STEP-th patch (their first FF_FEAT_CHANNELS channels)."""
+    s, f = FF_DEPTH_STEP, FF_FEAT_STEP
+    out = {"R": R, "t": t, "focal": focal, "depth": depth[:, s // 2 :: s, s // 2 :: s], "conf": conf,
+           "track_feat": track_feat[:, ::f, ::f, :FF_FEAT_CHANNELS]}
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def vggt_check_options():
+    """The vggt_full check's VGGT and track options: the public widths, the
+    public camera trunk, the depth cut by VGGT_CHECK_DEPTH."""
+    from gtsfm_tpu_torch.frontend.vggt import VGGTOptions
+    from gtsfm_tpu_torch.frontend.vggt_track import TrackOptions
+
+    return VGGTOptions(camera_qk_norm=False, **VGGT_CHECK_DEPTH), TrackOptions(depth=VGGT_CHECK_TRACK_DEPTH)
+
+
+def vggt_check_inputs(R, t) -> tuple:
+    """The vggt_full check's images, (VGGT_CHECK_VIEWS, 392, 518, 3): the
+    first ring views by feedforward_views at VGGT_CHECK_HW, and its
+    VGGT_CHECK_QUERIES seeded query points (pixel xy of frame 0)."""
+    order = ring_order(t)[:VGGT_CHECK_VIEWS]
+    images = feedforward_views(R, t, order, hw=VGGT_CHECK_HW, focal=VGGT_CHECK_FOCAL)
+    h, w = VGGT_CHECK_HW
+    qp = np.random.default_rng(VGGT_SEED).uniform((4.0, 4.0), (w - 4.0, h - 4.0), (VGGT_CHECK_QUERIES, 2))
+    return images, qp.astype(np.float32)
+
+
+def vggt_check_record(run: dict, track_1: dict, track: dict) -> dict:
+    """The values of the check's forward and track head (numpy) that are
+    held: cameras, the depth and its confidence at the patch centers and
+    their sums, and the tracks, visibility and confidence after one
+    iteration of the tracker (``track_1``) and after its 4 (``track``)."""
+    s = 14
+    out = {"extrinsic": run["extrinsic"], "intrinsic": run["intrinsic"],
+           "depth": run["depth"][:, s // 2 :: s, s // 2 :: s],
+           "depth_conf": run["depth_conf"][:, s // 2 :: s, s // 2 :: s],
+           "depth_sum": np.sum(run["depth"], dtype=np.float64), "conf_sum": np.sum(run["depth_conf"], dtype=np.float64),
+           "tracks_1": track_1["tracks"], "vis_1": track_1["vis"], "track_conf_1": track_1["conf"],
+           "tracks": track["tracks"], "vis": track["vis"], "track_conf": track["conf"]}
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def vggt_track_iters(model, images, qp, iters: int) -> dict:
+    """The port's track head after ``iters`` iterations of its tracker
+    (``VGGTModel.track`` runs the options' 4), numpy."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.vggt_track import track_options_from_state_dict
+    from gtsfm_tpu_torch.utils.numerics import precise
+
+    x = torch.as_tensor(images, device=model.device).permute(0, 3, 1, 2)
+    with torch.no_grad(), precise():
+        outputs, ps = model.net.aggregator(x, keep=model.net.heads_layers())
+        coords, vis, conf = model.net.track_head(outputs, ps, x.shape[2:], torch.as_tensor(qp, device=model.device),
+                                                 track_options_from_state_dict(model.net.state_dict()), iters=iters)
+    return {"tracks": coords[-1].cpu().numpy(), "vis": vis.cpu().numpy(), "conf": conf.cpu().numpy()}
+
+
+def write_vggt_weights(path: str, seed: int = 0, options=None, track_options=None) -> float:
+    """``vggt_fixture`` saved as a torch checkpoint at ``path``; returns the
+    sum of the squares of its values (float64), a checksum to print."""
+    import torch
+
+    sd = vggt_fixture(seed, options, track_options)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
 
 
 def splat_scene(center, n: int = SPLAT_GAUSSIANS, radius: float = 8.0, seed: int = 0) -> dict:
@@ -2712,6 +2983,346 @@ def phase_deep_components(data_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the feed-forward cluster slots
+# ---------------------------------------------------------------------------
+
+
+class _StageTimer:
+    """Wraps functions and methods so that each call adds its host-clock
+    seconds, between two device synchronizations, to a named stage
+    (``name`` a string, or a function of the call's arguments)."""
+
+    def __init__(self):
+        self.sec, self.calls, self.each, self._saved = {}, {}, {}, []
+
+    def wrap(self, owner, attr: str, name):
+        import torch
+
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            key = name(args, kwargs) if callable(name) else name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            self.sec[key] = self.sec.get(key, 0.0) + sec
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.each.setdefault(key, []).append(sec)
+            return out
+
+        setattr(owner, attr, timed)
+        self._saved.append((owner, attr, fn))
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved.clear()
+
+
+def _ff_slot_argv(slot: str, data_dir: str, gs_steps=None, extra=()) -> list:
+    """The runner's arguments for a slot; anysplat with ``gs_steps`` runs
+    the trainer (--run_gs) for that many steps."""
+    argv = ["--config_name", slot, "--loader", "olsson", "--dataset_dirpath", data_dir]
+    if slot == "anysplat" and gs_steps:
+        argv += ["--run_gs", f"scene_optimizer.gs_iterations={gs_steps}"]
+    return argv + list(extra)
+
+
+def _ff_load_weights(slot: str) -> None:
+    """``feedforward_fixture`` at 480x640 (its FastVGGT blocks for
+    fastvggt) into the port's model cache on the card, as the reference
+    script places it in the JAX package's."""
+    from gtsfm_tpu_torch.frontend.feedforward import FeedforwardOptions
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+    from gtsfm_tpu_torch.utils import convert
+
+    stride = 4 if slot == "fastvggt" else 1
+    cf._MODEL_CACHE.clear()
+    cf._resolve_model(cf.ClusterFeedforwardOptions(model=FeedforwardOptions(global_kv_stride=stride)), SPLAT_HW,
+                      convert.feedforward_state_dict(feedforward_fixture(FF_SEED, SPLAT_HW, stride)), "cuda")
+
+
+def _ff_run(tag: str, argv: list, out: str, timer: _StageTimer = None) -> dict:
+    """``gtsfm_tpu_torch.runner.main(argv + --output_root out)`` in this
+    process for a feed-forward slot, every launch count set to 0 just
+    before and read just after, the compact forward's outputs (the last
+    ``FeedforwardReconstruction.run``) and the slot's metrics (the last
+    ``ClusterFeedforward.run_raw``) kept, the peak device memory. Requires
+    exit code 0, every camera registered, finite poses and no matcher or
+    attention launch (the slot bypasses the front end)."""
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup
+    from gtsfm_tpu_torch.frontend import feedforward as ff
+    from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
+    from gtsfm_tpu_torch.io import colmap
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+    from gtsfm_tpu_torch.splat import rendering
+
+    seen = {}
+    run, run_raw = ff.FeedforwardReconstruction.run, cf.ClusterFeedforward.run_raw
+
+    def fwd(self, images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = run(self, images)
+        torch.cuda.synchronize()
+        seen["forward"], seen["forward_sec"] = (o, self.last_track_feat), time.perf_counter() - t0
+        return o
+
+    def raw(self, *args):
+        o = run_raw(self, *args)
+        seen["metrics"] = o[1]
+        return o
+
+    fused_matcher.launch_count = fused_attention.launch_count = rendering.launch_count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ff.FeedforwardReconstruction.run, cf.ClusterFeedforward.run_raw = fwd, raw
+    t0 = time.perf_counter()
+    try:
+        rc = runner.main(argv + ["--output_root", out])
+        torch.cuda.synchronize()
+    finally:
+        ff.FeedforwardReconstruction.run, cf.ClusterFeedforward.run_raw = run, run_raw
+        if timer is not None:
+            timer.restore()
+    wall = time.perf_counter() - t0
+    launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
+                "composite": rendering.launch_count}
+    mdir = os.path.join(out, "results", "metrics")
+    metrics = {g.name: {m.name: (m.scalar if m.dist is None else m.dist) for m in g.metrics}
+               for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
+    n_views = len(os.listdir(os.path.join(argv[argv.index("--dataset_dirpath") + 1], "images")))
+    pose = metrics.get("ba_pose_metrics", {})
+    res = {"rc": rc, "wall": wall, "launches": launches, "metrics": metrics, "peak_gib":
+           torch.cuda.max_memory_allocated() / 2**30, "registered": len(pose.get("rotation_error_deg", [])),
+           "auc5": float(pose.get("pose_auc_@5.0_deg", 0.0)), "views": n_views,
+           "num_tracks_ff": int(metrics["feedforward_metrics"]["num_tracks_ff"]),
+           "post_ba": seen["metrics"].get("post_ba"), "forward": seen.get("forward"),
+           "forward_sec": seen.get("forward_sec")}
+    back = colmap.read_scene(os.path.join(out, "results", "ba_output"))
+    print(f"{tag}: {res['registered']}/{n_views} registered, pose AUC@5 {res['auc5']:.4f}, "
+          f"{res['num_tracks_ff']} feed-forward tracks, {back.number_tracks()} exported, post-BA cost "
+          + (f"{res['post_ba']['initial_cost']:.6g} -> {res['post_ba']['final_cost']:.6g}" if res["post_ba"] else "-")
+          + f", launches {launches}, peak device memory {res['peak_gib']:.3f} GiB; seconds: feedforward_sec "
+          f"{metrics['feedforward_metrics']['feedforward_sec']:.3f} (compact forward "
+          + (f"{res['forward_sec']:.3f}" if res["forward_sec"] is not None else "-")
+          + f") total_runtime_sec {metrics['total_summary']['total_runtime_sec']:.3f} main {wall:.3f}", flush=True)
+    if rc != 0 or res["registered"] != n_views or not bool(torch.isfinite(back.poses.t).all()):
+        raise AssertionError(f"{tag}: exit code {rc}, {res['registered']}/{n_views} registered, finite poses "
+                             f"{bool(torch.isfinite(back.poses.t).all())}")
+    if launches["matcher"] or launches["attention"]:
+        raise AssertionError(f"{tag}: the feed-forward slot launched the front end's kernels: {launches}")
+    return res
+
+
+def _hold_ff_run(tag: str, res: dict, ref: dict) -> dict:
+    """A feedforward run against the JAX package's (FEEDFORWARD_REFERENCE):
+    the forward's poses, focal ratios, patch confidences and track features
+    within FF_TOL, depth within FF_TOL_DEPTH relative; the feed-forward
+    track count within FF_TRACK_SLACK; every camera registered as in the
+    reference, AUC@5 within RUNNER_AUC5_SLACK; with the same tracks, the
+    post-BA initial cost within FF_COST_TOL relative, and a final cost
+    below it; for anysplat, the trainer's initial L1 within FF_L1_TOL
+    relative and a falling L1. Returns the largest distances."""
+    (poses, depth, conf, focal), feat = res["forward"]
+    mine = ff_forward_record(*(a.cpu().numpy() for a in (poses.R, poses.t, focal, depth, conf, feat)))
+    dist = {}
+    for k, v in mine.items():
+        want = np.asarray(ref["forward"][k], np.float32)
+        if v.shape != want.shape:
+            raise AssertionError(f"{tag}: forward {k} of shape {v.shape}, the reference's {want.shape}")
+        d = np.abs(v - want) / (np.abs(want) if k == "depth" else 1.0)
+        dist[k] = float(d.max())
+    bad = [k for k, d in dist.items() if d > (FF_TOL_DEPTH if k == "depth" else FF_TOL)]
+    tracks_off = abs(res["num_tracks_ff"] - ref["num_tracks_ff"])
+    cost = None
+    if res["post_ba"] is not None and ref["post_ba"] is not None:
+        cost = abs(res["post_ba"]["initial_cost"] / ref["post_ba"]["initial_cost"] - 1.0)
+    print(f"{tag} against the JAX package: forward max |d| " + ", ".join(f"{k} {d:.3g}" for k, d in dist.items())
+          + f" (tol {FF_TOL}, depth {FF_TOL_DEPTH} relative); feed-forward tracks {res['num_tracks_ff']} (the "
+          f"reference's {ref['num_tracks_ff']}, slack {FF_TRACK_SLACK}); registered {res['registered']} "
+          f"({ref['registered']}); AUC@5 {res['auc5']:.4f} ({ref['pose_auc_@5.0_deg']:.4f}); post-BA initial cost "
+          + ("-" if cost is None else f"{cost:.3g} apart (tol {FF_COST_TOL}), final {res['post_ba']['final_cost']:.6g} "
+             f"(the reference's {ref['post_ba']['final_cost']:.6g})"), flush=True)
+    if bad or tracks_off > FF_TRACK_SLACK or res["registered"] != ref["registered"]:
+        raise AssertionError(f"{tag}: forward {bad} out of tolerance, tracks {tracks_off} apart, registered "
+                             f"{res['registered']} against {ref['registered']}")
+    if abs(res["auc5"] - ref["pose_auc_@5.0_deg"]) > RUNNER_AUC5_SLACK:
+        raise AssertionError(f"{tag}: AUC@5 {res['auc5']:.4f} against {ref['pose_auc_@5.0_deg']:.4f}")
+    if res["post_ba"] is not None:
+        if not res["post_ba"]["final_cost"] < res["post_ba"]["initial_cost"]:
+            raise AssertionError(f"{tag}: post-BA cost did not fall: {res['post_ba']}")
+        if tracks_off == 0 and cost > FF_COST_TOL:
+            raise AssertionError(f"{tag}: post-BA initial cost {cost:.3g} from the reference's")
+    if "gs" in ref:
+        gs = res["metrics"]["gaussian_splatting_metrics"]
+        l1 = abs(gs["initial_l1"] / ref["gs"]["initial_l1"] - 1.0)
+        dist["initial_l1"] = l1
+        print(f"{tag} trainer: L1 {gs['initial_l1']:.6f} -> {gs['final_l1']:.6f} (the reference's "
+              f"{ref['gs']['initial_l1']:.6f} -> {ref['gs']['final_l1']:.6f}, initial {l1:.3g} apart, tol "
+              f"{FF_L1_TOL}), {int(gs['num_gaussians'])} gaussians alive ({ref['gs']['num_gaussians']})", flush=True)
+        if l1 > FF_L1_TOL or not gs["final_l1"] < gs["initial_l1"]:
+            raise AssertionError(f"{tag}: trainer L1 {gs}")
+    return dist
+
+
+def phase_feedforward(smi: str, runner_dir: str, R, t, work: str) -> dict:
+    """The runner with the vggt, fastvggt and anysplat --run_gs configs on
+    the card with the seeded compact model: first on FF_VIEWS numpy-made
+    views held to the JAX package's runs (_hold_ff_run), then on the runner
+    phase's 32 rendered views, timed (anysplat's trainer at SPLAT_STEPS).
+    Returns the compositing launches of the anysplat runs and the largest
+    distances."""
+    import os
+
+    order = ring_order(t)[:FF_VIEWS]
+    ff_dir = os.path.join(work, "feedforward_data")
+    write_olsson(ff_dir, feedforward_views(R, t, order), np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), FEEDFORWARD_REFERENCE)) as f:
+        refs = {r["slot"]: r for r in json.load(f)["runs"]}
+    out = {"composite": 0, "dist": {}, "runs": {}}
+    for slot in ("vggt", "fastvggt", "anysplat"):
+        _ff_load_weights(slot)
+        res = _ff_run(f"feedforward {slot} ({FF_VIEWS} views)", _ff_slot_argv(slot, ff_dir, FF_GS_STEPS),
+                      os.path.join(work, f"ff_{slot}"))
+        out["dist"][slot] = _hold_ff_run(f"feedforward {slot}", res, refs[slot])
+        out["composite"] += res["launches"]["composite"]
+    for slot in ("vggt", "fastvggt", "anysplat"):
+        _ff_load_weights(slot)
+        res = _ff_run(f"feedforward {slot} (32 rendered views)", _ff_slot_argv(slot, runner_dir, SPLAT_STEPS),
+                      os.path.join(work, f"ff32_{slot}"))
+        print(f"feedforward {slot} (32 rendered views) | {smi}", flush=True)
+        out["runs"][slot] = {k: res[k] for k in ("wall", "peak_gib", "forward_sec", "launches")}
+        if slot == "anysplat":
+            gs = res["metrics"]["gaussian_splatting_metrics"]
+            if res["launches"]["composite"] < SPLAT_STEPS or not gs["final_l1"] < gs["initial_l1"]:
+                raise AssertionError(f"feedforward anysplat: {res['launches']} launches, trainer {gs}")
+            out["composite"] += res["launches"]["composite"]
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+
+    cf._MODEL_CACHE.clear()
+    return out
+
+
+def _vggt_stage_timer() -> _StageTimer:
+    """A _StageTimer on VGGT's stages: each aggregator pass, the camera
+    head, the DPT heads by activation (depth, the gaussian head's raw
+    output, the track head's features), the tracker, the gaussians'
+    assembly, post-BA, and every attention (the DINO pass's and VGGT's)."""
+    from gtsfm_tpu_torch.bundle.ba import BundleAdjustment
+    from gtsfm_tpu_torch.frontend import anysplat, vggt, vggt_track
+    from gtsfm_tpu_torch.frontend.global_descriptors import megaloc
+
+    timer = _StageTimer()
+    timer.wrap(vggt.Aggregator, "forward", "aggregator")
+    timer.wrap(vggt.CameraHead, "forward", "camera_head")
+    names = {"exp": "depth_head", "raw": "gaussian_head", "features": "track_features"}
+    timer.wrap(vggt.DPTHead, "forward", lambda a, k: names[k.get("activation", "exp")])
+    timer.wrap(vggt_track.Tracker, "forward", "tracker")
+    timer.wrap(anysplat.AnySplatModel, "_assemble_gaussians", "gaussian_assembly")
+    timer.wrap(BundleAdjustment, "run", "post_ba")
+    timer.wrap(vggt, "attention", "attention")
+    timer.wrap(megaloc, "attention", "attention")
+    return timer
+
+
+def _hold_vggt_check(R, t) -> dict:
+    """VGGT at the public widths with the depth cut (vggt_check_options) on
+    the card: the forward on vggt_check_inputs and the track head after 1
+    and 4 iterations of its tracker against the JAX package's
+    (FEEDFORWARD_REFERENCE): cameras within VGGT_TOL_CAM relative, depth
+    and confidence within VGGT_TOL_DEPTH relative, 1-iteration tracks
+    within VGGT_TOL_TRACK_1 px and their visibility and confidence within
+    VGGT_TOL_VIS_1, 4-iteration ones within VGGT_TOL_TRACK px and
+    VGGT_TOL_VIS. Returns the largest distances."""
+    import os
+
+    from gtsfm_tpu_torch.frontend.vggt import VGGTModel
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), FEEDFORWARD_REFERENCE)) as f:
+        ref = json.load(f)["vggt_check"]
+    vo, to = vggt_check_options()
+    sd = vggt_fixture(VGGT_SEED, vo, to)
+    sumsq = float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
+    model = VGGTModel(vo, state_dict=sd, device="cuda")
+    images, qp = vggt_check_inputs(R, t)
+    t0 = time.perf_counter()
+    run = {k: v.cpu().numpy() for k, v in model.run(images).items()}
+    track = {k: v.cpu().numpy() for k, v in model.track(images, qp).items()}
+    sec = time.perf_counter() - t0
+    mine = vggt_check_record(run, vggt_track_iters(model, images, qp, 1), track)
+    tol = {"extrinsic": VGGT_TOL_CAM, "intrinsic": VGGT_TOL_CAM, "depth": VGGT_TOL_DEPTH,
+           "depth_conf": VGGT_TOL_DEPTH, "depth_sum": VGGT_TOL_DEPTH, "conf_sum": VGGT_TOL_DEPTH,
+           "tracks_1": VGGT_TOL_TRACK_1, "vis_1": VGGT_TOL_VIS_1, "track_conf_1": VGGT_TOL_VIS_1,
+           "tracks": VGGT_TOL_TRACK, "vis": VGGT_TOL_VIS, "track_conf": VGGT_TOL_VIS}
+    absolute = ("tracks_1", "vis_1", "track_conf_1", "tracks", "vis", "track_conf")
+    dist = {}
+    for k, v in mine.items():
+        want = np.asarray(ref["record"][k])
+        d = np.abs(v - want) / (1.0 if k in absolute else np.maximum(np.abs(want), 1e-6))
+        dist[k] = float(np.max(d))
+    bad = [k for k in dist if dist[k] > tol[k]]
+    print(f"vggt_full check (VGGT-1B widths, depth {vo.depth} pairs, DINO {vo.dino_depth}, trunk "
+          f"{vo.camera_trunk_depth}, track {to.depth}; {VGGT_CHECK_VIEWS} views at {VGGT_CHECK_HW}, "
+          f"{VGGT_CHECK_QUERIES} queries; weights sum of squares {sumsq:.6f}, the reference's "
+          f"{ref['weights_sumsq']:.6f}) in {sec:.3f} s against the JAX package: "
+          + ", ".join(f"{k} {d:.3g} (tol {tol[k]})" for k, d in dist.items()), flush=True)
+    if bad or abs(sumsq / ref["weights_sumsq"] - 1.0) > 1e-9:
+        raise AssertionError(f"vggt_full check: {bad} out of tolerance, weights sum of squares {sumsq}")
+    return dist
+
+
+def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
+    """VGGT at the public VGGT-1B widths: the depth-cut check
+    (_hold_vggt_check), then the full model's seeded weights
+    (write_vggt_weights, the public layout, about 5 GB) and the runner
+    with vggt and anysplat on the runner phase's 32 rendered views through
+    scene_optimizer.feedforward_backbone=vggt_exact, each with its stages
+    timed (_vggt_stage_timer: the aggregator passes, the heads, the
+    tracker, post-BA, the attention's share of the aggregator), peak
+    memory, registered cameras and tracks; the runs must finish with
+    finite poses and every camera registered."""
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+
+    out = {"check": _hold_vggt_check(R, t), "runs": {}}
+    path = os.path.join(work, "vggt1b.pt")
+    t0 = time.perf_counter()
+    sumsq = write_vggt_weights(path, VGGT_SEED)
+    print(f"vggt_full: seeded VGGT-1B weights (public layout, {os.path.getsize(path) / 2**30:.3f} GiB, sum of "
+          f"squares {sumsq:.6f}) written in {time.perf_counter() - t0:.3f} s", flush=True)
+    extra = ["scene_optimizer.feedforward_backbone=vggt_exact", f"scene_optimizer.vggt_weights_path={path}"]
+    cf._MODEL_CACHE.clear()
+    for slot in ("vggt", "anysplat"):
+        timer = _vggt_stage_timer()
+        res = _ff_run(f"vggt_full {slot} (VGGT-1B, 32 rendered views)", _ff_slot_argv(slot, runner_dir, extra=extra),
+                      os.path.join(work, f"vggt_{slot}"), timer)
+        agg = timer.sec.get("aggregator", 0.0)
+        share = timer.sec.get("attention", 0.0) / agg if agg else float("nan")
+        print(f"vggt_full {slot} stages (s, calls): " + ", ".join(
+            f"{k} {v:.3f} ({timer.calls[k]})" for k, v in sorted(timer.sec.items()))
+            + f"; each aggregator pass {[round(x, 3) for x in timer.each.get('aggregator', [])]}; attention share "
+            f"of the aggregator passes {share:.4f}; peak device memory {res['peak_gib']:.3f} GiB | {smi}", flush=True)
+        out["runs"][slot] = {"stages": dict(timer.sec), "calls": dict(timer.calls), "attention_share": share,
+                             "aggregator_passes": timer.each.get("aggregator", []), "peak_gib": res["peak_gib"],
+                             "wall": res["wall"]}
+    cf._MODEL_CACHE.clear()
+    os.remove(path)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2761,6 +3372,8 @@ def main() -> int:
         deep = timed("deep_front_end", phase_deep_front_end, smi, runner_dir)
         megaloc = timed("megaloc_sift", phase_megaloc_sift, smi, runner_dir)
         timed("deep_components", phase_deep_components, runner_dir)
+        ff = timed("feedforward", phase_feedforward, smi, runner_dir, R, t, work)
+        timed("vggt_full", phase_vggt_full, smi, runner_dir, R, t, work)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
 
     print(smi, flush=True)
@@ -2824,7 +3437,9 @@ def main() -> int:
         "route": "cuda",
         "source": "gtsfm_tpu_torch/csrc/splat_composite.cu",
         "replaces": "gtsfm_tpu/splat/rendering.py:420",
-        "launches": comp_launches,
+        "launches": comp_launches + ff["composite"],
+        "splat_launches": comp_launches,
+        "feedforward_launches": ff["composite"],
         "slice_launches": slice_comp_launches,
         "max_abs_err": comp_err,
         "ms": comp_ms["kernel"],

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gtsfm_tpu_torch.utils.numerics import precise
+from gtsfm_tpu_torch.utils.numerics import attention, precise
 
 
 class MegaLocOptions(NamedTuple):
@@ -86,9 +86,7 @@ class _Attention(nn.Module):
         B, N, D = x.shape
         h = self.num_heads
         q, k, v = self.qkv(x).reshape(B, N, 3, h, D // h).unbind(2)  # (B, N, h, d)
-        att = torch.einsum("bnhd,bmhd->bhnm", q * (D // h) ** -0.5, k)
-        y = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(att, dim=-1), v).reshape(B, N, D)
-        return self.proj(y)
+        return self.proj(attention(q, k, v, q_scale=(D // h) ** -0.5).reshape(B, N, D))
 
 
 class _Mlp(nn.Module):

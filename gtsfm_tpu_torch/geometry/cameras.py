@@ -26,6 +26,12 @@ class PinholeCamera(TensorStruct):
         z_safe = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
         return self.cal.uncalibrate(p_cam[..., :2] / z_safe[..., None]), z
 
+    def backproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Pixels (..., 2) at depths (...) -> world points (..., 3)."""
+        p = self.cal.calibrate(uv)
+        ray = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1) * depth[..., None]
+        return self.pose.transform(ray)
+
     def reprojection_error(self, p_world: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
         proj, _ = self.project(p_world)
         return torch.linalg.vector_norm(proj - uv, dim=-1)

@@ -10,7 +10,11 @@ The named configs are the port's copies in configs/: ``unified`` (the
 default: DoG-SIFT, the fused mutual-NN matcher, the tiny descriptor),
 ``deep_front_end`` (SuperPoint, LightGlue, NetVLAD, the joint retriever),
 ``megaloc_sift_frontend`` (MegaLoc retrieval, DoG-SIFT at K=5000),
-``onedsfm_front_end`` (NetVLAD retrieval, DoG-SIFT), and the others there.
+``onedsfm_front_end`` (NetVLAD retrieval, DoG-SIFT), the feed-forward
+slots ``vggt``, ``fastvggt`` and ``anysplat`` (the compact model by
+default; ``scene_optimizer.feedforward_backbone=vggt_exact
+scene_optimizer.vggt_weights_path=<file>`` for VGGT in the public
+VGGT-1B layout), and the others there.
 A learned net takes its checkpoint by override
 (``detector.weights_path=superpoint_v1.pth``,
 ``matcher.weights_path=superpoint_lightglue.pth``,
@@ -20,9 +24,9 @@ its seeded random init. The registry also builds the ``d2net`` and
 
 The run goes to the CUDA card unless an override sets
 ``scene_optimizer.device=cpu``. ``--loader olsson`` and ``--loader colmap``
-work, as do ``--run_gs`` and ``--hierarchical``. The flags whose modules
-are not ported yet (the other loaders, ``--bal``, ``--compare_to``,
-``--run_mvs``, ``--cluster_optimizer``, ``--use_cache``,
+work, as do ``--run_gs``, ``--hierarchical`` and ``--cluster_optimizer``.
+The flags whose modules are not ported yet (the other loaders, ``--bal``,
+``--compare_to``, ``--run_mvs``, ``--use_cache``,
 ``--load_chunk_size``, ``--prewarm``, ``--gs_video_frames`` and the
 ``--distributed_*`` flags) raise ``NotImplementedError`` naming their
 ROADMAP item before any work.
@@ -62,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render a camera-path PNG sequence of the splats (not ported)")
     p.add_argument("--hierarchical", action="store_true", help="partitioned reconstruction")
     p.add_argument("--cluster_optimizer", default=None, choices=["mvo", "vggt", "fastvggt", "anysplat"],
-                   help="per-cluster reconstruction engine (not ported)")
+                   help="reconstruction engine: mvo, or a feed-forward slot")
     p.add_argument("--use_cache", action="store_true", help="disk caching of detect / two-view (not ported)")
     p.add_argument("--cache_root", default=None)
     p.add_argument("--load_chunk_size", type=int, default=None, help="stream load + detect (not ported)")
@@ -81,7 +85,6 @@ def check_ported(args) -> None:
         (args.bal, "--bal", 3),
         (args.compare_to, "--compare_to", 6),
         (args.run_mvs or args.mvs_backend != "plane_sweep" or args.mvs_weights_path, "--run_mvs", 3),
-        (args.cluster_optimizer not in (None, "mvo"), "--cluster_optimizer", 3),
         (args.use_cache or args.cache_root, "--use_cache", 3),
         (args.load_chunk_size is not None, "--load_chunk_size", 3),
         (args.prewarm, "--prewarm", 3),
@@ -122,6 +125,8 @@ def main(argv=None) -> int:
         so_cfg["run_gs"] = True
     if args.hierarchical:
         so_cfg["hierarchical"] = True
+    if args.cluster_optimizer:
+        so_cfg["cluster_optimizer"] = args.cluster_optimizer
     so = build_scene_optimizer(cfg)
     loader = build_loader(args)
     t0 = time.time()

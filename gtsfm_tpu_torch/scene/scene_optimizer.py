@@ -12,8 +12,15 @@ parent BAs) -> without GT an axis alignment, with GT the evaluation (the
 ``verifier_summary``, ``ba_pose_metrics``, ``track_classification_metrics``
 and ``intrinsics_metrics`` groups) -> with ``run_gs`` the Gaussian-splat
 trainer (``gaussian_splatting_metrics``) -> under ``output_root``, the
-reconstruction as COLMAP text in ``results/ba_output/`` and each metrics
-group as ``results/metrics/<group>.json``.
+reconstruction as COLMAP text in ``results/ba_output/``, each metrics
+group as ``results/metrics/<group>.json`` and the splats as
+``results/splats.ply`` and ``results/gaussian_points.ply``.
+
+With ``cluster_optimizer`` vggt, fastvggt or anysplat the feed-forward
+slot (scene/cluster_feedforward.py: the compact model or VGGT, by
+``feedforward_backbone``) replaces the front end and the back end
+(``feedforward_metrics``); the anysplat slot's gaussians start the
+trainer, or are exported as they are without ``run_gs``.
 
 The reconstruction runs on ``SceneOptimizerOptions.device``, the CUDA card
 by default (``device="cpu"`` for a CPU run): the loader's images,
@@ -26,12 +33,11 @@ mutual-NN matcher does not run. The matcher slot takes a learned matcher
 (LightGlue, ``frontend/registry.build_matcher``); ``None`` keeps the fused
 mutual-NN matcher inside the two-view batch.
 
-Not ported: image-correspondence generators (the keypoint aggregator), the
-feed-forward branch, chunked loading, caches, telemetry, the retrieval
-metrics group, MVS, the splat video and feed-forward ``gs_init``, and of
-the export the HTML report, the process graph, the viewer, the plots, the
-PLY files and the per-cluster ``SceneTree`` (ROADMAP queue 1 items 3, 5, 9
-and 10).
+Not ported: image-correspondence generators (the keypoint aggregator),
+chunked loading, caches, telemetry, the retrieval metrics group, MVS and
+its dense PLY, the splat video, and of the export the HTML report, the
+process graph, the viewer, the plots and the per-cluster ``SceneTree``
+(ROADMAP queue 1 items 3, 5, 9 and 10).
 """
 
 from __future__ import annotations
@@ -51,11 +57,13 @@ from gtsfm_tpu_torch.evaluation.metrics import (
     pose_auc,
     relative_pose_errors,
 )
+from gtsfm_tpu_torch.frontend.anysplat import AnySplatModel, AnySplatOptions, gaussian_means_as_tracks
 from gtsfm_tpu_torch.frontend.detectors.dog_sift import DoGSift, DoGSiftOptions
 from gtsfm_tpu_torch.frontend.global_descriptors.descriptors import TinyImageDescriptor
 from gtsfm_tpu_torch.frontend.reports import aggregate_frontend_metrics, make_reports
 from gtsfm_tpu_torch.frontend.two_view import TwoViewOptions, TwoViewResult, run_two_view_batch
 from gtsfm_tpu_torch.io import colmap as colmap_io
+from gtsfm_tpu_torch.io.ply import write_ply
 from gtsfm_tpu_torch.loader.base import LoaderBase, batch_calibrations
 from gtsfm_tpu_torch.retriever.bridge import find_bridge_pairs
 from gtsfm_tpu_torch.retriever.retrievers import (
@@ -63,9 +71,18 @@ from gtsfm_tpu_torch.retriever.retrievers import (
     SequentialRetriever,
     SimilarityRetriever,
 )
+from gtsfm_tpu_torch.scene.cluster_feedforward import (
+    ClusterFastFeedforward,
+    ClusterFeedforward,
+    ClusterFeedforwardOptions,
+    depth_to_splats,
+    pad_to_patch_grid,
+)
 from gtsfm_tpu_torch.scene.hierarchical import HierarchicalOptions, HierarchicalReconstruction
 from gtsfm_tpu_torch.scene.mvo import MultiViewOptimizer, MVOOptions
 from gtsfm_tpu_torch.splat.gaussian_splatting import GaussianSplatting, GSTrainOptions
+from gtsfm_tpu_torch.splat.gs_data import export_ply
+from gtsfm_tpu_torch.splat.merge import transform_splats
 from gtsfm_tpu_torch.utils.ellipsoid import align_scene_to_axes
 from gtsfm_tpu_torch.utils.geometry_comparisons import compare_global_poses
 from gtsfm_tpu_torch.utils.numerics import resolve_device
@@ -90,6 +107,14 @@ class SceneOptimizerOptions(NamedTuple):
     # the splat back end (the reference's --run_gs)
     run_gs: bool = False
     gs_iterations: int = 800
+    # the reconstruction engine: mvo (the front end and back end) or a
+    # feed-forward slot (scene/cluster_feedforward.py)
+    cluster_optimizer: str = "mvo"  # mvo | vggt | fastvggt | anysplat
+    feedforward_post_ba: bool = True
+    # the feed-forward model: "compact" or "vggt_exact" (the public VGGT-1B
+    # layout, with the weights of vggt_weights_path)
+    feedforward_backbone: str = "compact"
+    vggt_weights_path: Optional[str] = None
     # without GT, rotate the scene so that the point cloud's principal axes
     # lie along the world axes
     axis_align_when_no_gt: bool = True
@@ -136,6 +161,8 @@ class SceneOptimizer:
         t_start = time.perf_counter()
         n = len(loader)
         groups = []
+        if opts.cluster_optimizer != "mvo":
+            return self._run_feedforward(loader, t_start, groups)
         direct = self.correspondence is not None
 
         t0 = time.perf_counter()
@@ -227,19 +254,66 @@ class SceneOptimizer:
         ]))
         return self._finalize(loader, data, mvo_metrics, groups, t_start, images, gt)
 
-    def _finalize(self, loader, data, mvo_metrics, groups, t_start, images, gt):
+    def _run_feedforward(self, loader: LoaderBase, t_start: float, groups: list) -> tuple:
+        """The whole scene through the feed-forward slot
+        (scene/cluster_feedforward.py) in place of the front end and back
+        end, then the common tail; the anysplat slot's gaussians start the
+        trainer (or are exported as they are)."""
+        opts = self.options
+        t0 = time.perf_counter()
+        images, sizes = loader.load_grayscale_batch()
+        cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
+        ff_opts = ClusterFeedforwardOptions(run_post_ba=opts.feedforward_post_ba, backbone=opts.feedforward_backbone,
+                                            vggt_weights_path=opts.vggt_weights_path or "")
+        cls = ClusterFastFeedforward if opts.cluster_optimizer == "fastvggt" else ClusterFeedforward
+        ff = cls(ff_opts, device=self.device)
+        data, ff_metrics, (poses, depth, conf) = ff.run_raw(images, cal)
+        data = data.replace(meta=SceneMeta(image_names=loader.image_filenames(),
+                                           image_sizes=[(w, h) for (h, w) in sizes]))
+        ff_metrics["feedforward_sec"] = time.perf_counter() - t0
+        self.backend_metrics = ff_metrics
+        groups.append(MetricsGroup("feedforward_metrics", [
+            Metric(k, v) for k, v in ff_metrics.items() if isinstance(v, (int, float))]))
+        gs_init = None
+        if opts.cluster_optimizer == "anysplat":
+            gs_init = self._feedforward_splats(ff, images, depth, conf, cal, data.poses, ff_opts)
+        gt = loader.get_gt_poses()
+        if gt is not None:
+            gt = gt.map(lambda a: a.to(self.device))
+        return self._finalize(loader, data, ff_metrics, groups, t_start, images, gt, gs_init=gs_init)
+
+    @staticmethod
+    def _feedforward_splats(ff, images, depth, conf, cal, poses, ff_opts):
+        """The anysplat slot's gaussians: with the vggt_exact backbone VGGT
+        runs again (a third aggregator pass, after the slot's forward and
+        its track head) and the AnySplat-class model on a fourth
+        (frontend/anysplat.py), as in the reference; else the depth maps
+        lifted by depth_to_splats."""
+        if ff_opts.backbone != "vggt_exact":
+            return depth_to_splats(poses, depth, conf, cal, images=images, conf_threshold=ff_opts.conf_threshold)
+        padded = pad_to_patch_grid(images, ff_opts.model.patch_size)
+        vggt_model = ff._run_vggt_exact(padded, cal)[-1]
+        model = AnySplatModel.from_vggt(vggt_model, AnySplatOptions(conf_threshold=ff_opts.conf_threshold))
+        return model.run(np.repeat(padded[..., None], 3, axis=-1))["gaussians"]
+
+    def _finalize(self, loader, data, mvo_metrics, groups, t_start, images, gt, gs_init=None):
         """Evaluation (with ``gt`` on the device: the scene moved into the GT
-        frame; without: the axis alignment), the splat trainer on the
-        grayscale images when ``run_gs`` is set, run time, and the results
-        under ``output_root``."""
+        frame, with ``gs_init``, the feed-forward gaussians; without: the
+        axis alignment, unless there are feed-forward gaussians), the splat
+        trainer on the grayscale images when ``run_gs`` is set (from
+        ``gs_init`` when given), run time, and the results under
+        ``output_root``: the COLMAP text, the metrics JSON, and with
+        gaussians ``splats.ply`` and ``gaussian_points.ply``."""
         opts = self.options
         failed = bool(mvo_metrics.get("failed"))
-        if gt is None and opts.axis_align_when_no_gt and not failed:
+        if gt is None and opts.axis_align_when_no_gt and gs_init is None and not failed:
             data = align_scene_to_axes(data)
         if gt is not None and not failed:
             est_mask = data.pose_mask.cpu().numpy()
             rot_err, t_err, sim = relative_pose_errors(data.poses, gt, est_mask)
             data = data.transform(sim)
+            if gs_init is not None:
+                gs_init = transform_splats(gs_init, sim)
             auc = pose_auc(rot_err[est_mask])
             est_idx = torch.as_tensor(np.flatnonzero(est_mask), device=data.points.device)
             crit = compare_global_poses(
@@ -261,13 +335,16 @@ class SceneOptimizer:
                 ]))
             cal0 = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
             groups.append(intrinsics_error_metrics(data.cal, cal0, valid_mask=est_mask))
+        gs_result = None
         if opts.run_gs and not failed and data.number_tracks() > 0:
             t0 = time.perf_counter()
             trainer = GaussianSplatting(GSTrainOptions(iterations=opts.gs_iterations), device=self.device)
-            _splats, gs_metrics = trainer.train(data, images)
+            gs_result, gs_metrics = trainer.train(data, images, gs_init=gs_init)
             gs_metrics["gs_sec"] = time.perf_counter() - t0
             groups.append(MetricsGroup("gaussian_splatting_metrics",
                                        [Metric(k, v) for k, v in gs_metrics.items()]))
+        elif gs_init is not None:
+            gs_result = gs_init
         groups.append(MetricsGroup("total_summary",
                                    [Metric("total_runtime_sec", time.perf_counter() - t_start)]))
         if opts.output_root:
@@ -277,6 +354,9 @@ class SceneOptimizer:
                 colmap_io.write_scene(data, os.path.join(results_dir, "ba_output"))
             for g in groups:
                 g.save_json(os.path.join(results_dir, "metrics"))
+            if gs_result is not None:
+                export_ply(gs_result, os.path.join(results_dir, "splats.ply"))
+                write_ply(os.path.join(results_dir, "gaussian_points.ply"), *gaussian_means_as_tracks(data, gs_result))
         return data, groups
 
     def _detect_batch(self, images: torch.Tensor, sizes):

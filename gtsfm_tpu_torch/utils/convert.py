@@ -274,3 +274,170 @@ def disk_state_dict(params) -> dict:
         sd[f"unet.path_up.{j}.conv.1.weight"] = _f32(blk["slope"])
         _put_conv(sd, f"unet.path_up.{j}.conv.2", blk)
     return sd
+
+
+# ---- the feed-forward models: the reference's param trees -> the port's
+# state_dicts. Flax Dense kernels and the reference's "kernel" matrices are
+# (in, out), torch's (out, in); its conv kernels (kh, kw, I, O).
+
+
+def feedforward_state_dict(params) -> dict:
+    """The compact ``FeedforwardNet``'s Flax params (with or without the
+    FastVGGT global blocks) -> the port's ``FeedforwardNet`` state_dict."""
+    sd = {}
+
+    def dense(key, p):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(np.asarray(p["kernel"]).T), _f32(p["bias"])
+
+    def norm(key, p):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(p["scale"]), _f32(p["bias"])
+
+    _put_conv(sd, "patch_embed", params["patch_embed"])
+    for name in ("pos_embed", "camera_token", "frame_embed"):
+        sd[name] = _f32(params[name])
+    depth = len([k for k in params if k.startswith("frame_") and k[6:].isdigit()])
+    for i in range(depth):
+        for src, dst in ((f"frame_{i}", f"frame_blocks.{i}"), (f"global_{i}", f"global_blocks.{i}")):
+            p = params[src]
+            fast = "q" in p["attn"]
+            norms = ("norm1", "norm_context", "norm2") if fast else ("norm1", "norm2")
+            for j, n in enumerate(norms):
+                norm(f"{dst}.{n}", p[f"LayerNorm_{j}"])
+            for name in (("q", "kv", "proj") if fast else ("qkv", "proj")):
+                dense(f"{dst}.attn.{name}", p["attn"][name])
+            dense(f"{dst}.mlp.fc1", p["Dense_0"])
+            dense(f"{dst}.mlp.fc2", p["Dense_1"])
+    for name in ("pose_head", "depth_head", "conf_head", "track_head"):
+        dense(name, params[name])
+    return sd
+
+
+def _vggt_block(sd: dict, key: str, p) -> None:
+    for n in ("norm1", "norm2"):
+        sd[f"{key}.{n}.weight"], sd[f"{key}.{n}.bias"] = _f32(p[n]["scale"]), _f32(p[n]["bias"])
+    a = p["attn"]
+    for n in ("qkv", "proj"):
+        sd[f"{key}.attn.{n}.weight"] = _f32(np.asarray(a[f"{n}_kernel"]).T)
+        sd[f"{key}.attn.{n}.bias"] = _f32(a[f"{n}_bias"])
+    for n in ("q_norm", "k_norm"):
+        if n in a:
+            sd[f"{key}.attn.{n}.weight"], sd[f"{key}.attn.{n}.bias"] = _f32(a[n]["scale"]), _f32(a[n]["bias"])
+    for n in ("fc1", "fc2"):
+        sd[f"{key}.mlp.{n}.weight"] = _f32(np.asarray(p["mlp"][f"{n}_kernel"]).T)
+        sd[f"{key}.mlp.{n}.bias"] = _f32(p["mlp"][f"{n}_bias"])
+    for n in ("ls1", "ls2"):
+        sd[f"{key}.{n}.gamma"] = _f32(np.broadcast_to(np.asarray(p.get(n, 1.0), np.float32), p["norm1"]["bias"].shape))
+
+
+def _dpt_state_dict(sd: dict, head: str, p) -> None:
+    """A reference DPT param dict -> ``head.*`` (refinenet4 without its
+    unused first residual unit, the public layout; ``lax.conv_transpose``
+    takes the kernel unflipped, so the torch weight is the flipped (I, O)
+    kernel)."""
+    sd[f"{head}.norm.weight"], sd[f"{head}.norm.bias"] = _f32(p["norm"]["scale"]), _f32(p["norm"]["bias"])
+    for i, c in enumerate(p["projects"]):
+        _put_conv(sd, f"{head}.projects.{i}", c)
+    for i in (0, 1):
+        k = np.asarray(p["resize"][i]["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        sd[f"{head}.resize_layers.{i}.weight"] = _f32(np.ascontiguousarray(k))
+        sd[f"{head}.resize_layers.{i}.bias"] = _f32(p["resize"][i]["bias"])
+    _put_conv(sd, f"{head}.resize_layers.3", p["resize"][3])
+    sc = p["scratch"]
+    for i in range(1, 5):
+        sd[f"{head}.scratch.layer{i}_rn.weight"] = _f32(np.asarray(sc[f"layer{i}_rn"]["kernel"]).transpose(3, 2, 0, 1))
+        r = sc[f"refinenet{i}"]
+        for unit in (("resConfUnit2",) if i == 4 else ("resConfUnit1", "resConfUnit2")):
+            for c in ("conv1", "conv2"):
+                _put_conv(sd, f"{head}.scratch.refinenet{i}.{unit}.{c}", r[unit][c])
+        _put_conv(sd, f"{head}.scratch.refinenet{i}.out_conv", r["out_conv"])
+    _put_conv(sd, f"{head}.scratch.output_conv1", p["output_conv1"])
+    if "output_conv2_0" in p:
+        _put_conv(sd, f"{head}.scratch.output_conv2.0", p["output_conv2_0"])
+        _put_conv(sd, f"{head}.scratch.output_conv2.2", p["output_conv2_2"])
+
+
+def vggt_state_dict(params) -> dict:
+    """The reference VGGT's param tree (``init_params`` or its converter's,
+    with ``track_head``, ``point_head`` and AnySplat's ``gaussian_head``
+    when present) -> the public ``model.state_dict()`` layout the port's
+    ``VGGTNet`` loads (``gaussian_head.*`` in the depth head's layout)."""
+    sd = {}
+    agg, pe = params["aggregator"], params["aggregator"]["patch_embed"]
+    pre = "aggregator.patch_embed."
+    sd[pre + "patch_embed.proj.weight"] = _f32(np.asarray(pe["patch_kernel"]).transpose(3, 2, 0, 1))
+    sd[pre + "patch_embed.proj.bias"] = _f32(pe["patch_bias"])
+    for n in ("cls_token", "register_tokens", "pos_embed"):
+        sd[pre + n] = _f32(pe[n])
+    for i, blk in enumerate(pe["blocks"]):
+        _vggt_block(sd, f"{pre}blocks.{i}", blk)
+    sd[pre + "norm.weight"], sd[pre + "norm.bias"] = _f32(pe["norm"]["scale"]), _f32(pe["norm"]["bias"])
+    sd["aggregator.camera_token"] = _f32(np.asarray(agg["camera_token"])[None])
+    sd["aggregator.register_token"] = _f32(np.asarray(agg["register_token"])[None])
+    for kind in ("frame_blocks", "global_blocks"):
+        for i, blk in enumerate(agg[kind]):
+            _vggt_block(sd, f"aggregator.{kind}.{i}", blk)
+    ch = params["camera_head"]
+    for n in ("token_norm", "trunk_norm"):
+        sd[f"camera_head.{n}.weight"], sd[f"camera_head.{n}.bias"] = _f32(ch[n]["scale"]), _f32(ch[n]["bias"])
+    for i, blk in enumerate(ch["trunk"]):
+        _vggt_block(sd, f"camera_head.trunk.{i}", blk)
+    sd["camera_head.empty_pose_tokens"] = _f32(np.asarray(ch["empty_pose_tokens"]).reshape(1, 1, -1))
+    for src, dst in (("embed_pose", "embed_pose"), ("mod", "poseLN_modulation.1")):
+        sd[f"camera_head.{dst}.weight"] = _f32(np.asarray(ch[f"{src}_kernel"]).T)
+        sd[f"camera_head.{dst}.bias"] = _f32(ch[f"{src}_bias"])
+    for n in ("fc1", "fc2"):
+        sd[f"camera_head.pose_branch.{n}.weight"] = _f32(np.asarray(ch["pose_branch"][f"{n}_kernel"]).T)
+        sd[f"camera_head.pose_branch.{n}.bias"] = _f32(ch["pose_branch"][f"{n}_bias"])
+    for head in ("depth_head", "point_head", "gaussian_head"):
+        if head in params:
+            _dpt_state_dict(sd, head, params[head])
+    if "track_head" in params:
+        sd.update(vggt_track_state_dict(params["track_head"]))
+    return sd
+
+
+def vggt_track_state_dict(params) -> dict:
+    """The reference track head's param tree -> ``track_head.*``."""
+    sd = {}
+    _dpt_state_dict(sd, "track_head.feature_extractor", params["feature_extractor"])
+    tk, pre = params["tracker"], "track_head.tracker."
+
+    def linear(key, p):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(np.asarray(p["kernel"]).T), _f32(p["bias"])
+
+    def norm(key, p):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(p["scale"]), _f32(p["bias"])
+
+    def mlp(key, p):
+        linear(f"{key}.fc1", {"kernel": p["fc1_kernel"], "bias": p["fc1_bias"]})
+        linear(f"{key}.fc2", {"kernel": p["fc2_kernel"], "bias": p["fc2_bias"]})
+
+    def mha(key, p):
+        sd[f"{key}.in_proj_weight"], sd[f"{key}.in_proj_bias"] = _f32(p["in_proj_weight"]), _f32(p["in_proj_bias"])
+        sd[f"{key}.out_proj.weight"], sd[f"{key}.out_proj.bias"] = _f32(p["out_proj_weight"]), _f32(p["out_proj_bias"])
+
+    norm(pre + "fmap_norm", tk["fmap_norm"])
+    mlp(pre + "corr_mlp", tk["corr_mlp"])
+    uf = tk["updateformer"]
+    linear(pre + "updateformer.input_transform", uf["input_transform"])
+    linear(pre + "updateformer.flow_head", uf["flow_head"])
+    sd[pre + "updateformer.virual_tracks"] = _f32(uf["virual_tracks"])
+    for kind in ("time_blocks", "space_virtual_blocks"):
+        for i, b in enumerate(uf[kind]):
+            key = f"{pre}updateformer.{kind}.{i}"
+            norm(f"{key}.norm1", b["norm1"])
+            mha(f"{key}.attn", b["attn"])
+            norm(f"{key}.norm2", b["norm2"])
+            mlp(f"{key}.mlp", b["mlp"])
+    for kind in ("space_point2virtual_blocks", "space_virtual2point_blocks"):
+        for i, b in enumerate(uf[kind]):
+            key = f"{pre}updateformer.{kind}.{i}"
+            for n in ("norm1", "norm_context", "norm2"):
+                norm(f"{key}.{n}", b[n])
+            mha(f"{key}.cross_attn", b["cross_attn"])
+            mlp(f"{key}.mlp", b["mlp"])
+    norm(pre + "ffeat_norm", tk["ffeat_norm"])
+    for src, dst in (("ffeat_updater", "ffeat_updater.0"), ("vis_predictor", "vis_predictor.0"),
+                     ("conf_predictor", "conf_predictor.0")):
+        linear(pre + dst, tk[src])
+    return sd

@@ -10,15 +10,17 @@ do so explicitly.
 
 Also here: the unrolled tiny-system solvers of the reference (batched LAPACK
 calls on 3x3..9x9 matrices are slow on the card as they were on the TPU), a
-small dataclass base for the port's tensor structs, and a counter-based
-uniform generator that replaces ``jax.random`` streams.
+small dataclass base for the port's tensor structs, a counter-based
+uniform generator that replaces ``jax.random`` streams, and the plain
+attention of the feed-forward models, in chunks of query rows.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 
@@ -40,6 +42,35 @@ def precise():
         yield
     finally:
         mat.allow_tf32, torch.backends.cudnn.allow_tf32, mat.allow_bf16_reduced_precision_reduction = prev
+
+
+# float32 attention scores per chunk of query rows (``attention``)
+SCORE_BYTES = 1 << 30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_scale: Optional[float] = None,
+              score_div: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T) v with q (..., N, h, d), k and v (..., M, h, d) ->
+    (..., N, h, d). ``q_scale`` multiplies q before the product,
+    ``score_div`` divides the scores after it (the two references' orders).
+    Query rows go in chunks whose (..., h, rows, M) float32 scores hold
+    SCORE_BYTES at most; every row's numbers are those of one pass."""
+    qh, kh, vh = (a.movedim(-2, -3) for a in (q, k, v))  # (..., h, N|M, d)
+    kt = kh.transpose(-1, -2)
+    N, M = qh.shape[-2], kh.shape[-2]
+    per_row = 4 * M * math.prod(qh.shape[:-2])
+    rows = max(1, SCORE_BYTES // max(per_row, 1))
+    outs = []
+    for s in range(0, N, rows):
+        qs = qh[..., s : s + rows, :]
+        if q_scale is not None:
+            qs = qs * q_scale
+        att = qs @ kt
+        if score_div is not None:
+            att = att / score_div
+        outs.append(torch.softmax(att, dim=-1) @ vh)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
+    return out.movedim(-3, -2)
 
 
 def resolve_device(device) -> torch.device:

@@ -11,7 +11,10 @@ LMedS votes, the information spectrum) on the card against the CPU; the
 deep front end's nets (SuperPoint, D2-Net, DISK, NetVLAD, hloc NetVLAD,
 MegaLoc, on their seeded inits) on the card against the CPU, with
 chip_smoke's DEEP_KEYPOINT_SHARE and DEEP_DESC_TOL, and RANSAC on a
-one-match pair (NaN hypotheses) without a raise.
+one-match pair (NaN hypotheses) without a raise; the feed-forward models
+(the reduced VGGT with its track head, the compact model with and without
+the FastVGGT block) on the card against the CPU with TF32 off, and the
+chunked attention against one pass at a global block's shape.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -852,3 +855,60 @@ def test_ransac_on_a_one_match_pair_runs_on_the_card():
     out = ransac_essential(x1.cuda(), x2.cuda(), mask.cuda(), torch.full((2,), 0.0067, device="cuda"),
                            sample_idx=idx.cuda())
     assert not out["success"].any() and (out["num_inliers"].cpu() <= mask.sum(-1)).all()
+
+
+@pytest.mark.cuda
+def test_feedforward_models_on_the_card_equal_the_cpu():
+    """The reduced VGGT with its track head (the weight-free vggt_exact
+    model's dims, its seeded init) and the compact model (chip_smoke's
+    seeded fixture at 64x80, with and without the FastVGGT block) on the
+    card with TF32 off against the CPU: cameras 2e-4 relative, depth and
+    confidence 5e-4 relative, the compact model's outputs 2e-4 (the
+    feedforward phase's tolerances), one tracker iteration 5e-3 px."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import feedforward_fixture, vggt_track_iters
+    from gtsfm_tpu_torch.frontend.feedforward import FeedforwardOptions, FeedforwardReconstruction
+    from gtsfm_tpu_torch.frontend.vggt import VGGTModel, VGGTOptions
+    from gtsfm_tpu_torch.frontend.vggt_track import TrackOptions
+    from gtsfm_tpu_torch.scene.cluster_feedforward import REDUCED_TRACK, REDUCED_VGGT
+    from gtsfm_tpu_torch.utils import convert
+
+    rng = np.random.default_rng(0)
+    imgs = rng.uniform(0, 1, (3, 70, 84, 3)).astype(np.float32)
+    qp = rng.uniform(4, 60, (9, 2)).astype(np.float32)
+    host = VGGTModel(VGGTOptions(**REDUCED_VGGT), seed=0, track_options=TrackOptions(**REDUCED_TRACK))
+    card = VGGTModel(VGGTOptions(**REDUCED_VGGT), state_dict=host.net.state_dict(), device="cuda")
+    want, got = host.run(imgs), {k: v.cpu() for k, v in card.run(imgs).items()}
+    for k, tol in (("extrinsic", 2e-4), ("intrinsic", 2e-4), ("depth", 5e-4), ("depth_conf", 5e-4)):
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=tol, atol=tol, err_msg=k)
+    t_host, t_card = vggt_track_iters(host, imgs, qp, 1), vggt_track_iters(card, imgs, qp, 1)
+    np.testing.assert_allclose(t_card["tracks"], t_host["tracks"], atol=5e-3)
+    np.testing.assert_allclose(t_card["vis"], t_host["vis"], atol=1e-4)
+    gray = imgs[..., 0][:, :64, :80]
+    for stride in (1, 4):
+        sd = convert.feedforward_state_dict(feedforward_fixture(0, (64, 80), stride))
+        outs = [FeedforwardReconstruction(FeedforwardOptions(global_kv_stride=stride), sd, (64, 80), device=d)
+                .run(gray) for d in ("cpu", "cuda")]
+        for name, a, b in (("R", outs[0][0].R, outs[1][0].R), ("t", outs[0][0].t, outs[1][0].t),
+                           ("conf", outs[0][2], outs[1][2]), ("focal", outs[0][3], outs[1][3])):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=2e-4, err_msg=f"{name} stride {stride}")
+        np.testing.assert_allclose(outs[1][1].cpu().numpy(), outs[0][1].numpy(), rtol=5e-4, err_msg="depth")
+
+
+@pytest.mark.cuda
+def test_chunked_global_attention_on_the_card_equals_one_pass(monkeypatch):
+    """numerics.attention at a global block's shape (16 heads of 64 over
+    6,000 tokens) in chunks of 83 query rows against one pass, on the card
+    with TF32 off: 1e-5 (the same rows' sums, another chunking)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.utils import numerics
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(1, 6000, 16, 64, device="cuda", generator=gen) for _ in range(3))
+    with precise():
+        one = numerics.attention(q, k, v, q_scale=0.125)
+        monkeypatch.setattr(numerics, "SCORE_BYTES", 16 * 6000 * 4 * 83)
+        chunked = numerics.attention(q, k, v, q_scale=0.125)
+    assert torch.allclose(chunked, one, atol=1e-5)

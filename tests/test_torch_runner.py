@@ -1,6 +1,13 @@
 """The port's default entry point against the JAX reference, on the CPU:
 the loaders, COLMAP text IO, bridge reconnection, axis alignment, track
-classification, intrinsics errors, the configs and both runners end to end.
+classification, intrinsics errors, the configs and both runners end to end,
+and the feed-forward slots (vggt, fastvggt, anysplat with --run_gs) end to
+end on chip_smoke's numpy-made views with one set of seeded weights
+(``chip_smoke.feedforward_fixture``) in both packages' model caches: the
+same feed-forward track count, all cameras registered, AUC@5 within 0.02,
+and for anysplat the trainer's initial L1 within 1e-3 relative (one
+gaussian set, rendered by the plain compositing and by XLA), a falling L1
+and the two PLY files with the reference's vertex counts.
 
 Tolerances: images equal; intrinsics and poses 1e-6 (float32 values from
 the same float64 host arithmetic, one rounding apart); host numpy ports
@@ -62,8 +69,15 @@ COLMAP_PARAMS = {
     "FULL_OPENCV": "200.5 202.0 80.5 59.5 -0.05 0.01 0.0005 -0.0003 0.001 0.0 0.0 0.0",
     "OPENCV_FISHEYE": "190.0 191.0 80.0 60.0 0.02 -0.005 0.001 -0.0001",
 }
-SHIPPED = ("unified", "sift_front_end", "door", "cluster", "synthetic_front_end", "unit_test")
+SHIPPED = ("unified", "sift_front_end", "door", "cluster", "synthetic_front_end", "unit_test", "vggt", "fastvggt",
+           "anysplat")
 VIEWS = 8  # ring views of the end-to-end test
+# the feed-forward runners' folder: chip_smoke.feedforward_views of the
+# first FF_VIEWS ring cameras at FF_HW, f = FF_FOCAL
+FF_VIEWS = 4
+FF_HW = (96, 128)
+FF_FOCAL = 120.0
+FF_GS_STEPS = 50  # the trainer reports the mean L1 of its first and of its last 20 steps
 
 
 def _rot(rng):
@@ -355,7 +369,7 @@ def test_unported_components_and_flags_raise_before_any_work(tmp_path):
                                                         ["scene_optimizer.two_view.no_such_option=true"]))
     base = ["--dataset_dirpath", str(tmp_path), "--output_root", str(tmp_path / "out")]
     for flags in (["--loader", "hilti"], ["--bal", "x.txt"], ["--compare_to", "d"], ["--run_mvs"],
-                  ["--cluster_optimizer", "vggt"], ["--use_cache"], ["--load_chunk_size", "4"], ["--prewarm"],
+                  ["--use_cache"], ["--load_chunk_size", "4"], ["--prewarm"],
                   ["--distributed_coordinator", "localhost:1"], ["--gs_video_frames", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             runner.main(base + flags)
@@ -400,3 +414,59 @@ def test_runners_end_to_end(tmp_path):
     for out in ("jax", "port"):
         back = colmap.read_scene(str(tmp_path / out / "results" / "ba_output"))
         assert back.number_images() == VIEWS and back.number_tracks() > 0
+
+
+@pytest.mark.parametrize("slot", ["vggt", "fastvggt", "anysplat"])
+def test_feedforward_runners_end_to_end(tmp_path, slot):
+    from gtsfm_tpu.frontend.feedforward import FeedforwardOptions as JFFOptions
+    from gtsfm_tpu.scene import cluster_feedforward as j_cf
+    from gtsfm_tpu_torch.frontend.feedforward import FeedforwardOptions
+    from gtsfm_tpu_torch.io.ply import read_ply
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+
+    n = chip_smoke.NUM_CAMERAS
+    gt = spectral_ring_poses(chip_smoke.ring_pairs(n), n)
+    R, t = gt.R.numpy(), gt.t.numpy()
+    order = chip_smoke.ring_order(t)[:FF_VIEWS]
+    views = chip_smoke.feedforward_views(R, t, order, hw=FF_HW, focal=FF_FOCAL)
+    chip_smoke.write_olsson(str(tmp_path / "data"), views, R[order], t[order], FF_FOCAL)
+    stride = 4 if slot == "fastvggt" else 1
+    params = chip_smoke.feedforward_fixture(0, FF_HW, stride)
+    saved_j, saved_t = dict(j_cf._MODEL_CACHE), dict(cf._MODEL_CACHE)
+    try:
+        j_cf._resolve_model(j_cf.ClusterFeedforwardOptions(model=JFFOptions(global_kv_stride=stride)), FF_HW, params)
+        cf._resolve_model(cf.ClusterFeedforwardOptions(model=FeedforwardOptions(global_kv_stride=stride)), FF_HW,
+                          convert.feedforward_state_dict(params), "cpu")
+        args = ["--config_name", slot, "--loader", "olsson", "--dataset_dirpath", str(tmp_path / "data"),
+                "--output_root"]
+        extra = ["--run_gs", f"scene_optimizer.gs_iterations={FF_GS_STEPS}"] if slot == "anysplat" else []
+        assert j_runner.main(args + [str(tmp_path / "jax")] + extra) == 0
+        assert runner.main(args + [str(tmp_path / "port")] + extra + ["scene_optimizer.device=cpu"]) == 0
+    finally:
+        j_cf._MODEL_CACHE.clear()
+        j_cf._MODEL_CACHE.update(saved_j)
+        cf._MODEL_CACHE.clear()
+        cf._MODEL_CACHE.update(saved_t)
+    mj, mt = _scalars(str(tmp_path / "jax")), _scalars(str(tmp_path / "port"))
+    assert mt["feedforward_metrics"]["num_tracks_ff"] == mj["feedforward_metrics"]["num_tracks_ff"] > 0
+    reg_j, reg_t = len(mj["ba_pose_metrics"]["rotation_error_deg"]), len(mt["ba_pose_metrics"]["rotation_error_deg"])
+    assert reg_t == reg_j == FF_VIEWS
+    auc_j, auc_t = mj["ba_pose_metrics"]["pose_auc_@5.0_deg"], mt["ba_pose_metrics"]["pose_auc_@5.0_deg"]
+    assert abs(auc_t - auc_j) <= 0.02, (auc_t, auc_j)
+    if slot != "anysplat":
+        assert "gaussian_splatting_metrics" not in mt
+        return
+    gj, gtm = mj["gaussian_splatting_metrics"], mt["gaussian_splatting_metrics"]
+    np.testing.assert_allclose(gtm["initial_l1"], gj["initial_l1"], rtol=1e-3)
+    assert gtm["final_l1"] < gtm["initial_l1"]
+    for name in ("splats.ply", "gaussian_points.ply"):
+        from gtsfm_tpu.io.ply import read_ply as j_read_ply
+
+        if name == "splats.ply":
+            from gtsfm_tpu_torch.splat.gs_data import load_ply
+
+            assert load_ply(str(tmp_path / "port" / "results" / name)).max_gaussians == len(
+                j_read_ply(str(tmp_path / "jax" / "results" / name))[0])
+        else:
+            assert len(read_ply(str(tmp_path / "port" / "results" / name))[0]) == len(
+                j_read_ply(str(tmp_path / "jax" / "results" / name))[0])

@@ -153,7 +153,26 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    scene_optimizer.feedforward_backbone=vggt_exact on the 32 rendered
    views: each aggregator pass, head, the tracker and post-BA timed, the
    attention's share of the aggregator, peak memory; every camera
-   registered with finite poses.
+   registered with finite poses;
+19. mvs: the dense back ends on the card held to the JAX package
+   (MVS_REFERENCE, written by scripts/mvs_reference.py on the CPU) on the
+   FF_VIEWS feedforward_views at 480x640 with their GT poses and
+   MVS_TRACKS GT points (mvs_tracks): equal source views, depth ranges
+   within 1e-5; PlaneSweepMVS at MVSOptions() (its confident depths, see
+   MVS_SWEEP_*) and PatchmatchNetMVS on the seeded pmnet_fixture
+   (>= 99% of the depths held every 8 pixels within 1e-3, dense count
+   within 1%), cold and warm, with each backend's median error against
+   the analytic depth beside the JAX package's; one plane-sweep view
+   timed at 960x1280;
+20. mvs_runner: the runner with --run_mvs on the runner phase's 32 views,
+   cold and warm, then with --mvs_backend patchmatchnet: the runner's bars,
+   an mvs_metrics group with a depth map for every registered view but
+   one at most, a plane-sweep dense_points.ply with points, matcher
+   launches (they join the kernels line); mvs_sec and its three parts;
+21. bal: the BAL tool mode, runner.main(["--bal", ...]), on a seeded
+   problem at the public Trafalgar-257 problem's counts (bal_problem):
+   the final cost at most 1.05 times the cost at the generating
+   parameters, 257 cameras exported.
 
 The seconds of each phase are printed as it ends. The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
@@ -161,8 +180,9 @@ is the kernel table as JSON; the last line is {"ok": true, "device":
 There is no CPU mode: without a CUDA device the script stops.
 
 The descriptor feed, the glue fixture, the SuperPoint and MegaLoc
-fixtures, the feed-forward views and weights, the splat scene, the runner
-scene, the OPENCV resampling and the BA scene are defined here once, with
+fixtures, the feed-forward views and weights, the PatchmatchNet weights,
+the MVS tracks, the splat scene, the runner scene, the OPENCV resampling,
+the BA scene and the BAL problem are defined here once, with
 numpy only (VGGT's key layout read off the port's module; ring_views,
 write_olsson, write_colmap_opencv and ba_sfm_data render, write and load
 them through the port); the CPU tests and the reference scripts
@@ -402,6 +422,40 @@ VGGT_TOL_TRACK_1 = 5e-3
 VGGT_TOL_VIS_1 = 1e-4
 VGGT_TOL_TRACK = 2.0
 VGGT_TOL_VIS = 0.02
+# the mvs phase: PlaneSweepMVS and PatchmatchNetMVS at MVSOptions() on
+# the FF_VIEWS feedforward_views with GT poses and MVS_TRACKS GT tracks,
+# held to scripts/mvs_reference.py's file (the JAX package on the CPU)
+MVS_REFERENCE = "scripts/mvs_reference.npz"
+MVS_TRACKS = 2000
+MVS_SEED = 0  # mvs_tracks, pmnet_fixture and PatchmatchNetMVS's draw
+MVS_DEPTH_STEP = 8  # depth maps held every 8 pixels
+MVS_DEPTH_TOL = 1e-3  # relative, on >= MVS_DEPTH_SHARE of the held depths
+MVS_DEPTH_SHARE = 0.99
+MVS_RANGE_TOL = 1e-5  # the depth ranges, relative
+MVS_COUNT_TOL = 0.01  # dense point counts, relative
+# The plane sweep's argmax is a float32 rounding decision on this scene's
+# flat checker cells (52% of the pixels: every plane scores ~0) and where a
+# cell edge runs along the epipolar line (equal scores over many planes):
+# there its depth is held only where the reference's confidence exceeds
+# MVS_SWEEP_CONF (the pixels fusion keeps), its dense count to
+# MVS_SWEEP_COUNT_TOL, and its median error against the analytic depth on
+# those pixels to MVS_SWEEP_TRUTH_TOL of the reference's. On the CPU the
+# port held 0.968 of those depths and its count was 3.3% above (a second
+# rounding of the port's box filter: 0.965 and 3.8%).
+MVS_SWEEP_CONF = 0.3
+MVS_SWEEP_SHARE = 0.95
+MVS_SWEEP_COUNT_TOL = 0.10
+MVS_SWEEP_TRUTH_TOL = 0.01
+MVS_BIG_HW = (960, 1280)  # one plane-sweep view timed alone at twice the fixture's size
+# the bal phase: the public BAL Trafalgar-257 problem's counts, seeded
+BAL_CAMERAS = 257
+BAL_POINTS = 65_132
+BAL_OBSERVATIONS = 225_911  # Trafalgar-257's; the seeded problem's is close
+BAL_SEED = 0
+BAL_NOISE_PX = 0.5
+BAL_ROT_PERTURB = 0.01  # rad
+BAL_SCALE_PERTURB = 0.01  # of the translations' and the points' RMS norm
+BAL_COST_SLACK = 0.05  # the final cost <= (1 + slack) x the cost at the generating parameters
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +726,134 @@ def feedforward_views(R, t, indices, hw: tuple = SPLAT_HW, focal: float = SPLAT_
     return np.stack(out)
 
 
+def feedforward_depths(R, t, indices, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL) -> np.ndarray:
+    """The analytic depth (camera z, float64) of every pixel of
+    feedforward_views' views, (n, H, W): the same rays cast on the sphere
+    of radius 4 and, past it, the enclosing one of radius 40."""
+    h, w = hw
+    center = np.asarray(t, np.float64).mean(axis=0)
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    rays = np.stack([(u - w / 2.0) / focal, (v - h / 2.0) / focal, np.ones_like(u)], axis=-1).reshape(-1, 3)
+    rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+    out = []
+    for i in indices:
+        d = rays @ np.asarray(R[i], np.float64).T
+        o = np.asarray(t[i], np.float64) - center
+        b = d @ o
+        dist = np.full(len(d), np.inf)
+        for radius, near in ((4.0, True), (40.0, False)):
+            disc = b * b - (o @ o - radius * radius)
+            s = -b - np.sqrt(np.maximum(disc, 0.0)) if near else -b + np.sqrt(np.maximum(disc, 0.0))
+            sel = np.isinf(dist) & (disc >= 0) & (s > 0)
+            dist[sel] = s[sel]
+        out.append((dist * rays[:, 2]).reshape(h, w))
+    return np.stack(out)
+
+
+def mvs_tracks(R, t, indices, n: int = MVS_TRACKS, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL,
+               seed: int = MVS_SEED) -> list:
+    """GT tracks of feedforward_views' scene for the views ``indices``:
+    n seeded points, half on the sphere of radius 4 around the ring's
+    center and half on the one of radius 40, each projected (exactly,
+    float32) into the views that see it: in front, inside the image, and
+    not hidden by the near sphere. -> [(xyz, [(view, uv), ...])] of the
+    points seen by two views or more, views numbered in ``indices``."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    center = np.asarray(t, np.float64).mean(axis=0)
+    dirs = rng.standard_normal((n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    radius = np.where(np.arange(n) < n // 2, 4.0, 40.0)
+    X = center + radius[:, None] * dirs
+    obs = [[] for _ in range(n)]
+    for k, i in enumerate(indices):
+        c = np.asarray(t[i], np.float64)
+        p = (X - c) @ np.asarray(R[i], np.float64)  # camera frame
+        z = np.maximum(p[:, 2], 1e-9)
+        uv = focal * p[:, :2] / z[:, None] + np.array([w / 2.0, h / 2.0])
+        seen = (p[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+        # the near sphere hides its own far side and what lies behind it
+        ray = X - c
+        length = np.linalg.norm(ray, axis=1)
+        d = ray / length[:, None]
+        o = c - center
+        b = d @ o
+        disc = b * b - (o @ o - 16.0)
+        s = -b - np.sqrt(np.maximum(disc, 0.0))
+        seen &= ~((disc >= 0) & (s > 0) & (s < length - 1e-6))
+        for j in np.flatnonzero(seen):
+            obs[j].append((k, uv[j].astype(np.float32)))
+    return [(X[j].astype(np.float32), o) for j, o in enumerate(obs) if len(o) >= 2]
+
+
+def bal_problem(path: str, perturbed: bool, seed: int = BAL_SEED) -> dict:
+    """A seeded BAL problem at the public Trafalgar-257 problem's counts
+    (BAL_CAMERAS cameras, BAL_POINTS points, about BAL_OBSERVATIONS
+    observations), written at ``path`` in tests/io/test_bal.py's
+    convention (cameras look down -z, p = -P / P.z, f (1 + k1 r^2 + k2
+    r^4) p): cameras on a circle of radius 30 at heights 1-3 looking at
+    its center, f 800 + N(0, 50^2), k1 N(0, 0.01^2), k2 N(0, 0.001^2);
+    points in a cylinder of radius 15 and height 10, each seen by 2 +
+    Poisson(1.47) of the cameras where it projects within |p| < 0.6;
+    BAL_NOISE_PX pixel noise. With ``perturbed`` the cameras and points
+    are written moved from the truth (the observations stay): each
+    rotation by BAL_ROT_PERTURB rad about a random axis, translations and
+    points by N(0, (BAL_SCALE_PERTURB s)^2) with s their RMS norm. Returns
+    the counts."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    n_cam, n_pts = BAL_CAMERAS, BAL_POINTS
+    ang = rng.uniform(0, 2 * np.pi, n_cam)
+    centers = np.stack([30 * np.cos(ang), 30 * np.sin(ang), rng.uniform(1, 3, n_cam)], 1)
+    R_cw = np.zeros((n_cam, 3, 3))
+    for i, c in enumerate(centers):  # +z looking at a point near the center
+        zc = rng.normal(0, 1.0, 3) * [1, 1, 0.2] + [0, 0, 3] - c
+        zc /= np.linalg.norm(zc)
+        xc = np.cross(zc, [0.0, 0.0, 1.0])
+        xc /= np.linalg.norm(xc)
+        R_cw[i] = np.stack([xc, np.cross(zc, xc), zc])  # rows: the camera axes
+    t_cw = -np.einsum("nij,nj->ni", R_cw, centers)
+    F = np.diag([1.0, -1.0, -1.0])
+    R_bal, t_bal = F @ R_cw, t_cw @ F
+    f = 800.0 + rng.normal(0, 50, n_cam)
+    k1, k2 = rng.normal(0, 0.01, n_cam), rng.normal(0, 0.001, n_cam)
+    r = 15 * np.sqrt(rng.uniform(0, 1, n_pts))
+    a = rng.uniform(0, 2 * np.pi, n_pts)
+    X = np.stack([r * np.cos(a), r * np.sin(a), rng.uniform(0, 10, n_pts)], 1)
+    want = 2 + rng.poisson(1.47, n_pts)
+    cams, pts = [], []
+    for s in range(0, n_pts, 4096):  # the cameras that see each point, in chunks of points
+        P = np.einsum("nij,pj->pni", R_bal, X[s : s + 4096]) + t_bal
+        p = -P[..., :2] / P[..., 2:]
+        ok = (P[..., 2] < -0.1) & (np.linalg.norm(p, axis=-1) < 0.6)
+        for q in range(ok.shape[0]):
+            cand = np.flatnonzero(ok[q])
+            pick = rng.choice(cand, size=min(want[s + q], len(cand)), replace=False) if len(cand) >= 2 else []
+            cams += sorted(pick)
+            pts += [s + q] * len(pick)
+    cams, pts = np.asarray(cams), np.asarray(pts)
+    P = np.einsum("nij,nj->ni", R_bal[cams], X[pts]) + t_bal[cams]
+    p = -P[:, :2] / P[:, 2:]
+    r2 = np.sum(p * p, axis=1)
+    uv = (f[cams] * (1 + k1[cams] * r2 + k2[cams] * r2 * r2))[:, None] * p + rng.normal(0, BAL_NOISE_PX, (len(p), 2))
+    w_bal = Rotation.from_matrix(R_bal).as_rotvec()
+    if perturbed:
+        axis = rng.standard_normal((n_cam, 3))
+        axis *= BAL_ROT_PERTURB / np.linalg.norm(axis, axis=1, keepdims=True)
+        w_bal = (Rotation.from_rotvec(axis) * Rotation.from_rotvec(w_bal)).as_rotvec()
+        t_bal = t_bal + rng.normal(0, BAL_SCALE_PERTURB * np.sqrt(np.mean(np.sum(t_bal**2, 1))), t_bal.shape)
+        X = X + rng.normal(0, BAL_SCALE_PERTURB * np.sqrt(np.mean(np.sum(X**2, 1))), X.shape)
+    order = np.lexsort((cams, pts))  # BAL lists observations by point
+    lines = [f"{n_cam} {n_pts} {len(cams)}"]
+    lines += [f"{c} {q} {u:.6f} {v:.6f}" for c, q, (u, v) in zip(cams[order], pts[order], uv[order])]
+    cam_rows = np.concatenate([w_bal, t_bal, f[:, None], k1[:, None], k2[:, None]], 1)
+    lines += [f"{x:.12g}" for x in cam_rows.ravel()] + [f"{x:.12g}" for x in X.ravel()]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return {"cameras": n_cam, "points": n_pts, "observations": len(cams)}
+
+
 def feedforward_fixture(seed: int = 0, hw: tuple = SPLAT_HW, stride: int = 1) -> dict:
     """The compact FeedforwardNet's params at its default widths (dim 256,
     6 layer pairs, 4 heads, patch 16, track width 64) for frames of ``hw``,
@@ -821,6 +1003,50 @@ def write_vggt_weights(path: str, seed: int = 0, options=None, track_options=Non
 
     sd = vggt_fixture(seed, options, track_options)
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
+
+
+def pmnet_fixture(seed: int = 0) -> dict:
+    """A PatchmatchNet state_dict (numpy; ``num_batches_tracked`` int64) in
+    the official model_000007.ckpt layout, its keys and shapes read off the
+    port's module: convolution kernels N(0, 2 / fan_in), biases
+    N(0, 0.01^2), the offset convolutions (propa_conv, eval_conv; zero in
+    the official init) N(0, (0.1 / fan_in)^2), so that the learned offsets
+    move samples by about a tenth of a pixel; BatchNorm weights
+    1 + N(0, 0.1^2), biases N(0, 0.1^2), running means U(-0.2, 0.2) and
+    variances U(0.5, 2); drawn in the state_dict's key order."""
+    import torch
+
+    from gtsfm_tpu_torch.densify.patchmatchnet import PatchmatchNet
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in PatchmatchNet().state_dict().items():
+        shape, leaf, parent = tuple(v.shape), k.split(".")[-1], k.split(".")[-2]
+        if leaf == "num_batches_tracked":
+            sd[k] = np.zeros((), np.int64)
+        elif parent == "bn":
+            sd[k] = {"weight": lambda: 1.0 + 0.1 * rng.standard_normal(shape),
+                     "bias": lambda: 0.1 * rng.standard_normal(shape),
+                     "running_mean": lambda: rng.uniform(-0.2, 0.2, shape),
+                     "running_var": lambda: rng.uniform(0.5, 2.0, shape)}[leaf]().astype(np.float32)
+        elif leaf == "bias":
+            sd[k] = (0.01 * rng.standard_normal(shape)).astype(np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            sd_w = 0.1 / fan_in if parent in ("propa_conv", "eval_conv") else (2.0 / fan_in) ** 0.5
+            sd[k] = (sd_w * rng.standard_normal(shape)).astype(np.float32)
+    return sd
+
+
+def write_mvs_weights(path: str, seed: int = 0) -> float:
+    """``pmnet_fixture`` saved as the official checkpoint is saved: a dict
+    whose "model" holds the state_dict with DataParallel's ``module.``
+    prefix. Returns the sum of the squares of its values (float64)."""
+    import torch
+
+    sd = pmnet_fixture(seed)
+    torch.save({"epoch": 7, "model": {f"module.{k}": torch.from_numpy(np.asarray(v)) for k, v in sd.items()}}, path)
     return float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
 
 
@@ -3323,6 +3549,282 @@ def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
     return out
 
 
+def mvs_views(R, t, indices) -> np.ndarray:
+    """The mvs phase's gray images, (n, H, W) float32: feedforward_views'."""
+    return np.ascontiguousarray(feedforward_views(R, t, indices)[..., 0])
+
+
+def mvs_sfm_data(R, t, indices, dev, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL):
+    """The port's SfmData of the mvs phase on ``dev``: the views' GT poses
+    (camera-to-world R, center t), Cal3Bundler(focal, 0, 0, w/2, h/2) and
+    mvs_tracks."""
+    import torch
+
+    from gtsfm_tpu_torch.common.sfm_data import SfmData
+    from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+
+    n, (h, w) = len(indices), hw
+    f32 = dict(dtype=torch.float32, device=dev)
+    poses = SE3(R=torch.as_tensor(np.asarray(R)[indices], **f32), t=torch.as_tensor(np.asarray(t)[indices], **f32))
+    z = torch.zeros(n, **f32)
+    cal = Cal3Bundler.create(torch.full((n,), focal, **f32), z, z, torch.full((n,), w / 2.0, **f32),
+                             torch.full((n,), h / 2.0, **f32))
+    return SfmData.from_cameras_and_tracks(poses, cal, mvs_tracks(R, t, indices, hw=hw, focal=focal), num_cameras=n)
+
+
+def mvs_record(depths: dict, confs: dict, points: np.ndarray, truth: np.ndarray) -> dict:
+    """What the mvs phase holds of a backend's run (numpy): the views with
+    a depth map, depth and confidence every MVS_DEPTH_STEP pixels, the
+    dense point count and centroid, and the median relative error of the
+    depth maps against the analytic depth ``truth`` (n, H, W), on every
+    pixel and on those with confidence > MVS_SWEEP_CONF."""
+    s = MVS_DEPTH_STEP
+    views = sorted(depths)
+    d, c = np.stack([depths[i] for i in views]), np.stack([confs[i] for i in views])
+    err = np.abs(d - truth[views]) / truth[views]
+    confident = c > MVS_SWEEP_CONF
+    return {"views": np.asarray(views), "depth": d[:, s // 2 :: s, s // 2 :: s].astype(np.float32),
+            "conf": c[:, s // 2 :: s, s // 2 :: s].astype(np.float32), "count": np.asarray(len(points)),
+            "centroid": points.mean(axis=0) if len(points) else np.zeros(3, np.float32),
+            "truth_median": np.asarray(np.median(err)),
+            "truth_median_confident": np.asarray(np.median(err[confident]) if confident.any() else np.nan)}
+
+
+def phase_mvs(smi: str, R, t, work: str) -> dict:
+    """The dense back ends on the card held to the JAX package
+    (MVS_REFERENCE, from scripts/mvs_reference.py on the CPU): the
+    FF_VIEWS feedforward_views at 480x640 with their GT poses and
+    mvs_tracks; the source views equal, the depth ranges within
+    MVS_RANGE_TOL; PlaneSweepMVS at MVSOptions() and PatchmatchNetMVS on
+    pmnet_fixture (written by write_mvs_weights, read by
+    load_torch_weights), each cold and then warm: >= MVS_DEPTH_SHARE of the
+    held depths within MVS_DEPTH_TOL, dense point counts within
+    MVS_COUNT_TOL; prints the stage seconds, peak memory and each
+    backend's median relative error against the analytic depth beside
+    the JAX package's."""
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch.densify import mvs
+    from gtsfm_tpu_torch.densify import patchmatchnet as pm
+
+    dev = torch.device("cuda")
+    ref = dict(np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), MVS_REFERENCE)))
+    order = ring_order(t)[:FF_VIEWS]
+    views, truth = mvs_views(R, t, order), feedforward_depths(R, t, order)
+    data = mvs_sfm_data(R, t, order, dev)
+    opts = mvs.MVSOptions()
+    src = mvs.select_source_views(data, opts)
+    ranges = mvs._depth_range_per_view(data, opts.depth_margin)
+    range_err = float(np.max(np.abs(ranges - ref["depth_ranges"]) / np.abs(ref["depth_ranges"])))
+    print(f"mvs: {FF_VIEWS} views at {SPLAT_HW[0]}x{SPLAT_HW[1]}, {data.number_tracks()} GT tracks, "
+          f"{data.number_measurements()} measurements; source views equal to the JAX package's: "
+          f"{np.array_equal(src, ref['source_views'])}; depth ranges {np.round(ranges, 3).tolist()}, largest "
+          f"relative distance {range_err:.3g} (bar {MVS_RANGE_TOL})", flush=True)
+    if not np.array_equal(src, ref["source_views"]) or not range_err <= MVS_RANGE_TOL:
+        raise AssertionError(f"mvs: source views {src.tolist()} against {ref['source_views'].tolist()}, depth range "
+                             f"distance {range_err}")
+    path = os.path.join(work, "model_000007.ckpt")
+    sumsq = write_mvs_weights(path, MVS_SEED)
+    backends = {"plane_sweep": lambda: mvs.PlaneSweepMVS(opts, device=dev),
+                "patchmatchnet": lambda: pm.PatchmatchNetMVS(opts, state_dict=pm.load_torch_weights(path),
+                                                             seed=MVS_SEED, device=dev)}
+    out = {}
+    for name, make in backends.items():
+        backend = make()
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sec = {}
+            depths, confs = backend.compute_depths(data, views, sec)
+            t0 = time.perf_counter()
+            points, _colors, _m = mvs.fuse_depth_maps(depths, confs, data, views, opts)
+            sec["fusion_sec"] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"mvs {name} {run}: " + " ".join(f"{k} {v:.3f}" for k, v in sec.items())
+                  + f", peak device memory {peak:.3f} GiB | {smi}", flush=True)
+        out[name] = _hold_mvs(name, mvs_record(depths, confs, points, truth), ref)
+        out[name].update(sec=sec, peak_gib=peak)
+        if name == "patchmatchnet":
+            print(f"mvs patchmatchnet: seeded weights, sum of squares {sumsq:.6f}", flush=True)
+    os.remove(path)
+    out["big"] = _mvs_big_view(smi, views, data, src, ranges)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hold_mvs(name: str, rec: dict, ref: dict) -> dict:
+    """A backend's mvs_record against the reference's: the same views;
+    PatchmatchNet: >= MVS_DEPTH_SHARE of the held depths within
+    MVS_DEPTH_TOL and the dense count within MVS_COUNT_TOL; the plane
+    sweep: the same on its confident pixels (MVS_SWEEP_*, see there)."""
+    held, sweep = ref[f"{name}_depth"], name == "plane_sweep"
+    rel = np.abs(rec["depth"] - held) / np.maximum(np.abs(held), 1e-6)
+    sel = ref[f"{name}_conf"] > MVS_SWEEP_CONF if sweep else np.ones(held.shape, bool)
+    share, share_all = float(np.mean(rel[sel] <= MVS_DEPTH_TOL)), float(np.mean(rel <= MVS_DEPTH_TOL))
+    count, count_ref = int(rec["count"]), int(ref[f"{name}_count"])
+    bar_share, bar_count = (MVS_SWEEP_SHARE, MVS_SWEEP_COUNT_TOL) if sweep else (MVS_DEPTH_SHARE, MVS_COUNT_TOL)
+    truth, truth_ref = float(rec["truth_median_confident"]), float(ref[f"{name}_truth_median_confident"])
+    print(f"mvs {name}: views {rec['views'].tolist()}, {share:.5f} of {int(sel.sum())} held depths"
+          + (f" (confidence > {MVS_SWEEP_CONF})" if sweep else "") + f" within {MVS_DEPTH_TOL} of the JAX "
+          f"package's (bar {bar_share}; {share_all:.5f} of all {rel.size}; median relative distance "
+          f"{float(np.median(rel)):.3g}, largest {float(rel.max()):.3g}), {count} dense points (JAX {count_ref}, "
+          f"{count / count_ref - 1:+.4f}, bar {bar_count}), centroid {np.round(rec['centroid'], 4).tolist()} (JAX "
+          f"{np.round(ref[name + '_centroid'], 4).tolist()}); median relative error against the analytic depth "
+          f"{float(rec['truth_median']):.4f} (JAX {float(ref[name + '_truth_median']):.4f}), on the pixels of "
+          f"confidence > {MVS_SWEEP_CONF} {truth:.4f} (JAX {truth_ref:.4f})", flush=True)
+    if (not np.array_equal(rec["views"], ref["views"]) or share < bar_share
+            or abs(count - count_ref) > bar_count * count_ref
+            or (sweep and not abs(truth - truth_ref) <= MVS_SWEEP_TRUTH_TOL)):
+        raise AssertionError(f"mvs {name}: views {rec['views'].tolist()}, depth share {share}, {count} points "
+                             f"against {count_ref}, truth error {truth} against {truth_ref}")
+    return {"share": share, "share_all": share_all, "count": count, "count_ref": count_ref,
+            "truth_median": float(rec["truth_median"]), "truth_median_confident": truth}
+
+
+def _mvs_big_view(smi: str, views: np.ndarray, data, src, ranges) -> dict:
+    """plane_sweep_depth at MVSOptions() on view 0 and its sources
+    upsampled (bilinear) to MVS_BIG_HW, K scaled with them: seconds warm
+    (host clock, synchronized) and peak device memory."""
+    import torch
+    import torch.nn.functional as F
+
+    from gtsfm_tpu_torch.densify import mvs
+
+    dev = torch.device("cuda")
+    opts = mvs.MVSOptions()
+    srcs = [int(s) for s in src[0] if s != 0][: opts.num_source_views]
+    ids = [0] + srcs
+    imgs = torch.as_tensor(views[ids], device=dev)[:, None]
+    big = F.interpolate(imgs, size=MVS_BIG_HW, mode="bilinear", align_corners=False)[:, 0]
+    scale = MVS_BIG_HW[0] / views.shape[1]
+    K = data.cal.K()[ids].clone()
+    K[:, :2] *= scale
+    cTw_R = data.poses.R[ids].transpose(-1, -2)
+    cTw_t = -torch.einsum("nij,nj->ni", cTw_R, data.poses.t[ids])
+    args = (big[0], big[1:], K[0], K[1:], cTw_R[0], cTw_t[0], cTw_R[1:], cTw_t[1:], float(ranges[0, 0]),
+            float(ranges[0, 1]))
+    mvs.plane_sweep_depth(*args, num_depths=opts.num_depths, window=opts.window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    depth, _conf = mvs.plane_sweep_depth(*args, num_depths=opts.num_depths, window=opts.window)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"mvs plane sweep one view at {MVS_BIG_HW[0]}x{MVS_BIG_HW[1]} (D={opts.num_depths}, S={len(srcs)}, "
+          f"window {opts.window}): {sec:.4f} s warm, peak device memory {peak:.3f} GiB, finite "
+          f"{bool(torch.isfinite(depth).all())} | {smi}", flush=True)
+    if not bool(torch.isfinite(depth).all()):
+        raise AssertionError("mvs: the upsampled view's depth is not finite")
+    return {"sec": sec, "peak_gib": peak}
+
+
+def phase_mvs_runner(smi: str, runner_dir: str, work: str) -> dict:
+    """``gtsfm_tpu_torch.runner.main`` with --run_mvs on the runner phase's
+    32 rendered views, cold and warm (the plane sweep), then once with
+    --mvs_backend patchmatchnet on pmnet_fixture, through _runner_once:
+    each run holds the runner phase's bars, DoG-SIFT on `cuda`, a matcher
+    launch per RUNNER_PAIR_BATCH pairs, an mvs_metrics group with a depth
+    map for every registered view but one at most, and for the plane sweep
+    a dense_points.ply that reads back with points; prints mvs_sec and its
+    three parts and the peak device memory. Returns the matcher launches
+    of the three runs."""
+    import os
+
+    from gtsfm_tpu_torch.io.ply import read_ply
+
+    path = os.path.join(work, "mvs_runner_model_000007.ckpt")
+    write_mvs_weights(path, MVS_SEED)
+    base = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", runner_dir, "--run_mvs"]
+    bars = (RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK, RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK)
+    out = {"launches": 0, "runs": {}}
+    for tag, argv in (("plane_sweep cold", base), ("plane_sweep warm", base),
+                      ("patchmatchnet", base + ["--mvs_backend", "patchmatchnet", "--mvs_weights_path", path])):
+        dest = os.path.join(work, "mvs_runner_" + tag.replace(" ", "_"))
+        res = _runner_once(f"mvs_runner {tag}", argv, dest)
+        _print_run(f"mvs_runner {tag}", res, bars, smi)
+        m = {k: v.scalar for k, v in res["metrics"]["mvs_metrics"].items()}
+        chunks = -(-res["pairs"] // RUNNER_PAIR_BATCH)
+        ply = os.path.join(dest, "results", "dense_points.ply")
+        n_ply = len(read_ply(ply)[0]) if os.path.exists(ply) else 0
+        print(f"mvs_runner {tag}: mvs_sec {m['mvs_sec']:.3f} (source_selection_sec {m['source_selection_sec']:.3f}, "
+              f"depth_sec {m['depth_sec']:.3f}, fusion_sec {m['fusion_sec']:.3f}), {int(m['num_views_with_depth'])} "
+              f"views with depth of {res['registered']} registered, {int(m['num_dense_points'])} dense points "
+              f"({n_ply} in dense_points.ply), peak device memory {res['peak_gib']:.3f} GiB | {smi}", flush=True)
+        if set(res["detector"]) != {"cuda"} or res["launches"]["matcher"] < chunks:
+            raise AssertionError(f"mvs_runner {tag}: DoG-SIFT on {res['detector']}, {res['launches']} launches for "
+                                 f"{res['pairs']} pairs")
+        if m["num_views_with_depth"] < res["registered"] - 1:
+            raise AssertionError(f"mvs_runner {tag}: {m['num_views_with_depth']} views with depth, "
+                                 f"{res['registered']} registered")
+        if tag.startswith("plane_sweep") and not n_ply:
+            raise AssertionError(f"mvs_runner {tag}: no dense point in {ply}")
+        out["launches"] += res["launches"]["matcher"]
+        out["runs"][tag] = {"mvs": m, "peak_gib": res["peak_gib"], "sec": res["sec"], "wall": res["wall"]}
+    os.remove(path)
+    return out
+
+
+def phase_bal(smi: str, work: str) -> dict:
+    """The BAL tool mode on the card: bal_problem at Trafalgar-257's counts
+    written perturbed (and once at the truth), ``runner.main(["--bal",
+    path, ...])`` (BAOptions(), camera 0 fixed); the final cost must stay
+    within BAL_COST_SLACK above the cost at the generating parameters on
+    the same observations (BA with no iteration on the truth's file), and
+    the COLMAP export must read back with every camera. Prints the
+    seconds, iterations and costs."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    import torch
+
+    from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.bundle.ba import BAOptions, BundleAdjustment
+    from gtsfm_tpu_torch.io import colmap
+    from gtsfm_tpu_torch.io.bal import read_bal
+
+    path, gt_path = os.path.join(work, "trafalgar_257.txt"), os.path.join(work, "trafalgar_257_truth.txt")
+    t0 = time.perf_counter()
+    counts = bal_problem(path, perturbed=True)
+    bal_problem(gt_path, perturbed=False)
+    write_sec = time.perf_counter() - t0
+    gt = read_bal(gt_path).map(lambda a: a.to("cuda"))
+    fixed = np.zeros(gt.max_cameras, bool)
+    fixed[0] = True
+    cost_gen = BundleAdjustment(BAOptions(max_iterations=0)).run(gt, fixed_cam=fixed)[1]["initial_cost"]
+    del gt
+    out_dir = os.path.join(work, "bal_out")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = runner.main(["--bal", path, "--output_root", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text.strip(), flush=True)
+    m = re.search(r"BA: cost (\S+) -> (\S+) in (\d+) iterations \((\S+)s\)", text)
+    back = colmap.read_scene(os.path.join(out_dir, "bal_output"))
+    n_obs, n_par = 2 * counts["observations"], 9 * counts["cameras"] + 3 * counts["points"]
+    c0, cf, iters = float(m.group(1)), float(m.group(2)), int(m.group(3))
+    print(f"bal: {counts}, written in {write_sec:.3f} s; main {wall:.3f} s, {iters} iterations; cost {c0:.6g} -> "
+          f"{cf:.6g}, at the generating parameters {cost_gen:.6g}: final / generating {cf / cost_gen:.4f} (bar "
+          f"<= {1 + BAL_COST_SLACK}; a least-squares fit of {n_par} parameters to {n_obs} residuals drops it by "
+          f"about {n_par / n_obs:.3f}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"the export reads back {back.number_images()} cameras | {smi}", flush=True)
+    if rc != 0 or not cf <= (1 + BAL_COST_SLACK) * cost_gen or back.number_images() != BAL_CAMERAS:
+        raise AssertionError(f"bal: exit code {rc}, final cost {cf} against {cost_gen}, {back.number_images()} "
+                             f"cameras exported")
+    for p in (path, gt_path):
+        os.remove(p)
+    return {"wall": wall, "iterations": iters, "initial_cost": c0, "final_cost": cf, "cost_gen": cost_gen}
+
+
 def main() -> int:
     import torch
 
@@ -3374,6 +3876,9 @@ def main() -> int:
         timed("deep_components", phase_deep_components, runner_dir)
         ff = timed("feedforward", phase_feedforward, smi, runner_dir, R, t, work)
         timed("vggt_full", phase_vggt_full, smi, runner_dir, R, t, work)
+        timed("mvs", phase_mvs, smi, R, t, work)
+        mvs_launches = timed("mvs_runner", phase_mvs_runner, smi, runner_dir, work)["launches"]
+        timed("bal", phase_bal, smi, work)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
 
     print(smi, flush=True)
@@ -3384,10 +3889,11 @@ def main() -> int:
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
         "shape": "P64_K2048_D128",
         "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"]
-        + sum(r["launches"]["matcher"] for r in megaloc["runs"]),
+        + sum(r["launches"]["matcher"] for r in megaloc["runs"]) + mvs_launches,
         "runner_launches": runner_launches["matcher"],
         "runner_options_launches": options_launches["matcher"],
         "colmap_runner_launches": colmap_launches["matcher"],
+        "mvs_runner_launches": mvs_launches,
         "max_abs_err": max(err, err_runner, megaloc["err"]),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],

@@ -1,9 +1,11 @@
-"""COLMAP text-format scene IO (cameras.txt / images.txt / points3D.txt).
+"""COLMAP scene IO: text (cameras.txt / images.txt / points3D.txt) and
+binary (cameras.bin / images.bin / points3D.bin).
 
-Port of the text half of gtsfm_tpu/io/colmap.py: the readers
-(``read_cameras_txt``, ``read_images_txt``, ``read_points3d_txt``,
-``read_scene``) and the writer (``write_scene``), host numpy. The binary
-readers wait in ROADMAP queue 1 item 4. Camera models: SIMPLE_PINHOLE and
+Port of gtsfm_tpu/io/colmap.py: the text readers (``read_cameras_txt``,
+``read_images_txt``, ``read_points3d_txt``, ``read_scene``), the binary
+readers (``read_cameras_bin``, ``read_images_bin``, ``read_points3d_bin``,
+``read_scene_binary``, COLMAP's read_write_model layout) and the writer
+(``write_scene``), host numpy. Camera models: SIMPLE_PINHOLE and
 PINHOLE read as ``Cal3_S2``, SIMPLE_RADIAL and RADIAL as ``Cal3Bundler``,
 OPENCV and FULL_OPENCV (truncated to k1, k2, p1, p2, with a warning when
 k3..k6 are not 0) as ``Cal3DS2``, OPENCV_FISHEYE as ``Cal3Fisheye``; a
@@ -17,6 +19,7 @@ poses as wTi, so reading inverts and writing inverts back.
 from __future__ import annotations
 
 import os
+import struct
 import warnings
 
 import numpy as np
@@ -148,12 +151,85 @@ def read_points3d_txt(path: str) -> list:
     return points
 
 
+# binary camera model ids: (name, parameter count)
+_BIN_CAMERA_MODELS = {
+    0: ("SIMPLE_PINHOLE", 3), 1: ("PINHOLE", 4), 2: ("SIMPLE_RADIAL", 4), 3: ("RADIAL", 5), 4: ("OPENCV", 8),
+    5: ("OPENCV_FISHEYE", 8), 6: ("FULL_OPENCV", 12), 7: ("FOV", 5), 8: ("SIMPLE_RADIAL_FISHEYE", 4),
+    9: ("RADIAL_FISHEYE", 5), 10: ("THIN_PRISM_FISHEYE", 12),
+}
+
+
+def _unpack(f, fmt: str) -> tuple:
+    return struct.unpack(fmt, f.read(struct.calcsize(fmt)))
+
+
+def read_cameras_bin(path: str) -> dict:
+    """Binary cameras.bin -> the mapping read_cameras_txt gives."""
+    cams = {}
+    with open(path, "rb") as f:
+        (n,) = _unpack(f, "<Q")
+        for _ in range(n):
+            cam_id, model_id, width, height = _unpack(f, "<iiQQ")
+            name, n_params = _BIN_CAMERA_MODELS[model_id]
+            kwargs, cal_type = _parse_camera_params(name, _unpack(f, f"<{n_params}d"))
+            cams[cam_id] = (kwargs, cal_type, int(width), int(height))
+    return cams
+
+
+def read_images_bin(path: str) -> list:
+    """Binary images.bin -> the records read_images_txt gives."""
+    images = []
+    with open(path, "rb") as f:
+        (n,) = _unpack(f, "<Q")
+        for _ in range(n):
+            (image_id,) = _unpack(f, "<i")
+            qw, qx, qy, qz, tx, ty, tz = _unpack(f, "<7d")
+            (camera_id,) = _unpack(f, "<i")
+            name = b""
+            while (c := f.read(1)) not in (b"\x00", b""):
+                name += c
+            (n2d,) = _unpack(f, "<Q")
+            pts2d = np.frombuffer(f.read(24 * n2d), dtype="<f8").reshape(-1, 3).astype(np.float32)
+            R_cw = _quat_to_R(qw, qx, qy, qz)
+            t_cw = np.array([tx, ty, tz], np.float32)
+            images.append(dict(image_id=image_id, R=R_cw.T, t=-R_cw.T @ t_cw, camera_id=camera_id,
+                               name=name.decode(), points2d=pts2d))
+    images.sort(key=lambda d: d["name"])
+    return images
+
+
+def read_points3d_bin(path: str) -> list:
+    """Binary points3D.bin -> the list read_points3d_txt gives."""
+    points = []
+    with open(path, "rb") as f:
+        (n,) = _unpack(f, "<Q")
+        for _ in range(n):
+            _unpack(f, "<Q")  # the point id
+            xyz = np.frombuffer(f.read(24), dtype="<f8").astype(np.float32)
+            rgb = np.frombuffer(f.read(3), dtype=np.uint8).astype(np.int32)
+            (err,) = _unpack(f, "<d")
+            (track_len,) = _unpack(f, "<Q")
+            raw = np.frombuffer(f.read(8 * track_len), dtype="<i4").reshape(-1, 2)
+            points.append((xyz, rgb, float(err), [(int(a), int(b)) for a, b in raw]))
+    return points
+
+
+def read_scene_binary(dirpath: str) -> SfmData:
+    """The binary twin of read_scene."""
+    return _assemble_scene(read_cameras_bin(os.path.join(dirpath, "cameras.bin")),
+                           read_images_bin(os.path.join(dirpath, "images.bin")),
+                           read_points3d_bin(os.path.join(dirpath, "points3D.bin")))
+
+
 def read_scene(dirpath: str) -> SfmData:
     """A COLMAP text scene directory as SfmData (on the CPU), images in the
     order of their file names."""
-    cams = read_cameras_txt(os.path.join(dirpath, "cameras.txt"))
-    images = read_images_txt(os.path.join(dirpath, "images.txt"))
-    points = read_points3d_txt(os.path.join(dirpath, "points3D.txt"))
+    return _assemble_scene(read_cameras_txt(os.path.join(dirpath, "cameras.txt")),
+                           read_images_txt(os.path.join(dirpath, "images.txt")),
+                           read_points3d_txt(os.path.join(dirpath, "points3D.txt")))
+
+
+def _assemble_scene(cams: dict, images: list, points: list) -> SfmData:
     n = len(images)
     id2idx = {im["image_id"]: i for i, im in enumerate(images)}
     Rs = np.stack([im["R"] for im in images]) if n else np.zeros((0, 3, 3), np.float32)

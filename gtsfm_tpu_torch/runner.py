@@ -23,13 +23,16 @@ its seeded random init. The registry also builds the ``d2net`` and
 ``disk`` detectors and the ``hloc_netvlad`` descriptor.
 
 The run goes to the CUDA card unless an override sets
-``scene_optimizer.device=cpu``. ``--loader olsson`` and ``--loader colmap``
-work, as do ``--run_gs``, ``--hierarchical`` and ``--cluster_optimizer``.
-The flags whose modules are not ported yet (the other loaders, ``--bal``,
-``--compare_to``, ``--run_mvs``, ``--use_cache``,
-``--load_chunk_size``, ``--prewarm``, ``--gs_video_frames`` and the
-``--distributed_*`` flags) raise ``NotImplementedError`` naming their
-ROADMAP item before any work.
+``scene_optimizer.device=cpu``. All nine ``--loader`` choices work, as do
+``--run_gs``, ``--hierarchical``, ``--cluster_optimizer``, ``--run_mvs``
+with ``--mvs_backend plane_sweep|patchmatchnet`` (PatchmatchNet needs
+``--mvs_weights_path``, a checkpoint in the official model_000007.ckpt
+layout) and ``--bal PROBLEM`` (bundle adjustment alone on a BAL file, on
+the card unless ``scene_optimizer.device=cpu``; the COLMAP text goes to
+``<output_root>/bal_output``). The flags whose modules are not ported
+yet (``--compare_to``, ``--use_cache``, ``--load_chunk_size``,
+``--prewarm``, ``--gs_video_frames`` and the ``--distributed_*`` flags)
+raise ``NotImplementedError`` naming their ROADMAP item before any work.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="gtsfm_tpu_torch reconstruction runner")
     p.add_argument("--config_name", default="unified", help="named config or YAML path")
     p.add_argument("--bal", default=None, metavar="PROBLEM",
-                   help="BA-only mode on a BAL problem file (not ported)")
+                   help="BA-only mode: optimize a BAL problem file, print the costs, export COLMAP text")
     p.add_argument("--compare_to", default=None, metavar="COLMAP_DIR",
                    help="compare the exported reconstruction against this COLMAP directory (not ported)")
     p.add_argument("--loader", default="olsson", choices=list(_LOADERS))
@@ -58,10 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_resolution", type=int, default=760)
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--output_root", default="results")
-    p.add_argument("--run_mvs", action="store_true", help="dense plane-sweep MVS (not ported)")
+    p.add_argument("--run_mvs", action="store_true", help="dense MVS after the sparse reconstruction")
     p.add_argument("--run_gs", action="store_true", help="gaussian splatting")
     p.add_argument("--mvs_backend", default="plane_sweep", choices=["plane_sweep", "patchmatchnet"])
-    p.add_argument("--mvs_weights_path", default=None)
+    p.add_argument("--mvs_weights_path", default=None, help="PatchmatchNet checkpoint (official layout)")
     p.add_argument("--gs_video_frames", type=int, default=0,
                    help="render a camera-path PNG sequence of the splats (not ported)")
     p.add_argument("--hierarchical", action="store_true", help="partitioned reconstruction")
@@ -81,10 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose modules are not ported."""
     unported = [
-        (args.loader not in ("olsson", "colmap"), f"--loader {args.loader}", 3),
-        (args.bal, "--bal", 3),
         (args.compare_to, "--compare_to", 6),
-        (args.run_mvs or args.mvs_backend != "plane_sweep" or args.mvs_weights_path, "--run_mvs", 3),
         (args.use_cache or args.cache_root, "--use_cache", 3),
         (args.load_chunk_size is not None, "--load_chunk_size", 3),
         (args.prewarm, "--prewarm", 3),
@@ -103,6 +103,45 @@ def build_loader(args):
         from gtsfm_tpu_torch.loader.olsson import OlssonLoader
 
         return OlssonLoader(args.dataset_dirpath, **kw)
+    if args.loader == "astrovision":
+        from gtsfm_tpu_torch.loader.datasets import AstrovisionLoader
+
+        return AstrovisionLoader(args.dataset_dirpath, **kw)
+    if args.loader == "tanks_and_temples":
+        from gtsfm_tpu_torch.loader.datasets import TanksAndTemplesLoader
+
+        base = args.dataset_dirpath
+        name = os.path.basename(base.rstrip("/"))
+        return TanksAndTemplesLoader(img_dir=args.images_dir or os.path.join(base, name),
+                                     poses_fpath=os.path.join(base, f"{name}_COLMAP_SfM.log"), **kw)
+    if args.loader == "mobilebrick":
+        from gtsfm_tpu_torch.loader.datasets import MobilebrickLoader
+
+        return MobilebrickLoader(args.dataset_dirpath, **kw)
+    if args.loader == "onedsfm":
+        from gtsfm_tpu_torch.loader.datasets import OneDSFMLoader
+
+        return OneDSFMLoader(args.dataset_dirpath, **kw)
+    if args.loader == "hilti":
+        from gtsfm_tpu_torch.loader.hilti import HiltiLoader
+
+        return HiltiLoader(args.dataset_dirpath, **kw)
+    if args.loader == "argoverse":
+        from gtsfm_tpu_torch.loader.datasets import ArgoverseLoader
+
+        log_id = args.argoverse_log_id
+        if log_id is None:
+            logs = sorted(d for d in os.listdir(args.dataset_dirpath)
+                          if os.path.isdir(os.path.join(args.dataset_dirpath, d)))
+            if not logs:
+                raise ValueError("no argoverse logs under dataset_dirpath")
+            log_id = logs[0]
+        return ArgoverseLoader(args.dataset_dirpath, log_id=log_id, max_num_imgs=args.max_frames or 20,
+                               max_resolution=args.max_resolution)
+    if args.loader == "yfcc":
+        from gtsfm_tpu_torch.loader.datasets import YfccImbLoader
+
+        return YfccImbLoader(args.dataset_dirpath, max_resolution=args.max_resolution)
     from gtsfm_tpu_torch.loader.colmap import ColmapLoader
 
     colmap_dir = args.colmap_files_dirpath or args.dataset_dirpath
@@ -110,17 +149,51 @@ def build_loader(args):
     return ColmapLoader(colmap_dir, images_dir, **kw)
 
 
+def run_bal(path: str, output_root: str, device="cuda") -> int:
+    """BA-only tool mode: read a BAL problem, run bundle adjustment
+    (``BAOptions()``, camera 0 fixed) on ``device``, print the problem's
+    size and the cost before and after, and export COLMAP text to
+    ``<output_root>/bal_output``."""
+    import numpy as np
+
+    from gtsfm_tpu_torch.bundle.ba import BAOptions, BundleAdjustment
+    from gtsfm_tpu_torch.io import colmap as colmap_io
+    from gtsfm_tpu_torch.io.bal import read_bal
+    from gtsfm_tpu_torch.utils.numerics import resolve_device
+
+    dev = resolve_device(device)
+    data = read_bal(path).map(lambda a: a.to(dev))
+    print(f"BAL problem: {data.number_images()} cameras, {data.number_tracks()} points, "
+          f"{data.number_measurements()} measurements")
+    fixed = np.zeros(data.max_cameras, bool)
+    fixed[0] = True
+    t0 = time.time()
+    out, metrics = BundleAdjustment(BAOptions()).run(data, fixed_cam=fixed)
+    print(f"BA: cost {metrics['initial_cost']:.4g} -> {metrics['final_cost']:.4g} "
+          f"in {metrics['iterations']} iterations ({time.time() - t0:.1f}s)")
+    if output_root:
+        colmap_io.write_scene(out, os.path.join(output_root, "bal_output"))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_ported(args)
-    if not args.dataset_dirpath:
-        parser.error("--dataset_dirpath is required")
     from gtsfm_tpu_torch.configs.config import build_scene_optimizer, load_config
 
     cfg = load_config(args.config_name, args.overrides)
     so_cfg = cfg.setdefault("scene_optimizer", {})
+    if args.bal:
+        return run_bal(args.bal, args.output_root, so_cfg.get("device", "cuda"))
+    if not args.dataset_dirpath:
+        parser.error("--dataset_dirpath is required (except with --bal)")
     so_cfg["output_root"] = args.output_root
+    if args.run_mvs:
+        so_cfg["run_mvs"] = True
+    if args.mvs_backend != "plane_sweep":
+        so_cfg["mvs_backend"] = args.mvs_backend
+        so_cfg["mvs_weights_path"] = args.mvs_weights_path
     if args.run_gs:
         so_cfg["run_gs"] = True
     if args.hierarchical:

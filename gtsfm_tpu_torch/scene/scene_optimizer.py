@@ -10,11 +10,14 @@ reconnection -> MultiViewOptimizer, or with ``hierarchical`` the
 partitioned back end (METIS partition, per-cluster MVO, Sim3 merges with
 parent BAs) -> without GT an axis alignment, with GT the evaluation (the
 ``verifier_summary``, ``ba_pose_metrics``, ``track_classification_metrics``
-and ``intrinsics_metrics`` groups) -> with ``run_gs`` the Gaussian-splat
-trainer (``gaussian_splatting_metrics``) -> under ``output_root``, the
+and ``intrinsics_metrics`` groups) -> with ``run_mvs`` the dense back end
+(densify/: the plane sweep, or PatchmatchNet with ``mvs_backend``;
+``mvs_metrics``) -> with ``run_gs`` the Gaussian-splat trainer
+(``gaussian_splatting_metrics``) -> under ``output_root``, the
 reconstruction as COLMAP text in ``results/ba_output/``, each metrics
-group as ``results/metrics/<group>.json`` and the splats as
-``results/splats.ply`` and ``results/gaussian_points.ply``.
+group as ``results/metrics/<group>.json``, the dense points as
+``results/dense_points.ply`` and the splats as ``results/splats.ply`` and
+``results/gaussian_points.ply``.
 
 With ``cluster_optimizer`` vggt, fastvggt or anysplat the feed-forward
 slot (scene/cluster_feedforward.py: the compact model or VGGT, by
@@ -34,10 +37,10 @@ mutual-NN matcher does not run. The matcher slot takes a learned matcher
 mutual-NN matcher inside the two-view batch.
 
 Not ported: image-correspondence generators (the keypoint aggregator),
-chunked loading, caches, telemetry, the retrieval metrics group, MVS and
-its dense PLY, the splat video, and of the export the HTML report, the
-process graph, the viewer, the plots and the per-cluster ``SceneTree``
-(ROADMAP queue 1 items 3, 5, 9 and 10).
+chunked loading, caches, telemetry, the retrieval metrics group, the
+splat video, and of the export the HTML report, the process graph, the
+viewer, the plots and the per-cluster ``SceneTree`` (ROADMAP queue 1
+items 3, 5 and 10).
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ import numpy as np
 import torch
 
 from gtsfm_tpu_torch.common.sfm_data import SceneMeta
+from gtsfm_tpu_torch.densify.mvs import MVSOptions, PlaneSweepMVS
+from gtsfm_tpu_torch.densify.patchmatchnet import PatchmatchNetMVS, load_torch_weights as load_pmnet_weights
 from gtsfm_tpu_torch.evaluation.metrics import (
     Metric,
     MetricsGroup,
@@ -104,9 +109,16 @@ class SceneOptimizerOptions(NamedTuple):
     # hierarchical mode: partition + per-cluster MVO + Sim3 merge
     hierarchical: bool = False
     max_cluster_size: int = 40
-    # the splat back end (the reference's --run_gs)
+    # the dense and splat back ends (the reference's --run_mvs, --run_gs)
+    run_mvs: bool = False
     run_gs: bool = False
     gs_iterations: int = 800
+    mvs_num_depths: int = 64
+    mvs_num_source_views: int = 4
+    # "plane_sweep" or "patchmatchnet" (learned: needs mvs_weights_path, a
+    # checkpoint in the official model_000007.ckpt layout)
+    mvs_backend: str = "plane_sweep"
+    mvs_weights_path: Optional[str] = None
     # the reconstruction engine: mvo (the front end and back end) or a
     # feed-forward slot (scene/cluster_feedforward.py)
     cluster_optimizer: str = "mvo"  # mvo | vggt | fastvggt | anysplat
@@ -139,10 +151,16 @@ class SceneOptimizer:
         ``requires_gt`` and ``generate(gt_poses, cal, pairs, image_sizes)``
         (the synthetic generator), in place of the detector and matcher.
         Raises when ``options.device`` is the default ``"cuda"`` and there
-        is no CUDA device."""
+        is no CUDA device, and before any work when ``run_mvs`` asks for the
+        patchmatchnet back end without ``mvs_weights_path``."""
         if correspondence is not None and not getattr(correspondence, "requires_gt", False):
             raise NotImplementedError("image-correspondence generators (the keypoint aggregator) are not ported "
                                       "(ROADMAP queue 1 item 10)")
+        if options.mvs_backend not in ("plane_sweep", "patchmatchnet"):
+            raise ValueError(f"unknown mvs_backend {options.mvs_backend!r}")
+        if options.run_mvs and options.mvs_backend == "patchmatchnet" and not options.mvs_weights_path:
+            raise RuntimeError("the patchmatchnet MVS back end requires weights: set mvs_weights_path to a checkpoint "
+                               "in the official model_000007.ckpt layout")
         self.options = options
         self.device = resolve_device(options.device)
         self.retriever = retriever or SequentialRetriever()
@@ -299,11 +317,12 @@ class SceneOptimizer:
     def _finalize(self, loader, data, mvo_metrics, groups, t_start, images, gt, gs_init=None):
         """Evaluation (with ``gt`` on the device: the scene moved into the GT
         frame, with ``gs_init``, the feed-forward gaussians; without: the
-        axis alignment, unless there are feed-forward gaussians), the splat
-        trainer on the grayscale images when ``run_gs`` is set (from
-        ``gs_init`` when given), run time, and the results under
-        ``output_root``: the COLMAP text, the metrics JSON, and with
-        gaussians ``splats.ply`` and ``gaussian_points.ply``."""
+        axis alignment, unless there are feed-forward gaussians), the dense
+        back end on the grayscale images when ``run_mvs`` is set, the splat
+        trainer on them when ``run_gs`` is set (from ``gs_init`` when
+        given), run time, and the results under ``output_root``: the COLMAP
+        text, the metrics JSON, ``dense_points.ply`` with dense points, and
+        with gaussians ``splats.ply`` and ``gaussian_points.ply``."""
         opts = self.options
         failed = bool(mvo_metrics.get("failed"))
         if gt is None and opts.axis_align_when_no_gt and gs_init is None and not failed:
@@ -335,6 +354,18 @@ class SceneOptimizer:
                 ]))
             cal0 = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
             groups.append(intrinsics_error_metrics(data.cal, cal0, valid_mask=est_mask))
+        dense = None
+        if opts.run_mvs and not failed and data.number_tracks() > 0:
+            t0 = time.perf_counter()
+            mvs_opts = MVSOptions(num_depths=opts.mvs_num_depths, num_source_views=opts.mvs_num_source_views)
+            if opts.mvs_backend == "patchmatchnet":
+                mvs = PatchmatchNetMVS(mvs_opts, state_dict=load_pmnet_weights(opts.mvs_weights_path),
+                                       device=self.device)
+            else:
+                mvs = PlaneSweepMVS(mvs_opts, device=self.device)
+            *dense, mvs_metrics = mvs.run(data, images)
+            mvs_metrics["mvs_sec"] = time.perf_counter() - t0
+            groups.append(MetricsGroup("mvs_metrics", [Metric(k, v) for k, v in mvs_metrics.items()]))
         gs_result = None
         if opts.run_gs and not failed and data.number_tracks() > 0:
             t0 = time.perf_counter()
@@ -354,6 +385,8 @@ class SceneOptimizer:
                 colmap_io.write_scene(data, os.path.join(results_dir, "ba_output"))
             for g in groups:
                 g.save_json(os.path.join(results_dir, "metrics"))
+            if dense is not None and len(dense[0]):
+                write_ply(os.path.join(results_dir, "dense_points.ply"), *dense)
             if gs_result is not None:
                 export_ply(gs_result, os.path.join(results_dir, "splats.ply"))
                 write_ply(os.path.join(results_dir, "gaussian_points.ply"), *gaussian_means_as_tracks(data, gs_result))

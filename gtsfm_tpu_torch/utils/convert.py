@@ -441,3 +441,64 @@ def vggt_track_state_dict(params) -> dict:
                      ("conf_predictor", "conf_predictor.0")):
         linear(pre + dst, tk[src])
     return sd
+
+
+def patchmatchnet_state_dict(params, eps: float = 1e-5) -> dict:
+    """The reference's PatchmatchNet param tree (BatchNorm folded into a
+    scale and shift) -> the official model_000007.ckpt layout of
+    ``densify.patchmatchnet.PatchmatchNet``. Each folded BatchNorm comes
+    back as weight = scale, bias = shift, running_mean = 0 and
+    running_var = 1 - eps, which folds to the same scale and shift."""
+    sd = {}
+
+    def conv(key, p, transposed=False):
+        w = np.asarray(p["w"])  # HWIO
+        sd[f"{key}.weight"] = _f32(w.transpose(2, 3, 0, 1) if transposed else w.transpose(3, 2, 0, 1))
+        if "b" in p:
+            sd[f"{key}.bias"] = _f32(p["b"])
+
+    def bn(key, scale, shift):
+        n = np.asarray(scale).shape[0]
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _f32(scale), _f32(shift)
+        sd[f"{key}.running_mean"] = torch.zeros(n)
+        sd[f"{key}.running_var"] = torch.full((n,), 1.0 - eps)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def cbr(key, p):
+        conv(f"{key}.conv", p)
+        bn(f"{key}.bn", p["scale"], p["shift"])
+
+    def cbr3d(key, p):
+        sd[f"{key}.conv.weight"] = _f32(np.asarray(p["w"]).T[:, :, None, None, None])
+        bn(f"{key}.bn", p["scale"], p["shift"])
+
+    def conv3d(key, p):
+        sd[f"{key}.weight"] = _f32(np.asarray(p["w"]).T[:, :, None, None, None])
+        sd[f"{key}.bias"] = _f32(p["b"])
+
+    feat = params["feature"]
+    for i in range(11):
+        cbr(f"feature.conv{i}", feat[f"conv{i}"])
+    for name in ("output1", "output2", "output3", "inner1", "inner2"):
+        conv(f"feature.{name}", feat[name])
+    for s in (1, 2, 3):
+        q, p = f"patchmatch_{s}", params[f"patchmatch_{s}"]
+        conv(f"{q}.eval_conv", p["eval_conv"])
+        if "propa_conv" in p:
+            conv(f"{q}.propa_conv", p["propa_conv"])
+        for net, key in (("feature_weight_net", f"{q}.feature_weight_net"),
+                         ("similarity_net", f"{q}.evaluation.similarity_net"),
+                         ("pixel_wise_net", f"{q}.evaluation.pixel_wise_net")):
+            if net not in p:
+                continue
+            cbr3d(f"{key}.conv0", p[net]["conv0"])
+            cbr3d(f"{key}.conv1", p[net]["conv1"])
+            final = "conv2" if net == "pixel_wise_net" else "similarity"
+            conv3d(f"{key}.{final}", p[net][final])
+    ref = params["refinement"]
+    for i in range(4):
+        cbr(f"upsample_net.conv{i}", ref[f"conv{i}"])
+    conv("upsample_net.deconv", ref["deconv"], transposed=True)
+    conv("upsample_net.res", ref["res"])
+    bn("upsample_net.bn", ref["bn"]["scale"], ref["bn"]["shift"])
+    return sd

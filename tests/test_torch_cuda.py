@@ -14,7 +14,9 @@ chip_smoke's DEEP_KEYPOINT_SHARE and DEEP_DESC_TOL, and RANSAC on a
 one-match pair (NaN hypotheses) without a raise; the feed-forward models
 (the reduced VGGT with its track head, the compact model with and without
 the FastVGGT block) on the card against the CPU with TF32 off, and the
-chunked attention against one pass at a global block's shape.
+chunked attention against one pass at a global block's shape; the plane
+sweep and PatchmatchNet (chip_smoke's seeded fixture) on the card against
+the CPU, PatchmatchNet also with TF32 on, where the check must fail.
 
 These tests need a CUDA card (marker ``cuda``) and skip elsewhere. The
 file imports no JAX, so it also runs on a card's machine without it; there
@@ -912,3 +914,87 @@ def test_chunked_global_attention_on_the_card_equals_one_pass(monkeypatch):
         monkeypatch.setattr(numerics, "SCORE_BYTES", 16 * 6000 * 4 * 83)
         chunked = numerics.attention(q, k, v, q_scale=0.125)
     assert torch.allclose(chunked, one, atol=1e-5)
+
+
+def _mvs_rig(V: int, hw: tuple, seed: int):
+    """Smooth random gray images (V, H, W) and a rig of V cameras (f =
+    hw[1], principal point at the center) translated along x and y: K,
+    world-to-camera R and t."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(0, 1, (V, 1, h, w)).astype(np.float32))
+    imgs = torch.nn.functional.avg_pool2d(x, 3, stride=1, padding=1)[:, 0].numpy()
+    K = np.array([[w, 0, w / 2], [0, w, h / 2], [0, 0, 1]], np.float32)
+    R = np.repeat(np.eye(3, dtype=np.float32)[None], V, 0)
+    t = np.stack([[0.08 * v, 0.03 * v, 0.0] for v in range(V)]).astype(np.float32)
+    return imgs, K, R, t
+
+
+@pytest.mark.cuda
+def test_plane_sweep_on_the_card_equals_the_cpu():
+    """plane_sweep_depth at MVSOptions()'s depths, sources and window on a
+    96x128 view against three sources (smooth random images: no flat
+    region, so few near-tie planes): >= 99% of the pixels' depth and
+    confidence within 1e-4 relative of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.densify.mvs import plane_sweep_depth
+
+    imgs, K, R, t = _mvs_rig(4, (96, 128), 0)
+    args = (imgs[0], imgs[1:], K, np.repeat(K[None], 3, 0), R[0], t[0], R[1:], t[1:])
+    outs = [plane_sweep_depth(*(torch.as_tensor(a, device=d) for a in args), 1.0, 6.0, num_depths=64, window=5)
+            for d in ("cpu", "cuda")]
+    for a, b in zip(outs[0], outs[1]):
+        a, b = a.numpy(), b.cpu().numpy()
+        assert np.isfinite(b).all()
+        assert np.mean(np.abs(b - a) <= 1e-4 * np.maximum(np.abs(a), 1e-3)) >= 0.99
+
+
+@pytest.mark.cuda
+def test_patchmatchnet_on_the_card_equals_the_cpu_and_not_with_tf32():
+    """PatchmatchNet on chip_smoke.pmnet_fixture at 64x80, V=3, one draw
+    for both devices: with TF32 off the card's feature pyramid within 1e-5
+    of each stage's largest magnitude and its depth within 1e-4 (relative,
+    and absolute near 0) of the CPU's; with TF32 on in every precise()
+    (chip_smoke.tf32_allowed) the check fails (on an H100 the depth alone
+    stays within 1e-4 with TF32 on: the soft-argmin averages the features'
+    rounding out)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import pmnet_fixture, tf32_allowed
+    from gtsfm_tpu_torch.densify.patchmatchnet import RANDOM_INIT_SAMPLES, build_net
+
+    sd = pmnet_fixture(0)
+    imgs, _K, R, t = _mvs_rig(3, (64, 80), 1)
+    rgb = np.repeat(imgs[:, None], 3, 1)
+    projs = []
+    for scale in (0.5, 0.25, 0.125):
+        K = np.array([[80 * scale, 0, 40 * scale], [0, 80 * scale, 32 * scale], [0, 0, 1]], np.float32)
+        P = np.repeat(np.eye(4, dtype=np.float32)[None], 3, 0)
+        P[:, :3, :4] = K @ np.concatenate([R, t[:, :, None]], 2)
+        projs.append(P)
+    u = torch.rand((RANDOM_INIT_SAMPLES, 8, 10), generator=torch.Generator().manual_seed(0))
+
+    def run(dev):
+        import gtsfm_tpu_torch.densify.patchmatchnet as pm
+
+        net = build_net(sd, dev)
+        x = torch.as_tensor(rgb, device=dev)
+        with torch.no_grad(), pm.precise():
+            feats = {k: v.cpu().numpy() for k, v in net.feature(x).items()}
+        out = net(x, *(torch.as_tensor(p, device=dev) for p in projs), 1.0, 4.0, init_uniform=u.to(dev))
+        return feats, out.depth.cpu().numpy()
+
+    host = run("cpu")
+
+    def distances(card) -> tuple:
+        feat = max(float(np.abs(card[0][k] - host[0][k]).max() / max(np.abs(host[0][k]).max(), 1.0))
+                   for k in host[0])
+        depth = float(np.max(np.abs(card[1] - host[1]) / np.maximum(np.abs(host[1]), 1.0)))
+        return feat, depth
+
+    feat, depth = distances(run("cuda"))
+    assert feat <= 1e-5 and depth <= 1e-4, (feat, depth)
+    with tf32_allowed():
+        feat32, depth32 = distances(run("cuda"))
+    assert not (feat32 <= 1e-5 and depth32 <= 1e-4), (feat32, depth32)

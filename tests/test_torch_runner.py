@@ -72,6 +72,7 @@ COLMAP_PARAMS = {
 SHIPPED = ("unified", "sift_front_end", "door", "cluster", "synthetic_front_end", "unit_test", "vggt", "fastvggt",
            "anysplat")
 VIEWS = 8  # ring views of the end-to-end test
+MVS_COUNT_TOL = 0.02  # the --run_mvs runners' dense point counts, relative
 # the feed-forward runners' folder: chip_smoke.feedforward_views of the
 # first FF_VIEWS ring cameras at FF_HW, f = FF_FOCAL
 FF_VIEWS = 4
@@ -368,11 +369,13 @@ def test_unported_components_and_flags_raise_before_any_work(tmp_path):
         config.build_scene_optimizer(config.load_config("unified",
                                                         ["scene_optimizer.two_view.no_such_option=true"]))
     base = ["--dataset_dirpath", str(tmp_path), "--output_root", str(tmp_path / "out")]
-    for flags in (["--loader", "hilti"], ["--bal", "x.txt"], ["--compare_to", "d"], ["--run_mvs"],
-                  ["--use_cache"], ["--load_chunk_size", "4"], ["--prewarm"],
+    for flags in (["--compare_to", "d"], ["--use_cache"], ["--load_chunk_size", "4"], ["--prewarm"],
                   ["--distributed_coordinator", "localhost:1"], ["--gs_video_frames", "3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             runner.main(base + flags)
+    # PatchmatchNet without weights raises, as the reference does, but before any work
+    with pytest.raises(RuntimeError, match="requires weights"):
+        runner.main(base + ["--run_mvs", "--mvs_backend", "patchmatchnet", "scene_optimizer.device=cpu"])
     assert not (tmp_path / "out").exists()
 
 
@@ -382,24 +385,30 @@ def _scalars(output_root):
             for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
 
 
-@threads(8)
-def test_runners_end_to_end(tmp_path):
-    """Both runners' main on one Olsson folder of VIEWS neighbouring ring
-    views of chip_smoke.runner_scene, rendered by the port on the CPU at
-    480x640, f = 600, with detector.max_keypoints=512. At 240x320 the
-    pairs two ring steps apart carry too few matches (the reference
-    registers 4 of 8), so the views are rendered at full size, with 256
-    slots a tile (about 1.5 s a view on the CPU, where the chip phase's 512
-    take about 3 s)."""
+@pytest.fixture(scope="module")
+def ring_folder(tmp_path_factory) -> str:
+    """An Olsson folder of VIEWS neighbouring ring views of
+    chip_smoke.runner_scene, rendered by the port on the CPU at 480x640,
+    f = 600. At 240x320 the pairs two ring steps apart carry too few
+    matches (the reference registers 4 of 8), so the views are rendered at
+    full size, with 256 slots a tile (about 1.5 s a view on the CPU, where
+    the chip phase's 512 take about 3 s)."""
     n = chip_smoke.NUM_CAMERAS
     gt = spectral_ring_poses(chip_smoke.ring_pairs(n), n)
     R, t = gt.R.numpy(), gt.t.numpy()
     order = chip_smoke.ring_order(t)[:VIEWS]
-    views = chip_smoke.ring_views(R, t, torch.device("cpu"), chip_smoke.runner_scene(t.mean(axis=0)),
-                                  indices=order, per_tile_cap=256)
-    chip_smoke.write_olsson(str(tmp_path / "data"), views, R[order], t[order], chip_smoke.SPLAT_FOCAL)
-    args = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", str(tmp_path / "data"),
-            "--output_root"]
+    with threads(8):
+        views = chip_smoke.ring_views(R, t, torch.device("cpu"), chip_smoke.runner_scene(t.mean(axis=0)),
+                                      indices=order, per_tile_cap=256)
+    path = str(tmp_path_factory.mktemp("ring") / "data")
+    chip_smoke.write_olsson(path, views, R[order], t[order], chip_smoke.SPLAT_FOCAL)
+    return path
+
+
+@threads(8)
+def test_runners_end_to_end(tmp_path, ring_folder):
+    """Both runners' main on ring_folder with detector.max_keypoints=512."""
+    args = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", ring_folder, "--output_root"]
     assert j_runner.main(args + [str(tmp_path / "jax"), "detector.max_keypoints=512"]) == 0
     assert runner.main(args + [str(tmp_path / "port"), "detector.max_keypoints=512",
                                "scene_optimizer.device=cpu"]) == 0
@@ -414,6 +423,30 @@ def test_runners_end_to_end(tmp_path):
     for out in ("jax", "port"):
         back = colmap.read_scene(str(tmp_path / out / "results" / "ba_output"))
         assert back.number_images() == VIEWS and back.number_tracks() > 0
+
+
+@threads(8)
+def test_runners_with_run_mvs_end_to_end(tmp_path, ring_folder):
+    """Both runners' main with --run_mvs on ring_folder (the plane sweep
+    at 16 depths and 2 sources to keep the CPU's time down): the same
+    registered views with a depth map, dense point counts within
+    MVS_COUNT_TOL, mvs_sec and its three parts, and a dense_points.ply
+    that reads back with the port's count."""
+    from gtsfm_tpu_torch.io.ply import read_ply
+
+    args = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", ring_folder, "--run_mvs",
+            "--output_root"]
+    extra = ["detector.max_keypoints=512", "scene_optimizer.mvs_num_depths=16",
+             "scene_optimizer.mvs_num_source_views=2"]
+    assert j_runner.main(args + [str(tmp_path / "jax")] + extra) == 0
+    assert runner.main(args + [str(tmp_path / "port")] + extra + ["scene_optimizer.device=cpu"]) == 0
+    mj, mt = _scalars(str(tmp_path / "jax")), _scalars(str(tmp_path / "port"))
+    dj, dt = mj["mvs_metrics"], mt["mvs_metrics"]
+    assert dt["num_views_with_depth"] == dj["num_views_with_depth"] == VIEWS
+    assert abs(dt["num_dense_points"] - dj["num_dense_points"]) <= MVS_COUNT_TOL * dj["num_dense_points"], (dt, dj)
+    assert dt["mvs_sec"] >= dt["source_selection_sec"] + dt["depth_sec"] + dt["fusion_sec"] > 0
+    points, colors = read_ply(str(tmp_path / "port" / "results" / "dense_points.ply"))
+    assert len(points) == dt["num_dense_points"] > 0 and colors.shape == (len(points), 3)
 
 
 @pytest.mark.parametrize("slot", ["vggt", "fastvggt", "anysplat"])

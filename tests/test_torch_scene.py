@@ -106,7 +106,8 @@ def test_port_imports_no_jax_flax_or_triton():
     entry = ["gtsfm_tpu_torch." + m for m in (
         "runner", "configs.config", "common.image", "common.sensor_db", "loader.olsson", "loader.colmap",
         "io.colmap", "frontend.detectors.dog_sift", "frontend.global_descriptors.descriptors",
-        "frontend.registry", "retriever.bridge", "utils.ellipsoid", "utils.tracks")]
+        "frontend.registry", "retriever.bridge", "utils.ellipsoid", "utils.tracks", "densify.mvs",
+        "densify.patchmatchnet", "io.bal", "loader.datasets", "loader.hilti")]
     res = subprocess.run([sys.executable, "-c", code, *entry], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

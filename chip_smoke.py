@@ -172,7 +172,27 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
 21. bal: the BAL tool mode, runner.main(["--bal", ...]), on a seeded
    problem at the public Trafalgar-257 problem's counts (bal_problem):
    the final cost at most 1.05 times the cost at the generating
-   parameters, 257 cameras exported.
+   parameters, 257 cameras exported;
+22. runner_outputs (last, on the runner phase's folder, so that its runs
+   warm no later phase's cold run): the runner's
+   remaining flags and what every run writes. Run A: unified with
+   --use_cache, --load_chunk_size 8, --prewarm and --compare_to the
+   folder's GT poses as COLMAP text (write_gt_colmap): the runner's bars,
+   every file the reference writes (ba_output/, metrics/ with
+   retrieval_metrics, the HTML report, process_graph.dot, viewer.html,
+   plots/scene_3d.png, comparison/); run B, A's argv again: poses, points
+   and measurements bit-identical to A's and no matcher launch; the
+   chunked detection on the card against the whole batch's, both
+   detected afresh with run A's detector cache off (keypoints_agree >=
+   0.99); run C: --hierarchical --run_gs
+   --gs_video_frames 24 --use_cache at 100 trainer steps and
+   max_cluster_size 16: one C_* directory per cluster result, 24 frames
+   and the GIF, exactly 100 + 24 compositing launches; runs D and E:
+   deep_front_end with --use_cache, cold then replayed: 36 attention
+   launches per LightGlue forward in D, none in E, E bit-identical to D;
+   the comparison dashboard over A and B. Prints A's and B's stage
+   seconds, the prewarm's seconds by name and A's total beside the runner
+   phase's cold total; its launches join the kernels line.
 
 The seconds of each phase are printed as it ends. The line before the last
 is the kernel table as JSON; the last line is {"ok": true, "device":
@@ -2310,6 +2330,7 @@ def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_a
     from gtsfm_tpu_torch.io import colmap
     from gtsfm_tpu_torch.splat import rendering
 
+    totals = {}
     with tempfile.TemporaryDirectory() as work:
         for run in ("cold", "warm"):
             out = os.path.join(work, run)
@@ -2364,7 +2385,8 @@ def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_a
                                      f"{registered} registered")
             if check_export is not None:
                 check_export(export, back, layouts)
-    return {"launches": launches, "layouts": layouts}
+            totals[run] = sec["total_runtime_sec"]
+    return {"launches": launches, "layouts": layouts, "totals": totals}
 
 
 def phase_runner(smi: str, R, t, work: str) -> tuple:
@@ -2374,7 +2396,8 @@ def phase_runner(smi: str, R, t, work: str) -> tuple:
     ``gtsfm_tpu_torch.runner.main`` with the unified config through
     _runner_runs (cold and warm), registered >= the JAX reference's - 1,
     AUC@5 >= the reference's - 0.02. Returns the launches of the warm run,
-    the folder (the runner_options phase reads it too) and its view count."""
+    the folder (the runner_options phase reads it too), its view count and
+    the cold run's total_runtime_sec."""
     import os
 
     import torch
@@ -2390,7 +2413,190 @@ def phase_runner(smi: str, R, t, work: str) -> tuple:
     out = _runner_runs("runner", ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir],
                        len(order), RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
                        RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK, smi)
-    return out["launches"], data_dir, len(order)
+    return out["launches"], data_dir, len(order), out["totals"]["cold"]
+
+
+def write_gt_colmap(data_dir: str, out_dir: str) -> None:
+    """The GT poses and calibrations of the Olsson folder ``data_dir`` as
+    COLMAP text under the folder's image names, no tracks, written by the
+    port's writer: the --compare_to reference of runner_outputs."""
+    import torch
+
+    from gtsfm_tpu_torch.common.sfm_data import SceneMeta, SfmData
+    from gtsfm_tpu_torch.io import colmap
+    from gtsfm_tpu_torch.loader.base import batch_calibrations
+    from gtsfm_tpu_torch.loader.olsson import OlssonLoader
+
+    loader = OlssonLoader(data_dir)
+    n = len(loader)
+    sizes = [(loader.get_image(i).width, loader.get_image(i).height) for i in range(n)]
+    data = SfmData.empty(n, meta=SceneMeta(image_names=loader.image_filenames(), image_sizes=sizes))
+    colmap.write_scene(data.replace(poses=loader.get_gt_poses(), pose_mask=torch.ones(n, dtype=torch.bool),
+                                    cal=batch_calibrations(loader.get_all_intrinsics())), out_dir)
+
+
+RUNNER_OUTPUT_FILES = ("ba_output/cameras.txt", "ba_output/images.txt", "ba_output/points3D.txt",
+                       "metrics/retrieval_metrics.json", "metrics/frontend_summary.json",
+                       "metrics/ba_pose_metrics.json", "gtsfm_metrics_report.html", "process_graph.dot",
+                       "viewer.html", "plots/scene_3d.png", "comparison/per_camera_errors.csv",
+                       "comparison/comparison_metrics.csv", "comparison/camera_centers.png")
+OUTPUTS_CHUNK = 8  # --load_chunk_size of run A
+OUTPUTS_CHUNK_SHARE = 0.99  # chunked against whole-batch keypoints on the card, per image
+OUTPUTS_FRAMES = 24  # --gs_video_frames of run C
+OUTPUTS_GS_STEPS = 100  # its trainer steps: the trainer's full-width timing stays in the splat phase
+OUTPUTS_CLUSTER_SIZE = 16  # its max_cluster_size, so that the 32 views split into clusters
+
+
+def _same_scene(a, b) -> bool:
+    """Every tensor of two SfmData equal, bit for bit."""
+    import torch
+
+    fields = ("pose_mask", "points", "track_mask", "meas_cam", "meas_track", "meas_uv", "meas_mask")
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in fields) and \
+        torch.equal(a.poses.R, b.poses.R) and torch.equal(a.poses.t, b.poses.t)
+
+
+def phase_runner_outputs(smi: str, data_dir: str, runner_cold_total: float) -> dict:
+    """What every run writes and the runner's remaining flags, on the
+    runner phase's folder (runs A-E, see the module's docstring). Returns
+    the launches of the five runs by kernel."""
+    import glob
+    import os
+
+    import torch
+
+    from gtsfm_tpu_torch.configs import config
+    from gtsfm_tpu_torch.evaluation import dashboard
+    from gtsfm_tpu_torch.frontend.matchers import lightglue
+    from gtsfm_tpu_torch.loader.olsson import OlssonLoader
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer
+    from gtsfm_tpu_torch.utils import prewarm
+
+    scenes, prewarmed = [], []
+    run, warm = SceneOptimizer.run, prewarm.prewarm_standard_shapes
+
+    def capture_run(self, loader):
+        out = run(self, loader)
+        scenes.append((self, out[0]))
+        return out
+
+    def capture_prewarm(**kw):
+        prewarmed.append(warm(**kw))
+        return prewarmed[-1]
+
+    forwards = [0]
+    log_assignment = lightglue.LightGlueMatcher.log_assignment
+
+    def counted(self, *args, **kwargs):
+        forwards[0] += 1
+        return log_assignment(self, *args, **kwargs)
+
+    out = {"matcher": 0, "attention": 0, "composite": 0}
+    bars = (RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK, RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK)
+    with tempfile.TemporaryDirectory() as work:
+        gt_dir = os.path.join(work, "gt_colmap")
+        write_gt_colmap(data_dir, gt_dir)
+        base = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", data_dir]
+        argv_a = base + ["--use_cache", "--cache_root", os.path.join(work, "cache"), "--load_chunk_size",
+                         str(OUTPUTS_CHUNK), "--prewarm", "--compare_to", gt_dir]
+        SceneOptimizer.run, prewarm.prewarm_standard_shapes = capture_run, capture_prewarm
+        lightglue.LightGlueMatcher.log_assignment = counted
+        try:
+            res = {}
+            for tag, argv in (("A", argv_a), ("B", argv_a)):
+                res[tag] = _runner_once(f"runner_outputs {tag}", argv, os.path.join(work, tag))
+                _print_run(f"runner_outputs {tag}", res[tag], bars, smi)
+                print(f"runner_outputs {tag} prewarm seconds: {json.dumps(prewarmed[-1])}", flush=True)
+            (so_a, data_a), (_so_b, data_b) = scenes[-2:]
+            chunks = -(-res["A"]["pairs"] // RUNNER_PAIR_BATCH)
+            identical = _same_scene(data_a, data_b)
+            print(f"runner_outputs: B replayed A bit for bit: {identical}; matcher launches A "
+                  f"{res['A']['launches']['matcher']} (>= {chunks} chunks of {RUNNER_PAIR_BATCH}), B "
+                  f"{res['B']['launches']['matcher']}; total_runtime_sec A {res['A']['sec']['total_runtime_sec']:.3f} "
+                  f"(the runner phase's cold run {runner_cold_total:.3f}), B {res['B']['sec']['total_runtime_sec']:.3f}"
+                  f" | {smi}", flush=True)
+            if not identical or res["B"]["launches"]["matcher"] != 0 or res["A"]["launches"]["matcher"] < chunks:
+                raise AssertionError("runner_outputs: the cache replay differs from the cold run or matched")
+            results = os.path.join(work, "A", "results")
+            missing = [f for f in RUNNER_OUTPUT_FILES if not os.path.isfile(os.path.join(results, f))]
+            with open(os.path.join(results, "comparison", "comparison_metrics.csv")) as f:
+                comparison = dict(line.strip().split(",", 1) for line in f if "{" not in line)
+            print(f"runner_outputs A files: {sorted(os.path.relpath(p, results) for p in glob.glob(results + '/*'))}; "
+                  f"against the GT COLMAP: {comparison.get('num_matched_cameras')} cameras matched, pose AUC@5 "
+                  f"{comparison.get('pose_auc_@5.0_deg')}", flush=True)
+            if missing:
+                raise AssertionError(f"runner_outputs A: missing {missing}")
+
+            # the chunked detection on the card against the whole batch's,
+            # both detected afresh: neither replays run A's entries nor
+            # writes one that run C would replay
+            so_a._detect_cache = None
+            loader = OlssonLoader(data_dir)
+            images, sizes = loader.load_grayscale_batch()
+            whole = so_a._detect_batch(torch.as_tensor(images, device="cuda"), sizes)
+            chunked = so_a._load_detect_chunked(loader, False)[:3]
+            shares = [keypoints_agree(*(a[i] for a in chunked), *(a[i] for a in whole))[0] for i in range(len(images))]
+            print(f"runner_outputs: chunks of {OUTPUTS_CHUNK} against the whole batch on the card: keypoint share "
+                  f"min {min(shares):.4f} mean {float(np.mean(shares)):.4f} (>= {OUTPUTS_CHUNK_SHARE})", flush=True)
+            if min(shares) < OUTPUTS_CHUNK_SHARE:
+                raise AssertionError(f"runner_outputs: chunked detection keeps {min(shares):.4f} of the keypoints")
+
+            argv_c = base + ["--hierarchical", "--run_gs", "--gs_video_frames", str(OUTPUTS_FRAMES), "--use_cache",
+                             "--cache_root", os.path.join(work, "cache"),
+                             f"scene_optimizer.gs_iterations={OUTPUTS_GS_STEPS}",
+                             f"scene_optimizer.max_cluster_size={OUTPUTS_CLUSTER_SIZE}"]
+            res["C"] = _runner_once("runner_outputs C", argv_c, os.path.join(work, "C"))
+            _print_run("runner_outputs C", res["C"], None, smi)
+            so_c = scenes[-1][0]
+            results = os.path.join(work, "C", "results")
+            clusters = [p for p, _ in so_c.node_results if p]
+            dirs = sorted(os.path.relpath(d, results) for d, _, _ in os.walk(results)
+                          if os.path.basename(d).startswith("C_"))
+            frames = sorted(glob.glob(os.path.join(results, "splat_video", "frame_*.png")))
+            gif = os.path.isfile(os.path.join(results, "splat_flythrough.gif"))
+            comp = res["C"]["launches"]["composite"]
+            print(f"runner_outputs C: {len(clusters)} cluster results {clusters}, directories {dirs}; {len(frames)} "
+                  f"frames, GIF {gif}, mp4 {os.path.isfile(os.path.join(results, 'splat_flythrough.mp4'))}; "
+                  f"{comp} composite launches ({OUTPUTS_GS_STEPS} steps + {OUTPUTS_FRAMES} frames)", flush=True)
+            if not clusters or len(dirs) != len(clusters) or len(frames) != OUTPUTS_FRAMES or not gif \
+                    or comp != OUTPUTS_GS_STEPS + OUTPUTS_FRAMES:
+                raise AssertionError("runner_outputs C: the SceneTree or the fly-through is not what the run made")
+
+            weights = write_deep_weights(work, ("superpoint", "lightglue"))
+            argv_d = ["--config_name", "deep_front_end", "--loader", "olsson", "--dataset_dirpath", data_dir] + \
+                deep_overrides("deep_front_end", weights) + ["--use_cache", "--cache_root", os.path.join(work, "deep")]
+            for tag in ("D", "E"):
+                forwards[0] = 0
+                res[tag] = _runner_once(f"runner_outputs {tag}", argv_d, os.path.join(work, tag))
+                res[tag]["forwards"] = forwards[0]
+                _print_run(f"runner_outputs {tag}", res[tag], None, smi)
+            identical = _same_scene(scenes[-2][1], scenes[-1][1])
+            attn = {t: res[t]["launches"]["attention"] for t in ("D", "E")}
+            print(f"runner_outputs: deep_front_end cold {attn['D']} attention launches ({res['D']['forwards']} "
+                  f"LightGlue forwards), replay {attn['E']}; E replayed D bit for bit: {identical}", flush=True)
+            if not identical or attn["E"] or res["E"]["forwards"] or not res["D"]["forwards"] or \
+                    attn["D"] != GLUE_LAUNCHES_PER_FORWARD * res["D"]["forwards"]:
+                raise AssertionError("runner_outputs: the deep_front_end replay differs or ran LightGlue")
+        finally:
+            SceneOptimizer.run, prewarm.prewarm_standard_shapes = run, warm
+            lightglue.LightGlueMatcher.log_assignment = log_assignment
+
+        page = dashboard.save_comparison_dashboard({"runner": os.path.join(work, "A")},
+                                                   {"runner": os.path.join(work, "B")},
+                                                   os.path.join(work, "dashboard.html"))
+        with open(page) as f:
+            html = f.read()
+        print(f"runner_outputs: dashboard over A and B, {len(html)} bytes", flush=True)
+        if "<h2>retrieval_metrics</h2>" not in html:
+            raise AssertionError("runner_outputs: the dashboard lacks the retrieval_metrics table")
+    print("runner_outputs seconds: " + " ".join(
+        f"{k} A {res['A']['sec'][k]:.3f} B {res['B']['sec'][k]:.3f}" for k in res["A"]["sec"]) + f" | {smi}",
+        flush=True)
+    for tag in "ABCDE":
+        for k in out:
+            out[k] += res[tag]["launches"][k]
+    out["runs"] = {tag: res[tag]["launches"] for tag in "ABCDE"}
+    return out
 
 
 def _check_rejections(res, opts) -> dict:
@@ -3828,6 +4034,7 @@ def phase_bal(smi: str, work: str) -> dict:
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     phase_sec = {}
 
     def timed(name, fn, *args):
@@ -3867,7 +4074,7 @@ def main() -> int:
     timed("hierarchical", phase_hierarchical, smi)
     timed("ba_layouts", phase_ba_layouts, smi)
     with tempfile.TemporaryDirectory() as work:
-        runner_launches, runner_dir, runner_views = timed("runner", phase_runner, smi, R, t, work)
+        runner_launches, runner_dir, runner_views, runner_cold = timed("runner", phase_runner, smi, R, t, work)
         options_launches = timed("runner_options", phase_runner_options, smi, runner_dir, runner_views)
         colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
         comp_launches = timed("splat", phase_splat, R, t)
@@ -3879,7 +4086,9 @@ def main() -> int:
         timed("mvs", phase_mvs, smi, R, t, work)
         mvs_launches = timed("mvs_runner", phase_mvs_runner, smi, runner_dir, work)["launches"]
         timed("bal", phase_bal, smi, work)
+        outputs = timed("runner_outputs", phase_runner_outputs, smi, runner_dir, runner_cold)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
+    print(f"script seconds: {time.perf_counter() - t_script:.1f} (limit 1200)", flush=True)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -3889,8 +4098,9 @@ def main() -> int:
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
         "shape": "P64_K2048_D128",
         "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"]
-        + sum(r["launches"]["matcher"] for r in megaloc["runs"]) + mvs_launches,
+        + sum(r["launches"]["matcher"] for r in megaloc["runs"]) + mvs_launches + outputs["matcher"],
         "runner_launches": runner_launches["matcher"],
+        "runner_outputs_launches": {tag: r["matcher"] for tag, r in outputs["runs"].items()},
         "runner_options_launches": options_launches["matcher"],
         "colmap_runner_launches": colmap_launches["matcher"],
         "mvs_runner_launches": mvs_launches,
@@ -3918,7 +4128,9 @@ def main() -> int:
         "also_replaces": ["gtsfm_tpu/frontend/matchers/pallas_attention.py:99",
                           "gtsfm_tpu/frontend/matchers/pallas_attention.py:29"],
         "shape": deep["attention"]["fused_attention_merged"]["shape"],
-        "launches": deep["warm"]["launches"]["attention"],
+        "launches": deep["warm"]["launches"]["attention"] + outputs["attention"],
+        "deep_front_end_launches": deep["warm"]["launches"]["attention"],
+        "runner_outputs_launches": {tag: r["attention"] for tag, r in outputs["runs"].items()},
         "lightglue_forwards": deep["warm"]["forwards"],
         "max_abs_err": max([attn_err] + [e["err"] for e in deep["attention"].values()]),
         "ms": deep["attention"]["fused_attention_merged"]["kernel"],
@@ -3943,8 +4155,9 @@ def main() -> int:
         "route": "cuda",
         "source": "gtsfm_tpu_torch/csrc/splat_composite.cu",
         "replaces": "gtsfm_tpu/splat/rendering.py:420",
-        "launches": comp_launches + ff["composite"],
+        "launches": comp_launches + ff["composite"] + outputs["composite"],
         "splat_launches": comp_launches,
+        "runner_outputs_launches": {tag: r["composite"] for tag, r in outputs["runs"].items()},
         "feedforward_launches": ff["composite"],
         "slice_launches": slice_comp_launches,
         "max_abs_err": comp_err,

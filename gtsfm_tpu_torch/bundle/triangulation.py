@@ -20,7 +20,7 @@ import enum
 import torch
 
 from gtsfm_tpu_torch.geometry import SE3
-from gtsfm_tpu_torch.utils.numerics import counter_uniform, nullvec_pinned, precise
+from gtsfm_tpu_torch.utils.numerics import counter_uniform, eigh, nullvec_pinned, precise
 
 TAG_GUMBEL = 3
 
@@ -68,7 +68,7 @@ def _world_to_camera(wTi: SE3):
 
 def _solve_dlt(R_cw, t_cw, xy, mask) -> torch.Tensor:
     """Exact DLT (eigh of the 4x4 normal matrix), dehomogenized (..., 3)."""
-    _, vecs = torch.linalg.eigh(_dlt_normal_matrix(R_cw, t_cw, xy, mask))
+    _, vecs = eigh(_dlt_normal_matrix(R_cw, t_cw, xy, mask))
     return _dehomogenize(vecs[..., :, 0])
 
 

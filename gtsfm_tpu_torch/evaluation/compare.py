@@ -4,11 +4,20 @@ Port of gtsfm_tpu/evaluation/compare.py, ``match_cameras_by_name`` and
 ``compare_reconstructions``: align the estimate onto the reference with a
 robust Sim3 over the cameras matched by image name and report per-camera
 errors, the relative pair errors with their pose AUC, the structure
-difference and track statistics. The COLMAP-directory helpers and the
-``output_dir`` artifacts wait for the port of ``io/colmap.py``.
+difference and track statistics; with an ``output_dir``, the per-camera
+error table, the metrics table and a plot of the camera centers; and the
+COLMAP-directory entries ``compare_colmap_dirs`` and
+``compare_colmap_dirs_by_cluster`` (the runner's ``--compare_to``). The
+plot is drawn with PIL (visualization/viz.py), where the reference uses
+matplotlib, which the card's machine does not have.
 """
 
 from __future__ import annotations
+
+import csv
+import json
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,7 +32,9 @@ from gtsfm_tpu_torch.evaluation.metrics import (
 )
 from gtsfm_tpu_torch.geometry import so3
 from gtsfm_tpu_torch.geometry.sim3 import align_poses_sim3_robust
+from gtsfm_tpu_torch.io import colmap as colmap_io
 from gtsfm_tpu_torch.utils.numerics import precise
+from gtsfm_tpu_torch.visualization.viz import scatter_3d
 
 
 def match_cameras_by_name(a: SfmData, b: SfmData):
@@ -43,7 +54,7 @@ def match_cameras_by_name(a: SfmData, b: SfmData):
     return np.asarray(ia, np.int64), np.asarray(ib, np.int64)
 
 
-def compare_reconstructions(est: SfmData, ref: SfmData) -> MetricsGroup:
+def compare_reconstructions(est: SfmData, ref: SfmData, output_dir: Optional[str] = None) -> MetricsGroup:
     """Align ``est`` onto ``ref`` (robust Sim3 over the matched cameras) and
     report:
 
@@ -53,7 +64,10 @@ def compare_reconstructions(est: SfmData, ref: SfmData) -> MetricsGroup:
       camera pairs, and the pose AUC @ 1/2.5/5/10/20 deg of their maximum;
     - the nearest-reference-point distances of the estimated landmarks after
       the same Sim3, also relative to the reference's extent;
-    - track counts and lengths."""
+    - track counts and lengths.
+
+    With ``output_dir``, also writes per_camera_errors.csv,
+    comparison_metrics.csv and camera_centers.png there."""
     ia, ib = match_cameras_by_name(est, ref)
     if len(ia) == 0:
         # positional matching over the jointly valid slots
@@ -124,4 +138,63 @@ def compare_reconstructions(est: SfmData, ref: SfmData) -> MetricsGroup:
         Metric("est_mean_track_length", mean_a),
         Metric("ref_mean_track_length", mean_b),
     ]
+    if output_dir is not None:
+        _write_comparison_artifacts(output_dir, est, ia, rot_err, t_err, t_angle, ta, tb, g)
     return g
+
+
+def _write_comparison_artifacts(output_dir, est, ia, rot_err, t_err, t_angle, centers_est, centers_ref,
+                                group: MetricsGroup) -> None:
+    """The per-camera error table, the metrics table (a distribution as its
+    summary's JSON) and the aligned camera centers over the reference's
+    (blue: reference, orange: estimate)."""
+    os.makedirs(output_dir, exist_ok=True)
+    names = (est.meta.image_names if est.meta else None) or []
+    with open(os.path.join(output_dir, "per_camera_errors.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["image", "rotation_error_deg", "translation_error", "translation_angle_error_deg"])
+        for k, i in enumerate(ia):
+            nm = names[i] if i < len(names) else str(i)
+            w.writerow([nm, f"{rot_err[k]:.6f}", f"{t_err[k]:.6f}", f"{t_angle[k]:.6f}"])
+    with open(os.path.join(output_dir, "comparison_metrics.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["metric_name", "value"])
+        for m in group.metrics:
+            if m.dist is not None:
+                w.writerow([m.name, json.dumps(m.summary()[m.name], sort_keys=True)])
+            else:
+                w.writerow([m.name, f"{m.scalar:.6f}"])
+    blue, orange = (31, 119, 180), (255, 127, 14)
+    scatter_3d(os.path.join(output_dir, "camera_centers.png"), [(centers_ref, blue), (centers_est, orange)],
+               size=1050, legend=[("reference", blue), ("estimated", orange)])
+
+
+def compare_colmap_dirs(est_dir: str, ref_dir: str, output_dir: Optional[str] = None) -> MetricsGroup:
+    """Compare two COLMAP exports (text or binary)."""
+    return compare_reconstructions(colmap_io.read_scene(est_dir), colmap_io.read_scene(ref_dir),
+                                   output_dir=output_dir)
+
+
+def compare_colmap_dirs_by_cluster(est_root: str, ref_dir: str) -> list:
+    """Align every COLMAP export under ``est_root`` (the root itself, and
+    each subdirectory holding cameras.txt directly or in ``ba_output/``) to
+    the reference on its own, so each cluster's quality shows before any
+    merge. Returns one MetricsGroup per export, named
+    ``reconstruction_comparison__<directory>`` (``root`` for est_root)."""
+    ref = colmap_io.read_scene(ref_dir)
+    candidates = []
+    if os.path.exists(os.path.join(est_root, "cameras.txt")):
+        candidates.append(("root", est_root))
+    for name in sorted(os.listdir(est_root)):
+        sub = os.path.join(est_root, name)
+        if os.path.isdir(sub):
+            for inner in (sub, os.path.join(sub, "ba_output")):
+                if os.path.exists(os.path.join(inner, "cameras.txt")):
+                    candidates.append((name, inner))
+                    break
+    groups = []
+    for name, path in candidates:
+        g = compare_reconstructions(colmap_io.read_scene(path), ref)
+        g.name = f"reconstruction_comparison__{name}"
+        groups.append(g)
+    return groups

@@ -11,7 +11,7 @@ import torch
 
 from gtsfm_tpu_torch.geometry import so3
 from gtsfm_tpu_torch.geometry.se3 import SE3
-from gtsfm_tpu_torch.utils.numerics import TensorStruct, mm
+from gtsfm_tpu_torch.utils.numerics import TensorStruct, mm, svd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +47,7 @@ def align_points_umeyama(
     ds = source - mu_s[..., None, :]
     dt = target - mu_t[..., None, :]
     cov = mm((dt * w[..., None]).transpose(-1, -2), ds)
-    U, D, Vt = torch.linalg.svd(cov)
+    U, D, Vt = svd(cov)
     det = torch.linalg.det(mm(U, Vt))
     S = torch.cat([torch.ones(det.shape + (2,), dtype=source.dtype, device=source.device), det[..., None]], dim=-1)
     R = mm(U * S[..., None, :], Vt)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from gtsfm_tpu_torch.utils.numerics import mm
+from gtsfm_tpu_torch.utils.numerics import mm, svd
 
 _EPS = 1e-8
 
@@ -63,7 +63,7 @@ def logmap(R: torch.Tensor) -> torch.Tensor:
 def project(M: torch.Tensor) -> torch.Tensor:
     """Nearest rotation (Frobenius) of (..., 3, 3) via SVD with the
     determinant fix R = U diag(1, 1, det(U V^T)) V^T."""
-    U, _, Vt = torch.linalg.svd(M)
+    U, _, Vt = svd(M)
     det = torch.linalg.det(mm(U, Vt))
     D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
     D = torch.cat([D[..., :2], det[..., None]], dim=-1)

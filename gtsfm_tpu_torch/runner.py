@@ -29,10 +29,16 @@ with ``--mvs_backend plane_sweep|patchmatchnet`` (PatchmatchNet needs
 ``--mvs_weights_path``, a checkpoint in the official model_000007.ckpt
 layout) and ``--bal PROBLEM`` (bundle adjustment alone on a BAL file, on
 the card unless ``scene_optimizer.device=cpu``; the COLMAP text goes to
-``<output_root>/bal_output``). The flags whose modules are not ported
-yet (``--compare_to``, ``--use_cache``, ``--load_chunk_size``,
-``--prewarm``, ``--gs_video_frames`` and the ``--distributed_*`` flags)
-raise ``NotImplementedError`` naming their ROADMAP item before any work.
+``<output_root>/bal_output``), ``--use_cache`` with ``--cache_root`` (disk
+caches of the detector, global descriptor, learned matcher, two-view and
+cluster stages; the default root is ``~/.cache/gtsfm_tpu_torch``),
+``--load_chunk_size`` (load and detect that many images at a time),
+``--prewarm`` (build the CUDA kernels and warm the standard shapes before
+the run, ``utils/prewarm.py``), ``--gs_video_frames`` (the splats'
+fly-through) and ``--compare_to`` (the exported reconstruction against a
+COLMAP directory, written to ``<output_root>/results/comparison/``).
+Multi-GPU runs are out of scope: the ``--distributed_*`` flags raise
+``NotImplementedError`` naming ROADMAP queue 1 item 10 before any work.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bal", default=None, metavar="PROBLEM",
                    help="BA-only mode: optimize a BAL problem file, print the costs, export COLMAP text")
     p.add_argument("--compare_to", default=None, metavar="COLMAP_DIR",
-                   help="compare the exported reconstruction against this COLMAP directory (not ported)")
+                   help="compare the exported reconstruction against this COLMAP directory")
     p.add_argument("--loader", default="olsson", choices=list(_LOADERS))
     p.add_argument("--dataset_dirpath", default=None, help="dataset root")
     p.add_argument("--images_dir", default=None, help="colmap loader images dir")
@@ -66,35 +72,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mvs_backend", default="plane_sweep", choices=["plane_sweep", "patchmatchnet"])
     p.add_argument("--mvs_weights_path", default=None, help="PatchmatchNet checkpoint (official layout)")
     p.add_argument("--gs_video_frames", type=int, default=0,
-                   help="render a camera-path PNG sequence of the splats (not ported)")
+                   help="render a camera-path PNG sequence and GIF of the splats")
     p.add_argument("--hierarchical", action="store_true", help="partitioned reconstruction")
     p.add_argument("--cluster_optimizer", default=None, choices=["mvo", "vggt", "fastvggt", "anysplat"],
                    help="reconstruction engine: mvo, or a feed-forward slot")
-    p.add_argument("--use_cache", action="store_true", help="disk caching of detect / two-view (not ported)")
+    p.add_argument("--use_cache", action="store_true",
+                   help="disk caches of the detector, descriptor, matcher, two-view and cluster stages")
     p.add_argument("--cache_root", default=None)
-    p.add_argument("--load_chunk_size", type=int, default=None, help="stream load + detect (not ported)")
-    p.add_argument("--distributed_coordinator", default=None, help="host:port of process 0 (not ported)")
+    p.add_argument("--load_chunk_size", type=int, default=None,
+                   help="load and detect N images at a time (bounds host memory)")
+    p.add_argument("--distributed_coordinator", default=None,
+                   help="host:port of process 0 (multi-GPU runs: not ported)")
     p.add_argument("--distributed_num_processes", type=int, default=None)
     p.add_argument("--distributed_process_id", type=int, default=None)
-    p.add_argument("--prewarm", action="store_true", help="compile ahead of the run (not ported)")
+    p.add_argument("--prewarm", action="store_true",
+                   help="build the CUDA kernels and warm the standard shapes before the run")
     p.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
     return p
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose modules are not ported."""
-    unported = [
-        (args.compare_to, "--compare_to", 6),
-        (args.use_cache or args.cache_root, "--use_cache", 3),
-        (args.load_chunk_size is not None, "--load_chunk_size", 3),
-        (args.prewarm, "--prewarm", 3),
-        (args.distributed_coordinator or args.distributed_num_processes is not None
-         or args.distributed_process_id is not None, "--distributed_*", 3),
-        (args.gs_video_frames, "--gs_video_frames", 5),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP queue 1 item {item})")
+    """Raise NotImplementedError for the multi-GPU flags: multi-GPU runs are
+    out of scope (ROADMAP queue 1 item 10, ``parallel/sharding.py``)."""
+    if args.distributed_coordinator or args.distributed_num_processes is not None \
+            or args.distributed_process_id is not None:
+        raise NotImplementedError("--distributed_*: multi-GPU runs are not ported "
+                                  "(ROADMAP queue 1 item 10, parallel/sharding.py)")
 
 
 def build_loader(args):
@@ -188,6 +191,11 @@ def main(argv=None) -> int:
         return run_bal(args.bal, args.output_root, so_cfg.get("device", "cuda"))
     if not args.dataset_dirpath:
         parser.error("--dataset_dirpath is required (except with --bal)")
+    if args.prewarm:
+        from gtsfm_tpu_torch.utils.prewarm import prewarm_standard_shapes
+
+        timings = prewarm_standard_shapes(device=so_cfg.get("device", "cuda"))
+        print("prewarm: " + " ".join(f"{k} {v}s" for k, v in timings.items()), flush=True)
     so_cfg["output_root"] = args.output_root
     if args.run_mvs:
         so_cfg["run_mvs"] = True
@@ -196,10 +204,18 @@ def main(argv=None) -> int:
         so_cfg["mvs_weights_path"] = args.mvs_weights_path
     if args.run_gs:
         so_cfg["run_gs"] = True
+    if args.gs_video_frames:
+        so_cfg["gs_video_frames"] = args.gs_video_frames
     if args.hierarchical:
         so_cfg["hierarchical"] = True
     if args.cluster_optimizer:
         so_cfg["cluster_optimizer"] = args.cluster_optimizer
+    if args.use_cache:
+        so_cfg["use_cache"] = True
+    if args.cache_root:
+        so_cfg["cache_root"] = args.cache_root
+    if args.load_chunk_size is not None:
+        so_cfg["load_chunk_size"] = args.load_chunk_size
     so = build_scene_optimizer(cfg)
     loader = build_loader(args)
     t0 = time.time()
@@ -211,7 +227,25 @@ def main(argv=None) -> int:
         for k, v in g.to_dict()[g.name].items():
             if isinstance(v, (int, float)):
                 print(f"  {g.name}/{k}: {v}")
+    if args.compare_to:
+        compare_to(args.output_root, args.compare_to)
     return 0
+
+
+def compare_to(output_root: str, ref_dir: str) -> None:
+    """Compare ``<output_root>/results/ba_output`` with the COLMAP directory
+    ``ref_dir``; the tables and plot go to ``<output_root>/results/comparison``
+    and the scalars are printed."""
+    from gtsfm_tpu_torch.evaluation.compare import compare_colmap_dirs
+
+    est_dir = os.path.join(output_root, "results", "ba_output")
+    if not os.path.exists(os.path.join(est_dir, "cameras.txt")):
+        print("  comparison skipped: no exported reconstruction")
+        return
+    cg = compare_colmap_dirs(est_dir, ref_dir, output_dir=os.path.join(output_root, "results", "comparison"))
+    for m in cg.metrics:
+        if m.dist is None:
+            print(f"  comparison/{m.name}: {m.scalar}")
 
 
 if __name__ == "__main__":

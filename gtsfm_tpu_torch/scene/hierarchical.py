@@ -17,6 +17,13 @@ edges (``E >= 3``), so without the padding a two-edge leaf would skip MFAS
 here and not in the reference. The leaf's result returns to the global
 camera space by index ops on the device: the real rows are selected first,
 then written to their one global slot each.
+
+With a ``cluster_cache`` (utils/cache.DiskCache) each leaf's result is
+kept on disk, keyed on its edges, their relative poses and verified
+correspondence masks, samples of its cameras' keypoints and the MVO
+options, and a re-run with the same front-end output replays it: the
+entry holds the leaf's scene as CPU tensors, its keypoint-to-track map
+and its scalar metrics, and a hit moves the scene to the run's device.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from gtsfm_tpu_torch.merging.merge import MergeOptions, merge_children
 from gtsfm_tpu_torch.partitioner.partitioners import MetisPartitioner
 from gtsfm_tpu_torch.products.types import ClusterTree
 from gtsfm_tpu_torch.scene.mvo import MultiViewOptimizer, MVOOptions
+from gtsfm_tpu_torch.utils.cache import content_key
 from gtsfm_tpu_torch.utils.numerics import ceil_pow2
 
 MAX_SIM3_PAIRS = 4096  # LMedS + IRLS saturates well below this many 3D-3D pairs
@@ -68,8 +76,10 @@ def _kp_track_map(aux: dict, num_images: int, max_kp: int) -> np.ndarray:
 class HierarchicalReconstruction:
     """Runs the partitioned back end on flat front-end outputs."""
 
-    def __init__(self, options: HierarchicalOptions = HierarchicalOptions()):
+    def __init__(self, options: HierarchicalOptions = HierarchicalOptions(), cluster_cache=None):
+        """cluster_cache: a DiskCache for the leaves' results, or None."""
         self.options = options
+        self.cluster_cache = cluster_cache
         self.node_results = []  # [(path tuple, SfmData)] of the last run, postorder
         self._last_merge_fail = "unknown"
 
@@ -113,6 +123,16 @@ class HierarchicalReconstruction:
             sel = edge_subset(node.value)
             sub_edges = edges[sel]
             local_cams = np.unique(sub_edges)
+            cache_key = None
+            if self.cluster_cache is not None:
+                stride = max(1, keypoints_xy.shape[1] // 32)
+                cache_key = content_key(sub_edges, rel_R[sel].cpu().numpy(), rel_U[sel].cpu().numpy(),
+                                        host["corr_mask"][sel], keypoints_xy[local_cams][:, ::stride], repr(opts.mvo))
+                hit = self.cluster_cache.get(cache_key)
+                if hit is not None:
+                    data_cpu, kp_map, m_cached = hit
+                    cluster_metrics.append(dict(m_cached, cache_hit=True))
+                    return data_cpu.map(lambda a: a.to(dev)), kp_map
             nl = len(local_cams)
             n_local = max(ceil_pow2(nl, 8), hwm_cams)
             g2l = np.full(num_images, -1, np.int64)
@@ -160,7 +180,11 @@ class HierarchicalReconstruction:
             aux = m.get("aux", {})
             if aux:
                 aux = dict(aux, meas_cam=local_cams[np.asarray(aux["meas_cam"])])
-            return data, _kp_track_map(aux, num_images, keypoints_xy.shape[1])
+            kp_map = _kp_track_map(aux, num_images, keypoints_xy.shape[1])
+            if cache_key is not None:
+                self.cluster_cache.put(cache_key, (data.map(lambda a: a.cpu()), kp_map,
+                                                   {k: v for k, v in m.items() if isinstance(v, (int, float, str))}))
+            return data, kp_map
 
         def fold(node: ClusterTree, child_results):
             child_results = [c for c in child_results if c is not None]

@@ -14,10 +14,27 @@ and ``intrinsics_metrics`` groups) -> with ``run_mvs`` the dense back end
 (densify/: the plane sweep, or PatchmatchNet with ``mvs_backend``;
 ``mvs_metrics``) -> with ``run_gs`` the Gaussian-splat trainer
 (``gaussian_splatting_metrics``) -> under ``output_root``, the
-reconstruction as COLMAP text in ``results/ba_output/``, each metrics
-group as ``results/metrics/<group>.json``, the dense points as
-``results/dense_points.ply`` and the splats as ``results/splats.ply`` and
-``results/gaussian_points.ply``.
+reconstruction as COLMAP text in ``results/ba_output/``, a hierarchical
+run's cluster results as a SceneTree (``results/C_1/C_1_2/...``), each
+metrics group as ``results/metrics/<group>.json``, the HTML report
+``results/gtsfm_metrics_report.html``, the process graph
+``results/process_graph.dot``, the orbit viewer ``results/viewer.html`` and
+``results/plots/scene_3d.png``, the dense points as
+``results/dense_points.ply``, the splats as ``results/splats.ply`` and
+``results/gaussian_points.ply``, and with ``gs_video_frames`` the splats'
+fly-through along a B-spline through the registered cameras
+(``results/splat_video/frame_%04d.png``, ``results/splat_flythrough.gif``
+and, where OpenCV writes it, ``.mp4``; every frame composites through the
+CUDA kernel on the card). With a similarity retriever and GT poses the
+metrics carry the ``retrieval_metrics`` group.
+
+With ``use_cache`` the detector, the global descriptor, the learned
+matcher, the two-view stage and each hierarchical leaf replay from disk
+caches under ``cache_root`` (utils/cache.py, the port's own default root)
+on a re-run with the same inputs. With ``load_chunk_size`` (and neither
+``run_mvs`` nor ``run_gs``, which need the images afterwards) the images
+are loaded and detected a chunk at a time, so host memory holds one
+chunk.
 
 With ``cluster_optimizer`` vggt, fastvggt or anysplat the feed-forward
 slot (scene/cluster_feedforward.py: the compact model or VGGT, by
@@ -37,10 +54,9 @@ mutual-NN matcher does not run. The matcher slot takes a learned matcher
 mutual-NN matcher inside the two-view batch.
 
 Not ported: image-correspondence generators (the keypoint aggregator),
-chunked loading, caches, telemetry, the retrieval metrics group, the
-splat video, and of the export the HTML report, the process graph, the
-viewer, the plots and the per-cluster ``SceneTree`` (ROADMAP queue 1
-items 3, 5 and 10).
+telemetry and the device mesh (ROADMAP queue 1 item 10; their option
+fields ``direct_max_keypoints``, ``telemetry_db`` and ``use_mesh`` raise as
+unknown fields).
 """
 
 from __future__ import annotations
@@ -62,14 +78,20 @@ from gtsfm_tpu_torch.evaluation.metrics import (
     pose_auc,
     relative_pose_errors,
 )
+from gtsfm_tpu_torch.evaluation.report import generate_html_report
+from gtsfm_tpu_torch.evaluation.retrieval_metrics import retrieval_metrics
 from gtsfm_tpu_torch.frontend.anysplat import AnySplatModel, AnySplatOptions, gaussian_means_as_tracks
+from gtsfm_tpu_torch.frontend.cachers import GlobalDescriptorCacher, MatcherCacher
 from gtsfm_tpu_torch.frontend.detectors.dog_sift import DoGSift, DoGSiftOptions
 from gtsfm_tpu_torch.frontend.global_descriptors.descriptors import TinyImageDescriptor
 from gtsfm_tpu_torch.frontend.reports import aggregate_frontend_metrics, make_reports
 from gtsfm_tpu_torch.frontend.two_view import TwoViewOptions, TwoViewResult, run_two_view_batch
+from gtsfm_tpu_torch.frontend.two_view_cacher import TwoViewEstimatorCacher
+from gtsfm_tpu_torch.geometry import SE3
 from gtsfm_tpu_torch.io import colmap as colmap_io
 from gtsfm_tpu_torch.io.ply import write_ply
 from gtsfm_tpu_torch.loader.base import LoaderBase, batch_calibrations
+from gtsfm_tpu_torch.products.scene_tree import SceneTree
 from gtsfm_tpu_torch.retriever.bridge import find_bridge_pairs
 from gtsfm_tpu_torch.retriever.retrievers import (
     JointSimilaritySequentialRetriever,
@@ -88,10 +110,15 @@ from gtsfm_tpu_torch.scene.mvo import MultiViewOptimizer, MVOOptions
 from gtsfm_tpu_torch.splat.gaussian_splatting import GaussianSplatting, GSTrainOptions
 from gtsfm_tpu_torch.splat.gs_data import export_ply
 from gtsfm_tpu_torch.splat.merge import transform_splats
+from gtsfm_tpu_torch.splat.rendering import bspline_camera_path, render_tiled
+from gtsfm_tpu_torch.ui.registry import ProcessGraphGenerator
+from gtsfm_tpu_torch.utils.cache import DiskCache, content_key
 from gtsfm_tpu_torch.utils.ellipsoid import align_scene_to_axes
 from gtsfm_tpu_torch.utils.geometry_comparisons import compare_global_poses
-from gtsfm_tpu_torch.utils.numerics import resolve_device
+from gtsfm_tpu_torch.utils.numerics import precise, resolve_device
 from gtsfm_tpu_torch.utils.tracks import tracks_from_sfm_data
+from gtsfm_tpu_torch.visualization.viewer import export_scene_html
+from gtsfm_tpu_torch.visualization.viz import plot_scene_3d
 
 
 class SceneOptimizerOptions(NamedTuple):
@@ -113,6 +140,8 @@ class SceneOptimizerOptions(NamedTuple):
     run_mvs: bool = False
     run_gs: bool = False
     gs_iterations: int = 800
+    # frames of the splats' fly-through (0: none)
+    gs_video_frames: int = 0
     mvs_num_depths: int = 64
     mvs_num_source_views: int = 4
     # "plane_sweep" or "patchmatchnet" (learned: needs mvs_weights_path, a
@@ -127,6 +156,12 @@ class SceneOptimizerOptions(NamedTuple):
     # layout, with the weights of vggt_weights_path)
     feedforward_backbone: str = "compact"
     vggt_weights_path: Optional[str] = None
+    # disk caches of the detector, global descriptor, learned matcher,
+    # two-view and cluster stages (root: utils/cache.DEFAULT_CACHE_ROOT)
+    use_cache: bool = False
+    cache_root: Optional[str] = None
+    # images per load-and-detect chunk (0: the whole scene at once)
+    load_chunk_size: int = 0
     # without GT, rotate the scene so that the point cloud's principal axes
     # lie along the world axes
     axis_align_when_no_gt: bool = True
@@ -172,6 +207,16 @@ class SceneOptimizer:
         self.correspondence = correspondence
         self.backend_metrics: dict = {}  # the back end's metrics dict of the last run
         self.node_results: list = []  # [(cluster path, SfmData)] of the last hierarchical run
+        self._detect_cache = self._two_view_cacher = self._cluster_cache = None
+        if options.use_cache:
+            self._detect_cache = DiskCache("detector", root=options.cache_root)
+            # the seed is in the key: the two-view result depends on it
+            self._two_view_cacher = TwoViewEstimatorCacher(
+                self._run_two_view_uncached, root=options.cache_root,
+                options_repr=repr((options.two_view, type(self.matcher).__name__, options.seed)))
+            if self.matcher is not None:
+                self.matcher = MatcherCacher(self.matcher, root=options.cache_root)
+            self._cluster_cache = DiskCache("cluster", root=options.cache_root)
 
     def run(self, loader: LoaderBase) -> tuple:
         """-> (SfmData, list of MetricsGroup)."""
@@ -185,15 +230,9 @@ class SceneOptimizer:
 
         t0 = time.perf_counter()
         cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
-        images, sizes = loader.load_grayscale_batch()
-        images_dev = torch.as_tensor(images, device=self.device)
-        if not direct:
-            kp_xy, kp_mask, descs = self._detect_batch(images_dev, sizes)
-        global_descs = None
-        if isinstance(self.retriever, (SimilarityRetriever, JointSimilaritySequentialRetriever)):
-            if self.global_descriptor is None:
-                self.global_descriptor = TinyImageDescriptor()
-            global_descs = self.global_descriptor.describe_batch(images_dev)
+        want_global = isinstance(self.retriever, (SimilarityRetriever, JointSimilaritySequentialRetriever))
+        kp_xy, kp_mask, descs, global_descs, sizes, images = self._load_detect_chunked(
+            loader, want_global, detect=not direct, keep_images=opts.run_mvs or opts.run_gs)
         detect_sec = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -248,13 +287,16 @@ class SceneOptimizer:
         ]))
         if gt is not None:
             groups.append(aggregate_frontend_metrics(make_reports(pairs, host, gt)))
+        if sim is not None and gt is not None and len(pairs):
+            groups.append(retrieval_metrics(pairs, np.asarray(sim), gt))
 
         meta = SceneMeta(image_names=loader.image_filenames(), image_sizes=[(w, h) for (h, w) in sizes])
         t_mvo = time.perf_counter()
         self.node_results = []
         if opts.hierarchical:
             hier = HierarchicalReconstruction(
-                HierarchicalOptions(mvo=opts.mvo, max_cluster_size=opts.max_cluster_size))
+                HierarchicalOptions(mvo=opts.mvo, max_cluster_size=opts.max_cluster_size),
+                cluster_cache=self._cluster_cache)
             tvr_h = dict(host, i2Ri1=tvr.i2Ri1, i2Ui1=tvr.i2Ui1)
             data, mvo_metrics = hier.run(n, pairs, tvr_h, kp_xy, cal, meta=meta)
             self.node_results = hier.node_results
@@ -320,9 +362,8 @@ class SceneOptimizer:
         axis alignment, unless there are feed-forward gaussians), the dense
         back end on the grayscale images when ``run_mvs`` is set, the splat
         trainer on them when ``run_gs`` is set (from ``gs_init`` when
-        given), run time, and the results under ``output_root``: the COLMAP
-        text, the metrics JSON, ``dense_points.ply`` with dense points, and
-        with gaussians ``splats.ply`` and ``gaussian_points.ply``."""
+        given), run time, and the results under ``output_root`` (see the
+        module's docstring)."""
         opts = self.options
         failed = bool(mvo_metrics.get("failed"))
         if gt is None and opts.axis_align_when_no_gt and gs_init is None and not failed:
@@ -383,19 +424,129 @@ class SceneOptimizer:
             os.makedirs(results_dir, exist_ok=True)
             if opts.save_colmap and data.number_tracks() > 0:
                 colmap_io.write_scene(data, os.path.join(results_dir, "ba_output"))
+            if opts.save_colmap and self.node_results:
+                self._write_scene_tree(results_dir)
             for g in groups:
                 g.save_json(os.path.join(results_dir, "metrics"))
+            generate_html_report(groups, os.path.join(results_dir, "gtsfm_metrics_report.html"))
+            ProcessGraphGenerator().save_graph(os.path.join(results_dir, "process_graph.dot"))
+            if data.number_tracks() > 0:
+                export_scene_html(data, os.path.join(results_dir, "viewer.html"))
+                os.makedirs(os.path.join(results_dir, "plots"), exist_ok=True)
+                plot_scene_3d(data, os.path.join(results_dir, "plots", "scene_3d.png"))
             if dense is not None and len(dense[0]):
                 write_ply(os.path.join(results_dir, "dense_points.ply"), *dense)
             if gs_result is not None:
                 export_ply(gs_result, os.path.join(results_dir, "splats.ply"))
                 write_ply(os.path.join(results_dir, "gaussian_points.ply"), *gaussian_means_as_tracks(data, gs_result))
+                if opts.gs_video_frames > 0:
+                    self._export_splat_video(gs_result, data, results_dir, opts.gs_video_frames)
         return data, groups
+
+    def _write_scene_tree(self, results_dir: str) -> None:
+        """The hierarchical run's cluster results (all but the root, which
+        is ba_output/) as a SceneTree: path (1, 2) in results/C_1/C_1_2."""
+        nodes = {}
+        for path, node_data in self.node_results:
+            if path:
+                d = os.path.join(results_dir, *[f"C_{'_'.join(map(str, path[: k + 1]))}" for k in range(len(path))])
+                nodes[path] = SceneTree(directory=d, scene=node_data)
+        for path, node in sorted(nodes.items(), key=lambda kv: len(kv[0])):
+            parent = nodes.get(path[:-1])
+            if parent is not None:
+                parent.children.append(node)
+        for path, node in nodes.items():
+            if len(path) == 1:
+                node.write()
+
+    def _export_splat_video(self, gs_result, data, results_dir: str, n_frames: int) -> None:
+        """The splats rendered along a B-spline path through the registered
+        cameras (``bspline_camera_path``), at the first registered camera's
+        calibration and an image of twice its principal point:
+        results/splat_video/frame_%04d.png, results/splat_flythrough.gif
+        and, where OpenCV can write it, results/splat_flythrough.mp4."""
+        from PIL import Image
+
+        est = np.flatnonzero(data.pose_mask.cpu().numpy())
+        if len(est) < 2:
+            return
+        idx = torch.as_tensor(est, device=data.poses.t.device)
+        K = data.cal.K()[int(est[0])]
+        H = int(round(float(K[1, 2]) * 2)) or 480
+        W = int(round(float(K[0, 2]) * 2)) or 640
+        out_dir = os.path.join(results_dir, "splat_video")
+        os.makedirs(out_dir, exist_ok=True)
+        frames = []
+        with torch.no_grad(), precise():
+            path = bspline_camera_path(data.poses.map(lambda a: a[idx]), n_frames)
+            for f in range(n_frames):
+                img, _ = render_tiled(gs_result, SE3(R=path.R[f], t=path.t[f]), K, H, W)
+                frame = Image.fromarray(np.clip(img.cpu().numpy() * 255.0, 0, 255).astype(np.uint8))
+                frame.save(os.path.join(out_dir, f"frame_{f:04d}.png"))
+                frames.append(frame)
+        frames[0].save(os.path.join(results_dir, "splat_flythrough.gif"), save_all=True, append_images=frames[1:],
+                       duration=max(1000 // 24, 20), loop=0)
+        try:
+            import cv2
+        except ImportError:  # no OpenCV: the GIF alone
+            return
+        vw = cv2.VideoWriter(os.path.join(results_dir, "splat_flythrough.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+                             24.0, (W, H))
+        if vw.isOpened():
+            for frame in frames:
+                vw.write(np.asarray(frame)[:, :, ::-1])  # RGB -> BGR
+            vw.release()
+
+    def _global_descriptor(self):
+        """The global descriptor (the tiny descriptor when none was given),
+        behind its disk cache with ``use_cache``."""
+        if self.global_descriptor is None:
+            self.global_descriptor = TinyImageDescriptor()
+        if self.options.use_cache and not isinstance(self.global_descriptor, GlobalDescriptorCacher):
+            self.global_descriptor = GlobalDescriptorCacher(self.global_descriptor, root=self.options.cache_root)
+        return self.global_descriptor
+
+    def _load_detect_chunked(self, loader: LoaderBase, want_global_descs: bool, detect: bool = True,
+                             keep_images: bool = False):
+        """Load, detect and describe the images ``C`` at a time, dropping
+        each chunk's images after it, so host memory holds one chunk of
+        images. ``C`` is ``load_chunk_size`` when it is set and the images
+        are not kept for a later stage, else the whole scene. -> (kp_xy,
+        kp_mask, descs (each None without ``detect``), global descriptors
+        or None, sizes, the (n, H, W) images with ``keep_images`` else
+        None)."""
+        n = len(loader)
+        C = self.options.load_chunk_size if self.options.load_chunk_size and not keep_images else n
+        detections, gdescs, sizes, kept = [], [], [], None
+        for s in range(0, n, C):
+            images, csizes = loader.load_grayscale_batch(indices=range(s, min(s + C, n)))
+            images_dev = torch.as_tensor(images, device=self.device)
+            kept = images if keep_images else None
+            del images
+            if detect:
+                detections.append(self._detect_batch(images_dev, csizes))
+            if want_global_descs:
+                gdescs.append(self._global_descriptor().describe_batch(images_dev))
+            sizes += csizes
+            del images_dev
+        kp_xy, kp_mask, descs = (np.concatenate(a) for a in zip(*detections)) if detect else (None, None, None)
+        return kp_xy, kp_mask, descs, np.concatenate(gdescs) if gdescs else None, sizes, kept
 
     def _detect_batch(self, images: torch.Tensor, sizes):
         """Chunked detection of the (n, H, W) batch on the run's device
         through the detector, with the reference's 4-pixel border-validity
-        mask."""
+        mask; with ``use_cache`` replayed from the detector cache, keyed on
+        a host copy of the images subsampled by 8, the sizes, the detector's
+        class (the net's, inside a batched CNN adapter) and its keypoint
+        count."""
+        if self._detect_cache is not None:
+            # a batched CNN detector's adapter is keyed by the net inside it
+            net = getattr(self.detector, "detector", self.detector)
+            key = content_key(images[:, ::8, ::8].cpu().numpy(), np.asarray(sizes), type(net).__name__,
+                              self.detector.max_keypoints)
+            hit = self._detect_cache.get(key)
+            if hit is not None:
+                return hit
         B = self.options.image_batch_size
         n = images.shape[0]
         K = self.detector.max_keypoints
@@ -415,9 +566,20 @@ class SceneOptimizer:
                 kp_xy[s + b] = coords[b]
                 kp_mask[s + b] = mask[b] & inb
                 descs[s + b] = d[b]
+        if self._detect_cache is not None:
+            self._detect_cache.put(key, (kp_xy, kp_mask, descs))
         return kp_xy, kp_mask, descs
 
     def _run_two_view(self, pairs, kp_xy, kp_mask, descs, cal, image_wh, pair_matches=None) -> TwoViewResult:
+        """Two-view estimation, through the two-view disk cache with
+        ``use_cache`` (not for precomputed matches: the key covers the
+        descriptors, not the match lists)."""
+        if self._two_view_cacher is not None and pair_matches is None:
+            return self._two_view_cacher.run(pairs, kp_xy, kp_mask, descs, cal, image_wh)
+        return self._run_two_view_uncached(pairs, kp_xy, kp_mask, descs, cal, image_wh, pair_matches)
+
+    def _run_two_view_uncached(self, pairs, kp_xy, kp_mask, descs, cal, image_wh,
+                               pair_matches=None) -> TwoViewResult:
         """Two-view estimation over chunks of ``pair_batch_size`` pairs with
         the scene's keypoints and descriptors resident on the device. With
         ``pair_matches`` (the direct branch's (E, K) corr_i1 / corr_i2 /

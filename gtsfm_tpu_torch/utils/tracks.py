@@ -13,7 +13,7 @@ import torch
 
 from gtsfm_tpu_torch.bundle.triangulation import _dehomogenize, _dlt_normal_matrix
 from gtsfm_tpu_torch.geometry import SE3
-from gtsfm_tpu_torch.utils.numerics import precise
+from gtsfm_tpu_torch.utils.numerics import eigh, precise
 
 
 def classify_tracks_by_gt(gt_poses: SE3, cal, track_cam: np.ndarray, track_uv: np.ndarray,
@@ -30,7 +30,7 @@ def classify_tracks_by_gt(gt_poses: SE3, cal, track_cam: np.ndarray, track_uv: n
         poses = gt_poses.map(lambda a: a[cam])  # (T, K)
         R_cw = poses.R.transpose(-1, -2)
         t_cw = -torch.einsum("...ij,...j->...i", R_cw, poses.t)
-        _, vecs = torch.linalg.eigh(_dlt_normal_matrix(R_cw, t_cw, xy, mask))
+        _, vecs = eigh(_dlt_normal_matrix(R_cw, t_cw, xy, mask))
         X = _dehomogenize(vecs[..., :, 0])  # (T, 3)
         p_cam = torch.einsum("tkji,tkj->tki", poses.R, X[:, None, :] - poses.t)  # R^T (X - t)
         z = torch.clamp(p_cam[..., 2], min=1e-9)

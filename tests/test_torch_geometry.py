@@ -188,3 +188,58 @@ def test_block_and_segment_sums_match_reference_scatter_add():
     _close(numerics.SegmentSum((n,), torch.as_tensor(rows))(torch.as_tensor(blocks)), want)
     empty = numerics.SegmentSum((n,), torch.zeros(0, dtype=torch.int64))
     assert torch.equal(empty(torch.zeros((0, 3))), torch.zeros((n, 3)))
+
+
+def _nan_case(name, rng):
+    """(port output, JAX output) of one solver site on an input holding a
+    NaN: so3.project, align_points_umeyama, triangulate_dlt and
+    classify_tracks_by_gt."""
+    from gtsfm_tpu.bundle.triangulation import triangulate_dlt as j_dlt
+    from gtsfm_tpu.geometry.sim3 import align_points_umeyama as j_umeyama
+    from gtsfm_tpu.utils.tracks import classify_tracks_by_gt as j_classify
+    from gtsfm_tpu_torch.bundle.triangulation import triangulate_dlt
+    from gtsfm_tpu_torch.geometry.sim3 import align_points_umeyama
+    from gtsfm_tpu_torch.utils.tracks import classify_tracks_by_gt
+
+    if name == "so3.project":
+        M = rng.normal(size=(3, 3, 3)).astype(np.float32)
+        M[1, 0, 2] = np.nan
+        return so3.project(torch.as_tensor(M)), jso3.project(jnp.asarray(M))
+    if name == "sim3.align_points_umeyama":
+        src = rng.normal(size=(10, 3)).astype(np.float32)
+        dst = (src * 1.5 + 0.2).astype(np.float32)
+        src[4, 1] = np.nan
+        sim_t = align_points_umeyama(torch.as_tensor(src), torch.as_tensor(dst))
+        sim_j = j_umeyama(jnp.asarray(src), jnp.asarray(dst))
+        return sim_t.R, sim_j.R
+    R = np.asarray(jso3.expmap(jnp.asarray(rng.normal(size=(3, 3)).astype(np.float32) * 0.2)))
+    t = rng.normal(size=(3, 3)).astype(np.float32)
+    xy = rng.uniform(-0.3, 0.3, (3, 2)).astype(np.float32)
+    xy[1, 0] = np.nan
+    if name == "triangulation.triangulate_dlt":
+        mask = np.ones(3, bool)
+        return (triangulate_dlt(convert.se3({"R": R, "t": t}), torch.as_tensor(xy), torch.as_tensor(mask)),
+                j_dlt(JSE3(R=jnp.asarray(R), t=jnp.asarray(t)), jnp.asarray(xy), jnp.asarray(mask)))
+    f = np.full(3, 300.0, np.float32)
+    z = np.zeros(3, np.float32)
+    c = np.full(3, 160.0, np.float32)
+    cam, uv, mask = np.arange(3)[None], (xy * 300.0 + 160.0)[None], np.ones((1, 3), bool)
+    _, err_t = classify_tracks_by_gt(convert.se3({"R": R, "t": t}),
+                                     convert.cal3_bundler({"f": f, "k1": z, "k2": z, "u0": c, "v0": c}),
+                                     cam, uv, mask)
+    _, err_j = j_classify(JSE3(R=jnp.asarray(R), t=jnp.asarray(t)), JCal.create(f, z, z, c, c), cam, uv, mask)
+    return torch.as_tensor(err_t), err_j
+
+
+@pytest.mark.parametrize("name", ["so3.project", "sim3.align_points_umeyama", "triangulation.triangulate_dlt",
+                                  "tracks.classify_tracks_by_gt"])
+def test_solver_sites_give_nan_on_nan_input_as_jax(name):
+    """Each site's SVD or eigh meets a NaN: torch's own raises there, JAX
+    returns NaN; the port must return NaN wherever JAX does, and raise
+    nothing."""
+    got, want = _nan_case(name, np.random.default_rng(20))
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert np.isnan(want).any(), name
+    assert got.shape == want.shape
+    assert np.isnan(got[np.isnan(want)]).all(), name

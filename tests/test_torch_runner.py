@@ -17,6 +17,7 @@ from different random streams in the two packages, so the runs are held to
 the accuracy bar: equal registered counts and pose AUC@5 within 0.02.
 """
 
+import csv
 import os
 
 import jax
@@ -369,14 +370,72 @@ def test_unported_components_and_flags_raise_before_any_work(tmp_path):
         config.build_scene_optimizer(config.load_config("unified",
                                                         ["scene_optimizer.two_view.no_such_option=true"]))
     base = ["--dataset_dirpath", str(tmp_path), "--output_root", str(tmp_path / "out")]
-    for flags in (["--compare_to", "d"], ["--use_cache"], ["--load_chunk_size", "4"], ["--prewarm"],
-                  ["--distributed_coordinator", "localhost:1"], ["--gs_video_frames", "3"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    for flags in (["--distributed_coordinator", "localhost:1"], ["--distributed_num_processes", "2"],
+                  ["--distributed_process_id", "0"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
             runner.main(base + flags)
     # PatchmatchNet without weights raises, as the reference does, but before any work
     with pytest.raises(RuntimeError, match="requires weights"):
         runner.main(base + ["--run_mvs", "--mvs_backend", "patchmatchnet", "scene_optimizer.device=cpu"])
     assert not (tmp_path / "out").exists()
+
+
+class _FakeLoader:
+    def __len__(self):
+        return 5
+
+
+@pytest.mark.parametrize("flag", ["--use_cache", "--load_chunk_size", "--prewarm", "--gs_video_frames",
+                                  "--compare_to"])
+def test_runner_flag_reaches_the_run(tmp_path, monkeypatch, flag):
+    """Each flag the reference's runner takes reaches the scene optimizer's
+    options or runs its step, as gtsfm_tpu/runner.py wires it (the run
+    itself replaced by one that exports a seeded scene)."""
+    from gtsfm_tpu.evaluation.compare import compare_colmap_dirs as j_compare_dirs
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer
+    from gtsfm_tpu_torch.utils import prewarm
+
+    jdata, tdata = _seeded_scene()
+    seen = {}
+
+    def fake_run(self, loader):
+        seen["options"] = self.options
+        colmap.write_scene(tdata, os.path.join(self.options.output_root, "results", "ba_output"))
+        return tdata, []
+
+    monkeypatch.setattr(runner, "build_loader", lambda args: _FakeLoader())
+    monkeypatch.setattr(SceneOptimizer, "run", fake_run)
+    monkeypatch.setattr(prewarm, "prewarm_standard_shapes", lambda **kw: seen.setdefault("prewarm", kw) and {})
+    out = tmp_path / "out"
+    argv = {"--use_cache": ["--use_cache", "--cache_root", str(tmp_path / "cache")],
+            "--load_chunk_size": ["--load_chunk_size", "4"], "--prewarm": ["--prewarm"],
+            "--gs_video_frames": ["--gs_video_frames", "3", "--run_gs"],
+            "--compare_to": ["--compare_to", str(tmp_path / "ref")]}[flag]
+    j_colmap.write_scene(jdata, str(tmp_path / "ref"))
+    assert runner.main(["--dataset_dirpath", str(tmp_path), "--output_root", str(out), "scene_optimizer.device=cpu"]
+                       + argv) == 0
+    opts = seen["options"]
+    plain = {"use_cache": False, "cache_root": None, "load_chunk_size": 0, "gs_video_frames": 0, "run_gs": False}
+    want = {"--use_cache": {"use_cache": True, "cache_root": str(tmp_path / "cache")},
+            "--load_chunk_size": {"load_chunk_size": 4},
+            "--gs_video_frames": {"gs_video_frames": 3, "run_gs": True}}.get(flag, {})
+    assert {k: getattr(opts, k) for k in plain} == dict(plain, **want)
+    assert ("prewarm" in seen) == (flag == "--prewarm")
+    if flag == "--prewarm":
+        assert seen["prewarm"] == {"device": "cpu"}
+    cmp_dir = out / "results" / "comparison"
+    assert cmp_dir.exists() == (flag == "--compare_to")
+    if flag == "--compare_to":
+        rows = {r[0]: r[1] for r in csv.reader(open(cmp_dir / "comparison_metrics.csv"))}
+        j_group = j_compare_dirs(str(out / "results" / "ba_output"), str(tmp_path / "ref"))
+        assert float(rows["num_matched_cameras"]) == j_group.metrics[0].scalar == 4
+        assert sorted(os.listdir(cmp_dir)) == ["camera_centers.png", "comparison_metrics.csv",
+                                               "per_camera_errors.csv"]
+
+
+def _results_files(output_root) -> list:
+    root = os.path.join(output_root, "results")
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
 
 
 def _scalars(output_root):
@@ -423,6 +482,15 @@ def test_runners_end_to_end(tmp_path, ring_folder):
     for out in ("jax", "port"):
         back = colmap.read_scene(str(tmp_path / out / "results" / "ba_output"))
         assert back.number_images() == VIEWS and back.number_tracks() > 0
+    # every file the reference writes, and the retrieval metrics over the same pairs
+    files = _results_files(str(tmp_path / "port"))
+    assert files == _results_files(str(tmp_path / "jax"))
+    for name in ("gtsfm_metrics_report.html", "process_graph.dot", "viewer.html", "plots/scene_3d.png",
+                 "metrics/retrieval_metrics.json"):
+        assert name in files, name
+    rj, rt = mj["retrieval_metrics"], mt["retrieval_metrics"]
+    assert rt["num_retrieved_pairs"] == rj["num_retrieved_pairs"] == mj["frontend_summary"]["num_pairs"]
+    np.testing.assert_allclose(rt["gt_relative_rotation_deg"], rj["gt_relative_rotation_deg"], atol=1e-3)
 
 
 @threads(8)

@@ -64,7 +64,7 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    GT on a spectral ring over them, the synthetic generator (800 points,
    0.4 px), SceneOptimizerOptions(hierarchical=True, max_cluster_size=40):
    the METIS partition, per-cluster MVO, Sim3 merges with parent BAs; run
-   cold and then warm, each requiring the METIS partitioner, >= 4
+   once, cold (the warm run cut for time), requiring the METIS partitioner, >= 4
    clusters, no merge failure, no matcher launch, registered >= 278 (the
    JAX reference's 281 - 3, above test_scale_synthetic.py's 0.95 n), AUC@5
    >= the reference's 0.9739 - 0.02, and median rotation and translation
@@ -142,18 +142,20 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    depth, confidences and track features, the feed-forward track count,
    registered cameras, AUC@5, the post-BA cost and the anysplat trainer's
    L1; then on the runner phase's 32 rendered views, timed, anysplat's
-   trainer at 400 steps through the compositing kernel (its launches join
+   trainer at 100 steps through the compositing kernel (its launches join
    the kernels line as feedforward_launches); no matcher or attention
    launch in any of these runs;
 18. vggt_full: VGGT at the public VGGT-1B widths (VGGTOptions(),
    TrackOptions()): with the depth cut (VGGT_CHECK_DEPTH) its forward and
    track head on 2 views at 392x518 against the same file; then the full
    model's seeded weights in the public layout (vggt_fixture, LayerScale
-   0.01, about 5 GB) through the runner with vggt and anysplat and
+   0.01, about 5 GB) through the runner with anysplat and post-BA on
+   (scene_optimizer.feedforward_post_ba=true, so that the one run drives
+   the vggt slot's path too: the vggt slot's own run is cut for time) and
    scene_optimizer.feedforward_backbone=vggt_exact on the 32 rendered
-   views: each aggregator pass, head, the tracker and post-BA timed, the
-   attention's share of the aggregator, peak memory; every camera
-   registered with finite poses;
+   views: each aggregator pass, head, the tracker and post-BA timed (each
+   must have run), the attention's share of the aggregator, peak memory;
+   every camera registered with finite poses;
 19. mvs: the dense back ends on the card held to the JAX package
    (MVS_REFERENCE, written by scripts/mvs_reference.py on the CPU) on the
    FF_VIEWS feedforward_views at 480x640 with their GT poses and
@@ -173,7 +175,31 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    problem at the public Trafalgar-257 problem's counts (bal_problem):
    the final cost at most 1.05 times the cost at the generating
    parameters, 257 cameras exported;
-22. runner_outputs (last, on the runner phase's folder, so that its runs
+22. correspondence (on the runner phase's folder): the direct image-
+   correspondence front ends, SuperGlue and the OpenCV detectors through
+   gtsfm_tpu_torch.runner.main on `cuda`. Run A: colmap_front_end on a
+   COLMAP text model of the folder's views with CORR_GT_POINTS GT points
+   (mvs_tracks, written by write_colmap_tracks): registered >= the JAX
+   package's - 1 and AUC@5 >= its - 0.02 (CORR_REFERENCE, from
+   scripts/correspondence_reference.py on the CPU); E on the same run:
+   scene_optimizer.telemetry_db holds one two-view row per pair and
+   GTSFM_TPU_TRACE's directory a torch.profiler trace. Runs B-D on seeded
+   checkpoints in the public layouts (write_correspondence_weights):
+   skydio_front_end with LoFTR at its published widths, mast3r at its
+   published widths (ViT-L encoder, base decoders, long edge 512) and
+   deep_front_end with matcher.name=superglue; recorded, not held (seeded
+   nets make no photo result): correspondences per pair, valid pairs,
+   registered, AUC@5, the stage seconds, the generator's seconds, the
+   keypoint aggregator's host seconds and the peak device memory; no
+   kernel launch in A-D. Run F: the unified config with OpenCV's SIFT in
+   the detector slot (the card's machine has OpenCV), whose matches go
+   through kernel #1 (its launches join the kernels line). Then LoFTR,
+   MASt3R and SuperGlue of runs B-D on the card on CORR_HOLD_PAIRS (the
+   runs' first four pairs) against the JAX package's outputs on the same
+   weights and views (CORR_REFERENCE_NPZ; SuperGlue on corr_glue_feed's
+   keypoints): >= 99% of the matches identical per pair, LoFTR's refined
+   coordinates within CORR_FINE_TOL_PX (4e-3 px);
+23. runner_outputs (last, on the runner phase's folder, so that its runs
    warm no later phase's cold run): the runner's
    remaining flags and what every run writes. Run A: unified with
    --use_cache, --load_chunk_size 8, --prewarm and --compare_to the
@@ -199,8 +225,8 @@ is the kernel table as JSON; the last line is {"ok": true, "device":
 {...}}. Any failure exits non-zero with no result.
 There is no CPU mode: without a CUDA device the script stops.
 
-The descriptor feed, the glue fixture, the SuperPoint and MegaLoc
-fixtures, the feed-forward views and weights, the PatchmatchNet weights,
+The descriptor feed, the glue fixture, the SuperPoint, MegaLoc, LoFTR,
+SuperGlue and MASt3R fixtures, the feed-forward views and weights, the PatchmatchNet weights,
 the MVS tracks, the splat scene, the runner scene, the OPENCV resampling,
 the BA scene and the BAL problem are defined here once, with
 numpy only (VGGT's key layout read off the port's module; ring_views,
@@ -344,6 +370,25 @@ BA_LONG_TRACK = 200
 # 1 at worst, of 18, and 3 of 22,121)
 DEEP_REFERENCE = "scripts/deep_front_end_reference.json"
 DEEP_SEEDS = (0, 1, 2)
+# the correspondence phase: colmap_front_end (run A) on a COLMAP model of
+# CORR_GT_POINTS GT points (mvs_tracks) of the runner phase's 32 views, held
+# to the JAX package's run (CORR_REFERENCE, from
+# scripts/correspondence_reference.py on the CPU) with the runner phase's
+# slack; skydio_front_end (LoFTR), mast3r and deep_front_end with SuperGlue
+# (runs B-D) on seeded weights in the public layouts, recorded, and each
+# generator on the card held on CORR_HOLD_PAIRS (the runs' first pairs) to
+# the JAX package's outputs on the same weights and views (CORR_REFERENCE_NPZ)
+CORR_REFERENCE = "scripts/correspondence_reference.json"
+CORR_REFERENCE_NPZ = "scripts/correspondence_reference.npz"
+CORR_GT_POINTS = 4000
+CORR_HOLD_PAIRS = ((0, 1), (0, 2), (0, 3), (0, 4))
+CORR_MATCH_SHARE = 0.99  # of the reference's matches identical, per generator
+# LoFTR's refined coordinates of the common matches: at the published
+# widths float32 order alone moves one of pair (0, 1)'s by 1.5e-3 px on the
+# CPU (scripts/loftr_cpu_order.py prints it), over the CPU tests' 1e-3 at
+# reduced widths
+CORR_FINE_TOL_PX = 4e-3
+LOFTR_COARSE_GAIN = 2.0  # loftr_fixture's coarse output gain
 DEEP_VALID_SLACK = 0.05  # of the reference's median valid pairs
 DEEP_PAIR_SHARE = 0.99
 DEEP_MATCH_ABS = 2
@@ -408,6 +453,9 @@ FEEDFORWARD_REFERENCE = "scripts/feedforward_reference.json"
 FF_VIEWS = 8
 FF_SEED = 0
 FF_GS_STEPS = 40  # the held anysplat --run_gs run's trainer steps (its L1: the first and the last 20)
+# the timed anysplat --run_gs run's trainer steps on the 32 rendered views
+# (the trainer's 400 steps with a densify run in the slice and splat phases)
+FF_TIMED_GS_STEPS = 100
 FF_NEAR_CELLS = (24, 48)  # feedforward_views' checkers, latitude x longitude
 FF_FAR_CELLS = (36, 72)
 FF_DEPTH_STEP = 16  # the depth held every 16 pixels (the compact patch)
@@ -688,6 +736,186 @@ def write_deep_weights(dirpath: str, names: tuple = ("superpoint", "lightglue", 
         torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, out[name])
         out["sumsq"][name] = float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
     return out
+
+
+def _shapes(module_fn) -> dict:
+    """A module's state_dict shapes, built on the meta device (no storage)."""
+    import torch
+
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in module_fn().state_dict().items()}
+
+
+def _seeded_state(shapes: dict, rng, gain=lambda name: 1.0) -> dict:
+    """Seeded numpy float32 values for a state_dict's shapes: weights
+    N(0, gain(name)^2 / fan_in), biases 0, norm and BatchNorm weights and
+    running variances 1, running means 0."""
+    sd = {}
+    for name, shape in shapes.items():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = np.zeros(shape, np.int64)
+        elif name.endswith(("bias", "running_mean")):
+            sd[name] = np.zeros(shape, np.float32)
+        elif name.endswith("running_var") or (len(shape) == 1 and name.endswith("weight")):
+            sd[name] = np.ones(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+            sd[name] = (rng.standard_normal(shape, np.float32) * (gain(name) / np.sqrt(fan_in))).astype(np.float32)
+    return sd
+
+
+def _signed(w: np.ndarray) -> np.ndarray:
+    """Features (n_out, n_in, ...) -> channels [g, -g] read from inputs
+    [f, -f]: the map carries each feature with its negative, so that a
+    ReLU keeps its sign in one half or the other (superpoint_fixture's
+    construction)."""
+    return np.concatenate([np.concatenate([w, -w], axis=1), np.concatenate([-w, w], axis=1)])
+
+
+def loftr_fixture(seed: int = 0, coarse_gain: float = LOFTR_COARSE_GAIN) -> dict:
+    """A LoFTR state_dict in the official outdoor_ds.ckpt layout (numpy,
+    without the checkpoint's ``matcher.`` prefix) at the published widths
+    (LoFTROptions()), built to match without training: a test input, not a
+    trained model. The backbone is superpoint_fixture's signed net: conv1
+    holds 64 zero-mean random 7x7 filters and their negatives, every later
+    conv reads its input's features (first half minus second) through a
+    random Gaussian map (variance 1 / fan-in) and writes [g, -g], so the
+    features are random projections of the neighbourhood's structure with
+    no common positive mean (PyTorch-style random ReLU features share one
+    and collapse the dual softmax onto a single match); the coarse output
+    conv has gain ``coarse_gain``. BatchNorms are at identity; the
+    transformers' linear weights are N(0, 1/fan_in) with the MLP's
+    LayerNorm at 0.1, so their updates leave the backbone's features in
+    charge; fine_preprocess N(0, 1/fan_in)."""
+    from gtsfm_tpu_torch.frontend.matchers.loftr import LoFTRNet
+
+    rng = np.random.default_rng(seed)
+    shapes = _shapes(LoFTRNet)
+    sd = _seeded_state(shapes, rng)
+    for name, shape in shapes.items():
+        if name.startswith("backbone.") and len(shape) == 4:
+            n_out, n_in, k, _ = shape
+            if n_in == 1:
+                f = rng.standard_normal((n_out // 2, 1, k, k))
+                f -= f.mean(axis=(1, 2, 3), keepdims=True)
+                w = np.concatenate([f, -f]) / k
+            else:
+                w = _signed(rng.standard_normal((n_out // 2, n_in // 2, k, k)) / np.sqrt(n_in // 2 * k * k))
+            sd[name] = w.astype(np.float32)
+        elif name.endswith("norm2.weight"):
+            sd[name] = np.full(shape, 0.1, np.float32)
+    sd["backbone.layer3_outconv.weight"] *= np.float32(coarse_gain)
+    return sd
+
+
+def superglue_fixture(seed: int = 0) -> dict:
+    """A SuperGlue state_dict in the official superglue_outdoor.pth layout
+    (numpy) at the published widths (SuperGlueOptions()), built to act as
+    a matcher without training: the keypoint encoder's and every
+    propagation MLP's last conv scaled by 0.1 (small residual updates of
+    the descriptors), ``final_proj`` 30 I plus small noise (scores about
+    56 cos between the descriptors: superpoint_fixture's best and second
+    best cosines are about 0.05 apart) and a dustbin score of 40 (a row
+    whose best cosine is below about 0.7 goes to the dustbin). A test
+    input, not a trained model."""
+    from gtsfm_tpu_torch.frontend.matchers.superglue import SuperGlueNet
+
+    shapes = _shapes(SuperGlueNet)
+    last = {"kenc.encoder.12.weight"} | {f"gnn.layers.{i}.mlp.3.weight" for i in range(18)}
+    sd = _seeded_state(shapes, np.random.default_rng(seed),
+                       lambda name: 0.1 if name in last or name == "final_proj.weight" else 1.0)
+    sd["final_proj.weight"] += 30.0 * np.eye(shapes["final_proj.weight"][0], dtype=np.float32)[:, :, None]
+    sd["bin_score"] = np.asarray(40.0, np.float32)
+    return sd
+
+
+def mast3r_fixture(seed: int = 0) -> dict:
+    """A MASt3R state_dict in the public checkpoint's layout as the
+    reference reads it (numpy; the DPT head left out) at the published
+    widths (MASt3ROptions(): ViT-L encoder, base decoders, 24-d
+    descriptors): weights N(0, 1/fan_in), biases 0, LayerNorms at
+    identity. A test input, not a trained model; about 2.1 GB."""
+    from gtsfm_tpu_torch.frontend.mast3r import MASt3RNet
+
+    return _seeded_state(_shapes(MASt3RNet), np.random.default_rng(seed))
+
+
+def write_correspondence_weights(dirpath: str, names: tuple = ("loftr", "superglue", "mast3r")) -> dict:
+    """Write the correspondence phase's seeded checkpoints named in
+    ``names`` under ``dirpath``, in the public files' layouts: LoFTR as
+    outdoor_ds.ckpt ({"state_dict": ...} with ``matcher.`` prefixes),
+    SuperGlue as superglue_outdoor.pth, MASt3R as
+    MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth ({"model": ...}).
+    Returns {name: path, "sumsq": {name: sum of squares (float64)}}."""
+    import os
+
+    import torch
+
+    out = {"sumsq": {}}
+    for name, fixture, file, wrap in (
+            ("loftr", loftr_fixture, "outdoor_ds.ckpt", lambda sd: {"state_dict": {f"matcher.{k}": v
+                                                                                    for k, v in sd.items()}}),
+            ("superglue", superglue_fixture, "superglue_outdoor.pth", lambda sd: sd),
+            ("mast3r", mast3r_fixture, "MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth",
+             lambda sd: {"model": sd})):
+        if name not in names:
+            continue
+        sd = fixture(0)
+        out[name] = os.path.join(dirpath, file)
+        out["sumsq"][name] = float(sum(np.square(v, dtype=np.float64).sum() for v in sd.values()))
+        torch.save(wrap({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}), out[name])
+        del sd
+    return out
+
+
+def corr_hold_gray(views_rgb: np.ndarray) -> np.ndarray:
+    """The correspondence phase's held views, (n, H, W, 3) uint8 as written
+    to the Olsson folder, as the loader's gray images (the port's
+    rgb_to_gray, the reference's copy)."""
+    from gtsfm_tpu_torch.common.image import rgb_to_gray
+
+    return np.stack([rgb_to_gray(v) for v in views_rgb])
+
+
+def corr_glue_feed(R, t) -> tuple:
+    """SuperGlue's held inputs: descriptor_feed of the ring cameras (R, t)
+    (the first five in ring order: CORR_HOLD_PAIRS' views) at the runner
+    phase's 480x640, f=600, K=2048, D=256. -> (kp_xy, kp_mask, descs) and
+    the pair indices (i1, i2)."""
+    xy, mask, desc = descriptor_feed(R, t, SPLAT_FOCAL, SPLAT_HW, GLUE_KEYPOINTS, dim=GLUE_DESC_DIM,
+                                     desc_sigma=GLUE_SIGMA)
+    i1, i2 = (np.asarray([p[k] for p in CORR_HOLD_PAIRS]) for k in (0, 1))
+    return (xy, mask, desc), (i1, i2)
+
+
+def corr_share(kind: str, got, want) -> dict:
+    """How far the port's held correspondences are the reference's, for
+    one pair. ``kind`` loftr: (uv1, uv2) with uv1 on the coarse grid, a
+    match identical when uv1 is equal and uv2 in the same coarse cell (less
+    than 4 px apart), and the fine uv2 of those apart by ``fine_err``;
+    mast3r: (uv1, uv2) pixel pairs, identical when equal; superglue:
+    (match_idx (K,), mask (K,)), identical rows with equal indices. Returns
+    {"n_port", "n_ref", "common", "share" (common over the larger count),
+    "fine_err"}."""
+    fine = 0.0
+    if kind == "superglue":
+        (gi, gm), (wi, wm) = got, want
+        common = int((gm & wm & (gi == wi)).sum())
+        n_got, n_want = int(gm.sum()), int(wm.sum())
+    elif kind == "mast3r":
+        n_got, n_want = len(got[0]), len(want[0])
+        common = len({tuple(a) + tuple(b) for a, b in zip(np.asarray(got[0]).tolist(), np.asarray(got[1]).tolist())}
+                     & {tuple(a) + tuple(b) for a, b in zip(np.asarray(want[0]).tolist(),
+                                                            np.asarray(want[1]).tolist())})
+    else:
+        g = {tuple(a): b for a, b in zip(np.asarray(got[0]).tolist(), np.asarray(got[1]))}
+        w = {tuple(a): b for a, b in zip(np.asarray(want[0]).tolist(), np.asarray(want[1]))}
+        n_got, n_want = len(got[0]), len(want[0])
+        same = [k for k in w if k in g and np.abs(g[k] - w[k]).max() < 4.0]
+        common = len(same)
+        fine = max((float(np.abs(g[k] - w[k]).max()) for k in same), default=0.0)
+    return {"n_port": n_got, "n_ref": n_want, "common": common,
+            "share": common / max(n_got, n_want, 1), "fine_err": fine}
 
 
 def deep_overrides(config_name: str, weights: dict) -> list:
@@ -1203,6 +1431,28 @@ def write_colmap_opencv(dirpath: str, views: np.ndarray, R, t, cam: dict) -> Non
         lines += [f"{i + 1} " + " ".join(repr(float(a)) for a in (*q, *tc)) + f" 1 {i:02d}.png", ""]
     with open(os.path.join(dirpath, "images.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def write_colmap_tracks(dirpath: str, R, t, tracks: list, hw: tuple = SPLAT_HW, focal: float = SPLAT_FOCAL) -> None:
+    """A COLMAP text model by the port's writer: the cameras (R_i, t_i),
+    camera-to-world, as images %02d.png with one RADIAL camera of ``focal``
+    each (no distortion, the principal point at the center of ``hw``), and
+    ``tracks`` [(xyz, [(view, uv), ...])] (mvs_tracks' output) as the
+    points: the colmap_front_end config's replay input."""
+    import torch
+
+    from gtsfm_tpu_torch.common.sfm_data import SceneMeta, SfmData
+    from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
+    from gtsfm_tpu_torch.io import colmap
+
+    n = len(R)
+    h, w = hw
+    cal = Cal3Bundler.create(np.full(n, focal, np.float32), 0.0, 0.0, w / 2.0, h / 2.0)
+    meta = SceneMeta(image_names=[f"{i:02d}.png" for i in range(n)], image_sizes=[(w, h)] * n)
+    data = SfmData.from_cameras_and_tracks(SE3(R=torch.as_tensor(np.asarray(R, np.float32)),
+                                               t=torch.as_tensor(np.asarray(t, np.float32))),
+                                           cal, tracks, num_cameras=n, meta=meta)
+    colmap.write_scene(data, dirpath)
 
 
 def ba_scene(n_cams: int = BA_CAMERAS, n_points: int = BA_POINTS, track_len: tuple = BA_TRACK_LEN,
@@ -2246,7 +2496,8 @@ def phase_hierarchical(smi: str, n: int = HIER_CAMERAS):
     """bench.py's palace-281 configuration through the port on `cuda`: n
     cameras, pairs from the default SequentialRetriever, the synthetic
     generator (800 points, 0.4 px), SceneOptimizerOptions(hierarchical=True,
-    max_cluster_size=40), run cold and then warm in this process. Each run
+    max_cluster_size=40), run once, cold, in this process (the warm run
+    was cut for the script's time). The run
     requires the METIS partitioner, >= HIER_MIN_CLUSTERS clusters, no merge
     failure, no matcher launch, registered >= max(0.95 n, the JAX
     reference's - 3), AUC@5 >= the reference's - 0.02, and after a Sim3
@@ -2262,48 +2513,47 @@ def phase_hierarchical(smi: str, n: int = HIER_CAMERAS):
     min_registered = max(int(np.ceil(HIER_MIN_REGISTERED * n)), HIER_REF_REGISTERED - HIER_REGISTERED_SLACK
                          if n == HIER_CAMERAS else 0)
     min_auc5 = HIER_REF_AUC5 - HIER_AUC5_SLACK
-    for run in ("cold", "warm"):
-        so, data, metrics, launches, gt, cmp = _synthetic_run("hierarchical", n, None, HIER_POINTS, opts)
-        hm = so.backend_metrics
-        paths = [p for p, _ in so.node_results]
-        tree = " ".join(f"{'/'.join(map(str, p)) or 'root'}:{d.number_images()}"
-                        + ("" if any(q[: len(p)] == p and len(q) > len(p) for q in paths) else "*")
-                        for p, d in so.node_results)
-        est = data.pose_mask
-        with precise():
-            sim = align_poses_sim3(data.poses, gt, mask=est)
-            aligned = sim.transform_pose(data.poses)
-            rot = rotation_error_deg(aligned.R[est].cpu().numpy(), gt.R[est].cpu().numpy())
-            trans = torch.linalg.vector_norm(aligned.t - gt.t, dim=-1)[est].cpu().numpy()
-        registered = data.number_images()
-        auc5 = cmp["pose_auc_@5.0_deg"]
-        pairs = int(metrics["frontend_summary"]["num_pairs"].scalar)
-        print(f"hierarchical {run}: {n} cameras, {pairs} pairs, partitioner {hm.get('partitioner')}, "
-              f"{hm['num_clusters']} clusters, {hm['tree_nodes']} nodes, merge failures "
-              f"{hm.get('merge_failures', 0)} {hm.get('merge_failure_reasons', [])}; registered {registered} "
-              f"(bar {min_registered}), pose AUC@5 {auc5:.4f} (bar {min_auc5:.4f}), median rotation error "
-              f"{float(np.median(rot)):.4f} deg, median translation error {float(np.median(trans)):.4f}, "
-              f"{data.number_tracks()} tracks, launches {launches}", flush=True)
-        print(f"hierarchical {run} tree (path:cameras, * = leaf): {tree}", flush=True)
-        print(f"hierarchical {run} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in _stage_sec(metrics).items())
-              + f" | {smi}", flush=True)
-        leaf_sec = {}
-        for cm in hm["cluster_metrics"]:
-            for k, v in cm.items():
-                if k.endswith("_sec") and k != "total_sec":
-                    leaf_sec[k] = leaf_sec.get(k, 0.0) + v
-        print(f"hierarchical {run} leaf stages, summed over the {len(hm['cluster_metrics'])} leaves: "
-              + " ".join(f"{k} {v:.3f}" for k, v in leaf_sec.items()), flush=True)
-        if hm.get("partitioner") != "metis":
-            raise AssertionError(f"hierarchical: the partitioner was {hm.get('partitioner')!r}, not METIS")
-        if hm["num_clusters"] < HIER_MIN_CLUSTERS or hm.get("merge_failures"):
-            raise AssertionError(f"hierarchical: {hm['num_clusters']} clusters, merge failures "
-                                 f"{hm.get('merge_failure_reasons')}")
-        if registered < min_registered or auc5 < min_auc5:
-            raise AssertionError(f"hierarchical: registered {registered} (bar {min_registered}), "
-                                 f"AUC@5 {auc5:.4f} (bar {min_auc5:.4f})")
-        if not (np.median(rot) < HIER_MEDIAN_ROT_DEG and np.median(trans) < HIER_MEDIAN_TRANS):
-            raise AssertionError(f"hierarchical: median errors {np.median(rot):.4f} deg, {np.median(trans):.4f}")
+    so, data, metrics, launches, gt, cmp = _synthetic_run("hierarchical", n, None, HIER_POINTS, opts)
+    hm = so.backend_metrics
+    paths = [p for p, _ in so.node_results]
+    tree = " ".join(f"{'/'.join(map(str, p)) or 'root'}:{d.number_images()}"
+                    + ("" if any(q[: len(p)] == p and len(q) > len(p) for q in paths) else "*")
+                    for p, d in so.node_results)
+    est = data.pose_mask
+    with precise():
+        sim = align_poses_sim3(data.poses, gt, mask=est)
+        aligned = sim.transform_pose(data.poses)
+        rot = rotation_error_deg(aligned.R[est].cpu().numpy(), gt.R[est].cpu().numpy())
+        trans = torch.linalg.vector_norm(aligned.t - gt.t, dim=-1)[est].cpu().numpy()
+    registered = data.number_images()
+    auc5 = cmp["pose_auc_@5.0_deg"]
+    pairs = int(metrics["frontend_summary"]["num_pairs"].scalar)
+    print(f"hierarchical cold: {n} cameras, {pairs} pairs, partitioner {hm.get('partitioner')}, "
+          f"{hm['num_clusters']} clusters, {hm['tree_nodes']} nodes, merge failures "
+          f"{hm.get('merge_failures', 0)} {hm.get('merge_failure_reasons', [])}; registered {registered} "
+          f"(bar {min_registered}), pose AUC@5 {auc5:.4f} (bar {min_auc5:.4f}), median rotation error "
+          f"{float(np.median(rot)):.4f} deg, median translation error {float(np.median(trans)):.4f}, "
+          f"{data.number_tracks()} tracks, launches {launches}", flush=True)
+    print(f"hierarchical cold tree (path:cameras, * = leaf): {tree}", flush=True)
+    print(f"hierarchical cold seconds: " + " ".join(f"{k} {v:.3f}" for k, v in _stage_sec(metrics).items())
+          + f" | {smi}", flush=True)
+    leaf_sec = {}
+    for cm in hm["cluster_metrics"]:
+        for k, v in cm.items():
+            if k.endswith("_sec") and k != "total_sec":
+                leaf_sec[k] = leaf_sec.get(k, 0.0) + v
+    print(f"hierarchical cold leaf stages, summed over the {len(hm['cluster_metrics'])} leaves: "
+          + " ".join(f"{k} {v:.3f}" for k, v in leaf_sec.items()), flush=True)
+    if hm.get("partitioner") != "metis":
+        raise AssertionError(f"hierarchical: the partitioner was {hm.get('partitioner')!r}, not METIS")
+    if hm["num_clusters"] < HIER_MIN_CLUSTERS or hm.get("merge_failures"):
+        raise AssertionError(f"hierarchical: {hm['num_clusters']} clusters, merge failures "
+                             f"{hm.get('merge_failure_reasons')}")
+    if registered < min_registered or auc5 < min_auc5:
+        raise AssertionError(f"hierarchical: registered {registered} (bar {min_registered}), "
+                             f"AUC@5 {auc5:.4f} (bar {min_auc5:.4f})")
+    if not (np.median(rot) < HIER_MEDIAN_ROT_DEG and np.median(trans) < HIER_MEDIAN_TRANS):
+        raise AssertionError(f"hierarchical: median errors {np.median(rot):.4f} deg, {np.median(trans):.4f}")
 
 
 def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_auc5: float, smi: str,
@@ -3610,7 +3860,8 @@ def phase_feedforward(smi: str, runner_dir: str, R, t, work: str) -> dict:
     """The runner with the vggt, fastvggt and anysplat --run_gs configs on
     the card with the seeded compact model: first on FF_VIEWS numpy-made
     views held to the JAX package's runs (_hold_ff_run), then on the runner
-    phase's 32 rendered views, timed (anysplat's trainer at SPLAT_STEPS).
+    phase's 32 rendered views, timed (anysplat's trainer at
+    FF_TIMED_GS_STEPS).
     Returns the compositing launches of the anysplat runs and the largest
     distances."""
     import os
@@ -3629,13 +3880,13 @@ def phase_feedforward(smi: str, runner_dir: str, R, t, work: str) -> dict:
         out["composite"] += res["launches"]["composite"]
     for slot in ("vggt", "fastvggt", "anysplat"):
         _ff_load_weights(slot)
-        res = _ff_run(f"feedforward {slot} (32 rendered views)", _ff_slot_argv(slot, runner_dir, SPLAT_STEPS),
+        res = _ff_run(f"feedforward {slot} (32 rendered views)", _ff_slot_argv(slot, runner_dir, FF_TIMED_GS_STEPS),
                       os.path.join(work, f"ff32_{slot}"))
         print(f"feedforward {slot} (32 rendered views) | {smi}", flush=True)
         out["runs"][slot] = {k: res[k] for k in ("wall", "peak_gib", "forward_sec", "launches")}
         if slot == "anysplat":
             gs = res["metrics"]["gaussian_splatting_metrics"]
-            if res["launches"]["composite"] < SPLAT_STEPS or not gs["final_l1"] < gs["initial_l1"]:
+            if res["launches"]["composite"] < FF_TIMED_GS_STEPS or not gs["final_l1"] < gs["initial_l1"]:
                 raise AssertionError(f"feedforward anysplat: {res['launches']} launches, trainer {gs}")
             out["composite"] += res["launches"]["composite"]
     from gtsfm_tpu_torch.scene import cluster_feedforward as cf
@@ -3716,12 +3967,17 @@ def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
     """VGGT at the public VGGT-1B widths: the depth-cut check
     (_hold_vggt_check), then the full model's seeded weights
     (write_vggt_weights, the public layout, about 5 GB) and the runner
-    with vggt and anysplat on the runner phase's 32 rendered views through
-    scene_optimizer.feedforward_backbone=vggt_exact, each with its stages
-    timed (_vggt_stage_timer: the aggregator passes, the heads, the
-    tracker, post-BA, the attention's share of the aggregator), peak
-    memory, registered cameras and tracks; the runs must finish with
-    finite poses and every camera registered."""
+    with anysplat and scene_optimizer.feedforward_post_ba=true on the
+    runner phase's 32 rendered views through
+    scene_optimizer.feedforward_backbone=vggt_exact: the vggt slot's path
+    (VGGT's forward, the track head, post-BA on its tracks) and the
+    AnySplat head in one run (the vggt slot's own VGGT-1B run is cut for
+    the script's time; it runs with the compact model in the feedforward
+    phase), its stages timed (_vggt_stage_timer: the aggregator passes,
+    the heads, the tracker, post-BA, the attention's share of the
+    aggregator), peak memory, registered cameras and tracks; the run must
+    finish with finite poses, every camera registered, and every one of
+    those stages run, post-BA included."""
     import os
 
     import torch
@@ -3734,21 +3990,26 @@ def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
     sumsq = write_vggt_weights(path, VGGT_SEED)
     print(f"vggt_full: seeded VGGT-1B weights (public layout, {os.path.getsize(path) / 2**30:.3f} GiB, sum of "
           f"squares {sumsq:.6f}) written in {time.perf_counter() - t0:.3f} s", flush=True)
-    extra = ["scene_optimizer.feedforward_backbone=vggt_exact", f"scene_optimizer.vggt_weights_path={path}"]
+    # post-BA on, as the vggt slot runs it: one anysplat run drives both slots' paths
+    extra = ["scene_optimizer.feedforward_backbone=vggt_exact", f"scene_optimizer.vggt_weights_path={path}",
+             "scene_optimizer.feedforward_post_ba=true"]
     cf._MODEL_CACHE.clear()
-    for slot in ("vggt", "anysplat"):
-        timer = _vggt_stage_timer()
-        res = _ff_run(f"vggt_full {slot} (VGGT-1B, 32 rendered views)", _ff_slot_argv(slot, runner_dir, extra=extra),
-                      os.path.join(work, f"vggt_{slot}"), timer)
-        agg = timer.sec.get("aggregator", 0.0)
-        share = timer.sec.get("attention", 0.0) / agg if agg else float("nan")
-        print(f"vggt_full {slot} stages (s, calls): " + ", ".join(
-            f"{k} {v:.3f} ({timer.calls[k]})" for k, v in sorted(timer.sec.items()))
-            + f"; each aggregator pass {[round(x, 3) for x in timer.each.get('aggregator', [])]}; attention share "
-            f"of the aggregator passes {share:.4f}; peak device memory {res['peak_gib']:.3f} GiB | {smi}", flush=True)
-        out["runs"][slot] = {"stages": dict(timer.sec), "calls": dict(timer.calls), "attention_share": share,
-                             "aggregator_passes": timer.each.get("aggregator", []), "peak_gib": res["peak_gib"],
-                             "wall": res["wall"]}
+    timer = _vggt_stage_timer()
+    res = _ff_run("vggt_full anysplat (VGGT-1B, 32 rendered views)", _ff_slot_argv("anysplat", runner_dir, extra=extra),
+                  os.path.join(work, "vggt_anysplat"), timer)
+    agg = timer.sec.get("aggregator", 0.0)
+    share = timer.sec.get("attention", 0.0) / agg if agg else float("nan")
+    print("vggt_full anysplat stages (s, calls): " + ", ".join(
+        f"{k} {v:.3f} ({timer.calls[k]})" for k, v in sorted(timer.sec.items()))
+        + f"; each aggregator pass {[round(x, 3) for x in timer.each.get('aggregator', [])]}; attention share "
+        f"of the aggregator passes {share:.4f}; peak device memory {res['peak_gib']:.3f} GiB | {smi}", flush=True)
+    missing = [k for k in ("aggregator", "tracker", "track_features", "gaussian_head", "post_ba")
+               if not timer.calls.get(k)]
+    if missing:
+        raise AssertionError(f"vggt_full anysplat: stages {missing} never ran")
+    out["runs"]["anysplat"] = {"stages": dict(timer.sec), "calls": dict(timer.calls), "attention_share": share,
+                               "aggregator_passes": timer.each.get("aggregator", []), "peak_gib": res["peak_gib"],
+                               "wall": res["wall"]}
     cf._MODEL_CACHE.clear()
     os.remove(path)
     torch.cuda.empty_cache()
@@ -3973,6 +4234,207 @@ def phase_mvs_runner(smi: str, runner_dir: str, work: str) -> dict:
     return out
 
 
+def _corr_recorders():
+    """Wrap the aggregator and the direct generators so that each run's
+    per-pair correspondence counts, the aggregator's host seconds and the
+    generators' seconds are recorded, and the generator and matcher objects
+    a run built are kept (the held pairs run on them). Returns (the record,
+    the function that restores the originals)."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend import correspondence, mast3r
+    from gtsfm_tpu_torch.frontend.matchers import superglue
+
+    rec = {"counts": {}, "aggregate_sec": 0.0, "generate_sec": 0.0, "objects": {}}
+    saved = [(correspondence.KeypointAggregatorDedup, "aggregate"),
+             (correspondence.DenseCorrespondenceGenerator, "generate"),
+             (mast3r.Mast3rCorrespondenceGenerator, "generate"), (superglue.SuperGlueMatcher, "match_batch")]
+    orig = {(cls, name): getattr(cls, name) for cls, name in saved}
+
+    def aggregate(self, num_images, pair_corrs):
+        rec["counts"] = {k: len(v[0]) for k, v in pair_corrs.items()}
+        t0 = time.perf_counter()
+        try:
+            return orig[(correspondence.KeypointAggregatorDedup, "aggregate")](self, num_images, pair_corrs)
+        finally:
+            rec["aggregate_sec"] += time.perf_counter() - t0
+
+    def timed_generate(cls, key):
+        def generate(self, images, pairs):
+            rec["objects"][key] = self
+            t0 = time.perf_counter()
+            try:
+                return orig[(cls, "generate")](self, images, pairs)
+            finally:
+                torch.cuda.synchronize()
+                rec["generate_sec"] += time.perf_counter() - t0
+        return generate
+
+    def match_batch(self, *args, **kwargs):
+        rec["objects"]["superglue"] = self
+        return orig[(superglue.SuperGlueMatcher, "match_batch")](self, *args, **kwargs)
+
+    correspondence.KeypointAggregatorDedup.aggregate = aggregate
+    correspondence.DenseCorrespondenceGenerator.generate = timed_generate(correspondence.DenseCorrespondenceGenerator,
+                                                                          "loftr")
+    mast3r.Mast3rCorrespondenceGenerator.generate = timed_generate(mast3r.Mast3rCorrespondenceGenerator, "mast3r")
+    superglue.SuperGlueMatcher.match_batch = match_batch
+
+    def restore():
+        for (cls, name), fn in orig.items():
+            setattr(cls, name, fn)
+    return rec, restore
+
+
+def phase_correspondence(smi: str, runner_dir: str, R, t, work: str) -> dict:
+    """The direct image-correspondence front ends, SuperGlue and the OpenCV
+    detectors through ``gtsfm_tpu_torch.runner.main`` on `cuda` on the
+    runner phase's 32 views (runs A-F, see the module's docstring): A
+    colmap_front_end on a COLMAP model of CORR_GT_POINTS GT points
+    (write_colmap_tracks of mvs_tracks) against the JAX package's bars
+    (CORR_REFERENCE), with E, telemetry_db and GTSFM_TPU_TRACE, on it; B
+    skydio_front_end (LoFTR at its published widths), C mast3r (ViT-L
+    encoder, base decoders, long edge 512) and D deep_front_end with
+    matcher.name=superglue, on the seeded public-layout checkpoints of
+    write_correspondence_weights, recorded (seeded nets make no photo
+    result); F unified with detector.name=sift, whose matches go through
+    kernel #1. B-D must make correspondences and no kernel launch; F must
+    launch kernel #1. Then each generator of B-D on the card on
+    CORR_HOLD_PAIRS (the runs' first pairs) against the JAX package's
+    outputs on the same weights and views (CORR_REFERENCE_NPZ): at least
+    CORR_MATCH_SHARE of the matches identical, LoFTR's refined coordinates
+    within CORR_FINE_TOL_PX. Returns F's launches and the held shares."""
+    import os
+    import sqlite3
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CORR_REFERENCE)) as f:
+        ref = json.load(f)
+    npz = dict(np.load(os.path.join(root, CORR_REFERENCE_NPZ)))
+    order = ring_order(t)
+    t0 = time.perf_counter()
+    colmap_dir = os.path.join(work, "corr_colmap")
+    write_colmap_tracks(colmap_dir, np.asarray(R)[order], np.asarray(t)[order],
+                        mvs_tracks(R, t, order, n=CORR_GT_POINTS))
+    wdir = os.path.join(work, "corr_weights")
+    os.makedirs(wdir, exist_ok=True)
+    weights = write_correspondence_weights(wdir)
+    weights["superpoint"] = write_deep_weights(wdir, ("superpoint",))["superpoint"]
+    print(f"correspondence: COLMAP model and seeded weights written in {time.perf_counter() - t0:.3f} s; sums of "
+          f"squares {weights['sumsq']} (the reference's {ref['sumsq']})", flush=True)
+    if any(abs(weights["sumsq"][k] - ref["sumsq"][k]) > 1e-6 * ref["sumsq"][k] for k in ref["sumsq"]):
+        raise AssertionError("correspondence: the seeded weights differ from the reference's")
+    base = ["--loader", "olsson", "--dataset_dirpath", runner_dir]
+    # F: the unified config with OpenCV's SIFT in the detector slot (its
+    # DoG-SIFT fields, contrast_threshold, are not OpenCV's options)
+    import yaml
+
+    from gtsfm_tpu_torch.configs.config import load_config
+
+    import cv2
+
+    print(f"correspondence F: OpenCV {cv2.__version__}", flush=True)
+    sift_cfg = dict(load_config("unified"), detector={"name": "sift", "max_keypoints": 2048})
+    sift_yaml = os.path.join(work, "unified_sift.yaml")
+    with open(sift_yaml, "w") as f:
+        yaml.safe_dump(sift_cfg, f)
+    runs = {
+        "A colmap_front_end": ["--config_name", "colmap_front_end", f"correspondence.colmap_dir={colmap_dir}",
+                               f"scene_optimizer.telemetry_db={os.path.join(work, 'telemetry.sqlite')}"],
+        "B skydio_front_end": ["--config_name", "skydio_front_end", f"correspondence.weights_path={weights['loftr']}"],
+        "C mast3r": ["--config_name", "mast3r", f"correspondence.weights_path={weights['mast3r']}"],
+        "D deep_front_end superglue": ["--config_name", "deep_front_end", "matcher.name=superglue",
+                                       f"matcher.weights_path={weights['superglue']}",
+                                       f"detector.weights_path={weights['superpoint']}"],
+        "F unified sift": ["--config_name", sift_yaml],
+    }
+    trace_dir = os.path.join(work, "corr_trace")
+    results, objects = {}, {}
+    for tag, argv in runs.items():
+        rec, restore = _corr_recorders()
+        if tag.startswith("A"):
+            os.environ["GTSFM_TPU_TRACE"] = trace_dir
+        try:
+            res = _runner_once(f"correspondence {tag}", base + argv, os.path.join(work, "corr_" + tag.split()[0]))
+        finally:
+            restore()
+            os.environ.pop("GTSFM_TPU_TRACE", None)
+        objects.update(rec["objects"])
+        counts = np.asarray(list(rec["counts"].values()) or res["matches_per_pair"])
+        res.update(counts=counts, aggregate_sec=rec["aggregate_sec"], generate_sec=rec["generate_sec"])
+        bars = None
+        if tag.startswith("A"):
+            j = ref["colmap_front_end"]
+            bars = (j["registered"] - RUNNER_REGISTERED_SLACK, j["pose_auc_@5.0_deg"] - RUNNER_AUC5_SLACK)
+        _print_run(f"correspondence {tag}", res, bars, smi)
+        print(f"correspondence {tag}: {'correspondences' if rec['counts'] else 'matches'} per pair median "
+              f"{float(np.median(counts)):.0f} min {int(counts.min())} max {int(counts.max())} (sum "
+              f"{int(counts.sum())}), valid pairs {res['valid']} of {res['pairs']}, the generator "
+              f"{rec['generate_sec']:.3f} s, the aggregator {rec['aggregate_sec']:.3f} s on the host | {smi}",
+              flush=True)
+        if tag.startswith("F"):
+            if res["launches"]["matcher"] < 1:
+                raise AssertionError(f"correspondence {tag}: kernel #1 never launched")
+        else:
+            if res["launches"]["matcher"] or res["launches"]["attention"]:
+                raise AssertionError(f"correspondence {tag}: a kernel launched in a run that has none on its path "
+                                     f"({res['launches']})")
+            if int(counts.sum()) == 0:
+                raise AssertionError(f"correspondence {tag}: no correspondence")
+        if tag[0] in "BCD" and [tuple(p) for p in res["pair_list"][: len(CORR_HOLD_PAIRS)]] != list(CORR_HOLD_PAIRS):
+            raise AssertionError(f"correspondence {tag}: the run's first pairs {res['pair_list'][:4]} are not "
+                                 f"{CORR_HOLD_PAIRS}")
+        results[tag] = res
+        torch.cuda.empty_cache()
+
+    # E: the telemetry rows and the trace of run A
+    with sqlite3.connect(os.path.join(work, "telemetry.sqlite")) as conn:
+        n_rows = conn.execute("SELECT COUNT(*) FROM two_view_results").fetchone()[0]
+        stages = sorted(r[0] for r in conn.execute("SELECT stage FROM stage_timings"))
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(trace_dir) for f in fs]
+    trace_bytes = sum(os.path.getsize(f) for f in traces)
+    print(f"correspondence E: telemetry {n_rows} two-view rows for {results['A colmap_front_end']['pairs']} pairs, "
+          f"stages {stages}; trace files {[os.path.relpath(f, trace_dir) for f in traces]} ({trace_bytes} bytes)",
+          flush=True)
+    if n_rows != results["A colmap_front_end"]["pairs"] or not trace_bytes:
+        raise AssertionError("correspondence E: the telemetry rows or the trace are missing")
+
+    # the held pairs: each generator on the card against the JAX package's
+    hold = np.asarray(CORR_HOLD_PAIRS)
+    gray = corr_hold_gray(npz["views_rgb"])  # the reference's views, so that both sides see the same pixels
+    held = {}
+    for kind in ("loftr", "mast3r"):
+        t0 = time.perf_counter()
+        got = objects[kind].generate(list(gray), hold)
+        sec = time.perf_counter() - t0
+        held[kind] = [corr_share(kind, got[tuple(p)], (npz[f"{kind}_uv1_{k}"], npz[f"{kind}_uv2_{k}"]))
+                      for k, p in enumerate(hold.tolist())]
+        print(f"correspondence held {kind}: {[(h['n_port'], h['n_ref'], h['common']) for h in held[kind]]} "
+              f"(port, reference, identical) on {hold.tolist()}, shares {[round(h['share'], 4) for h in held[kind]]}"
+              + (f", refined coordinates of the common ones at most {max(h['fine_err'] for h in held[kind]):.3g} "
+                 f"px apart" if kind == "loftr" else "") + f"; {sec:.3f} s | {smi}", flush=True)
+    (xy, mask, desc), (i1, i2) = corr_glue_feed(np.asarray(R)[order], np.asarray(t)[order])
+    dev = torch.device("cuda")
+    T = [torch.as_tensor(a, device=dev) for a in (desc[i1], desc[i2], xy[i1], xy[i2], mask[i1], mask[i2])]
+    idx, ok, _score = (a.cpu().numpy() for a in objects["superglue"].match_batch(
+        *T, image_size=(SPLAT_HW[1], SPLAT_HW[0])))
+    held["superglue"] = [corr_share("superglue", (idx[k], ok[k]), (npz["superglue_idx"][k], npz["superglue_mask"][k]))
+                         for k in range(len(hold))]
+    print(f"correspondence held superglue (descriptor feed, K={GLUE_KEYPOINTS}): "
+          f"{[(h['n_port'], h['n_ref'], h['common']) for h in held['superglue']]} (port, reference, identical), "
+          f"shares {[round(h['share'], 4) for h in held['superglue']]}", flush=True)
+    bad = [(kind, k) for kind, hs in held.items() for k, h in enumerate(hs)
+           if h["share"] < CORR_MATCH_SHARE or h["n_ref"] == 0 or h["fine_err"] > CORR_FINE_TOL_PX]
+    if bad:
+        raise AssertionError(f"correspondence: held pairs below the bars (share {CORR_MATCH_SHARE}, LoFTR "
+                             f"{CORR_FINE_TOL_PX} px): {bad}")
+    return {"launches": results["F unified sift"]["launches"]["matcher"], "held": held,
+            "runs": {k: {"registered": r["registered"], "auc5": r["auc5"], "valid": r["valid"], "pairs": r["pairs"]}
+                     for k, r in results.items()}}
+
+
 def phase_bal(smi: str, work: str) -> dict:
     """The BAL tool mode on the card: bal_problem at Trafalgar-257's counts
     written perturbed (and once at the truth), ``runner.main(["--bal",
@@ -4086,6 +4548,7 @@ def main() -> int:
         timed("mvs", phase_mvs, smi, R, t, work)
         mvs_launches = timed("mvs_runner", phase_mvs_runner, smi, runner_dir, work)["launches"]
         timed("bal", phase_bal, smi, work)
+        corr = timed("correspondence", phase_correspondence, smi, runner_dir, R, t, work)
         outputs = timed("runner_outputs", phase_runner_outputs, smi, runner_dir, runner_cold)
     print("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_sec.items()}), flush=True)
     print(f"script seconds: {time.perf_counter() - t_script:.1f} (limit 1200)", flush=True)
@@ -4098,12 +4561,14 @@ def main() -> int:
         "replaces": "gtsfm_tpu/frontend/matchers/pallas_matcher.py:29",
         "shape": "P64_K2048_D128",
         "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"]
-        + sum(r["launches"]["matcher"] for r in megaloc["runs"]) + mvs_launches + outputs["matcher"],
+        + sum(r["launches"]["matcher"] for r in megaloc["runs"]) + mvs_launches + corr["launches"]
+        + outputs["matcher"],
         "runner_launches": runner_launches["matcher"],
         "runner_outputs_launches": {tag: r["matcher"] for tag, r in outputs["runs"].items()},
         "runner_options_launches": options_launches["matcher"],
         "colmap_runner_launches": colmap_launches["matcher"],
         "mvs_runner_launches": mvs_launches,
+        "correspondence_launches": corr["launches"],
         "max_abs_err": max(err, err_runner, megaloc["err"]),
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],

@@ -127,6 +127,6 @@ def build_scene_optimizer(cfg: dict) -> SceneOptimizer:
     detector = build_detector(det_cfg)
     matcher = build_matcher(cfg.get("matcher"))
     global_descriptor = build_global_descriptor(cfg["global_descriptor"]) if cfg.get("global_descriptor") else None
-    correspondence = build_correspondence(cfg.get("correspondence"))
+    correspondence = build_correspondence(cfg.get("correspondence"), device=so_opts.device)
     return SceneOptimizer(so_opts, retriever=retriever, detector=detector, matcher=matcher,
                           global_descriptor=global_descriptor, correspondence=correspondence)

@@ -41,7 +41,10 @@ from gtsfm_tpu_torch.partitioner.partitioners import MetisPartitioner
 from gtsfm_tpu_torch.products.types import ClusterTree
 from gtsfm_tpu_torch.scene.mvo import MultiViewOptimizer, MVOOptions
 from gtsfm_tpu_torch.utils.cache import content_key
+from gtsfm_tpu_torch.utils.logger import get_logger
 from gtsfm_tpu_torch.utils.numerics import ceil_pow2
+
+logger = get_logger("hierarchical")
 
 MAX_SIM3_PAIRS = 4096  # LMedS + IRLS saturates well below this many 3D-3D pairs
 
@@ -216,7 +219,9 @@ class HierarchicalReconstruction:
         for nd in sorted(leaf_nodes, key=lambda x: -len(x.value)):
             t0 = time.perf_counter()
             leaf_results[id(nd)] = run_leaf(nd)
-            phase_sec["leaf"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            phase_sec["leaf"] += dt
+            logger.info("leaf (%d edges): %.1fs", len(nd.value), dt)
 
         self.node_results = []
 
@@ -226,7 +231,11 @@ class HierarchicalReconstruction:
             t0 = time.perf_counter()
             result = fold(node, child_results)
             if id(node) not in leaf_results:
-                phase_sec["leaf" if node.is_leaf else "merge"] += time.perf_counter() - t0
+                phase = "leaf" if node.is_leaf else "merge"
+                dt = time.perf_counter() - t0
+                phase_sec[phase] += dt
+                logger.info("node %s (%s): %d edges in %.1fs%s", "/".join(map(str, path)) or "root", phase,
+                            len(node.value), dt, "" if result is not None else " [FAILED]")
             if result is not None:
                 self.node_results.append((path, result[0]))
             return result

@@ -46,17 +46,24 @@ The reconstruction runs on ``SceneOptimizerOptions.device``, the CUDA card
 by default (``device="cpu"`` for a CPU run): the loader's images,
 calibrations and GT poses are moved there, and the detector and the global
 descriptor run on the image batch there. Without a retriever the
-``SequentialRetriever`` picks the pairs. A correspondence generator with
-``requires_gt`` (the synthetic generator) replaces the detector: its
-matches go into the two-view batch as precomputed matches, so the
-mutual-NN matcher does not run. The matcher slot takes a learned matcher
-(LightGlue, ``frontend/registry.build_matcher``); ``None`` keeps the fused
-mutual-NN matcher inside the two-view batch.
+``SequentialRetriever`` picks the pairs. The matcher slot takes a learned
+matcher (LightGlue, SuperGlue: ``frontend/registry.build_matcher``);
+``None`` keeps the fused mutual-NN matcher inside the two-view batch.
 
-Not ported: image-correspondence generators (the keypoint aggregator),
-telemetry and the device mesh (ROADMAP queue 1 item 10; their option
-fields ``direct_max_keypoints``, ``telemetry_db`` and ``use_mesh`` raise as
-unknown fields).
+A correspondence generator replaces the detector and the matcher (the
+direct branch). The synthetic one (``requires_gt``) makes matches from GT
+geometry; an image-correspondence generator (the COLMAP replay, LoFTR, the
+compact dense matcher, MASt3R) matches the retrieved pairs' images, always
+loaded whole (``load_chunk_size`` does not apply), and
+``KeypointAggregatorDedup`` merges its per-pair keypoints into
+``direct_max_keypoints`` global keypoints per image. Either way the
+matches go into the two-view batch as precomputed matches (no mutual-NN
+matcher, no two-view cache, no bridge reconnection).
+
+With ``telemetry_db`` the per-pair two-view results, the stage timings and
+the run's metadata go to a sqlite file (common/telemetry.py). ``run`` is
+traced with ``torch.profiler`` when ``GTSFM_TPU_TRACE`` names a directory
+(utils/tracing.py). Stage times are logged (utils/logger.py).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ import numpy as np
 import torch
 
 from gtsfm_tpu_torch.common.sfm_data import SceneMeta
+from gtsfm_tpu_torch.common.telemetry import TelemetryDB
 from gtsfm_tpu_torch.densify.mvs import MVSOptions, PlaneSweepMVS
 from gtsfm_tpu_torch.densify.patchmatchnet import PatchmatchNetMVS, load_torch_weights as load_pmnet_weights
 from gtsfm_tpu_torch.evaluation.metrics import (
@@ -82,6 +90,7 @@ from gtsfm_tpu_torch.evaluation.report import generate_html_report
 from gtsfm_tpu_torch.evaluation.retrieval_metrics import retrieval_metrics
 from gtsfm_tpu_torch.frontend.anysplat import AnySplatModel, AnySplatOptions, gaussian_means_as_tracks
 from gtsfm_tpu_torch.frontend.cachers import GlobalDescriptorCacher, MatcherCacher
+from gtsfm_tpu_torch.frontend.correspondence import AggregatorOptions, KeypointAggregatorDedup
 from gtsfm_tpu_torch.frontend.detectors.dog_sift import DoGSift, DoGSiftOptions
 from gtsfm_tpu_torch.frontend.global_descriptors.descriptors import TinyImageDescriptor
 from gtsfm_tpu_torch.frontend.reports import aggregate_frontend_metrics, make_reports
@@ -115,10 +124,14 @@ from gtsfm_tpu_torch.ui.registry import ProcessGraphGenerator
 from gtsfm_tpu_torch.utils.cache import DiskCache, content_key
 from gtsfm_tpu_torch.utils.ellipsoid import align_scene_to_axes
 from gtsfm_tpu_torch.utils.geometry_comparisons import compare_global_poses
+from gtsfm_tpu_torch.utils.logger import get_logger
 from gtsfm_tpu_torch.utils.numerics import precise, resolve_device
+from gtsfm_tpu_torch.utils.tracing import device_trace
 from gtsfm_tpu_torch.utils.tracks import tracks_from_sfm_data
 from gtsfm_tpu_torch.visualization.viewer import export_scene_html
 from gtsfm_tpu_torch.visualization.viz import plot_scene_3d
+
+logger = get_logger("scene")
 
 
 class SceneOptimizerOptions(NamedTuple):
@@ -160,8 +173,16 @@ class SceneOptimizerOptions(NamedTuple):
     # two-view and cluster stages (root: utils/cache.DEFAULT_CACHE_ROOT)
     use_cache: bool = False
     cache_root: Optional[str] = None
+    # the reference's switch for sharding over a multi-device mesh: with one
+    # device it builds no mesh, and neither does the port, on its one card
+    # or on the CPU (multi-GPU runs and parallel/sharding.py are not ported)
+    use_mesh: bool = True
     # images per load-and-detect chunk (0: the whole scene at once)
     load_chunk_size: int = 0
+    # the direct branch: global keypoints per image after the aggregation
+    direct_max_keypoints: int = 2048
+    # a sqlite file for the per-pair results, stage timings and metadata
+    telemetry_db: Optional[str] = None
     # without GT, rotate the scene so that the point cloud's principal axes
     # lie along the world axes
     axis_align_when_no_gt: bool = True
@@ -182,15 +203,14 @@ class SceneOptimizer:
         image_size) -> (match_idx, match_mask, match_score)`` on device
         tensors; global_descriptor:
         ``describe_batch(images) -> (N, D)`` numpy, the tiny descriptor when
-        None and the retriever needs one; correspondence: a generator with
-        ``requires_gt`` and ``generate(gt_poses, cal, pairs, image_sizes)``
-        (the synthetic generator), in place of the detector and matcher.
+        None and the retriever needs one; correspondence, in place of the
+        detector and matcher: a generator with ``requires_gt`` and
+        ``generate(gt_poses, cal, pairs, image_sizes)`` (the synthetic
+        generator), or one with ``generate(images, pairs) -> {(i1, i2):
+        (uv1, uv2)}`` (frontend/registry.build_correspondence).
         Raises when ``options.device`` is the default ``"cuda"`` and there
         is no CUDA device, and before any work when ``run_mvs`` asks for the
         patchmatchnet back end without ``mvs_weights_path``."""
-        if correspondence is not None and not getattr(correspondence, "requires_gt", False):
-            raise NotImplementedError("image-correspondence generators (the keypoint aggregator) are not ported "
-                                      "(ROADMAP queue 1 item 10)")
         if options.mvs_backend not in ("plane_sweep", "patchmatchnet"):
             raise ValueError(f"unknown mvs_backend {options.mvs_backend!r}")
         if options.run_mvs and options.mvs_backend == "patchmatchnet" and not options.mvs_weights_path:
@@ -205,6 +225,7 @@ class SceneOptimizer:
         self.matcher = matcher
         self.global_descriptor = global_descriptor
         self.correspondence = correspondence
+        self._telemetry = TelemetryDB(options.telemetry_db) if options.telemetry_db else None
         self.backend_metrics: dict = {}  # the back end's metrics dict of the last run
         self.node_results: list = []  # [(cluster path, SfmData)] of the last hierarchical run
         self._detect_cache = self._two_view_cacher = self._cluster_cache = None
@@ -220,6 +241,10 @@ class SceneOptimizer:
 
     def run(self, loader: LoaderBase) -> tuple:
         """-> (SfmData, list of MetricsGroup)."""
+        with device_trace("scene_optimizer_run"):
+            return self._run_impl(loader)
+
+    def _run_impl(self, loader: LoaderBase) -> tuple:
         opts = self.options
         t_start = time.perf_counter()
         n = len(loader)
@@ -227,13 +252,16 @@ class SceneOptimizer:
         if opts.cluster_optimizer != "mvo":
             return self._run_feedforward(loader, t_start, groups)
         direct = self.correspondence is not None
+        synthetic = direct and getattr(self.correspondence, "requires_gt", False)
 
         t0 = time.perf_counter()
         cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
         want_global = isinstance(self.retriever, (SimilarityRetriever, JointSimilaritySequentialRetriever))
         kp_xy, kp_mask, descs, global_descs, sizes, images = self._load_detect_chunked(
-            loader, want_global, detect=not direct, keep_images=opts.run_mvs or opts.run_gs)
+            loader, want_global, detect=not direct,
+            keep_images=opts.run_mvs or opts.run_gs or (direct and not synthetic))
         detect_sec = time.perf_counter() - t0
+        logger.info("detect+describe: %d images in %.1fs", n, detect_sec)
 
         t0 = time.perf_counter()
         pairs = np.asarray(self.retriever.get_image_pairs(n, global_descriptors=global_descs, loader=loader),
@@ -245,7 +273,7 @@ class SceneOptimizer:
         if gt is not None:
             gt = gt.map(lambda a: a.to(self.device))
         pair_matches = None
-        if direct:
+        if synthetic:
             # synthetic correspondences from GT geometry through the
             # production two-view and back-end path
             if gt is None:
@@ -253,6 +281,14 @@ class SceneOptimizer:
             syn = self.correspondence.generate(gt, cal, pairs, [(w, h) for (h, w) in sizes])
             kp_xy, kp_mask = syn["keypoints_xy"], syn["kp_mask"]
             pair_matches = (syn["corr_i1"], syn["corr_i2"], syn["corr_mask"])
+            descs = np.zeros((n, kp_xy.shape[1], 4), np.float32)
+        elif direct:
+            # per-pair correspondences of the pairs' images, merged into
+            # global keypoints; the matches are the aggregator's per-pair
+            # index triples
+            pair_corrs = self.correspondence.generate([images[i][:h, :w] for i, (h, w) in enumerate(sizes)], pairs)
+            agg = KeypointAggregatorDedup(AggregatorOptions(max_keypoints_per_image=opts.direct_max_keypoints))
+            kp_xy, kp_mask, pair_matches = agg.aggregate(n, pair_corrs)
             descs = np.zeros((n, kp_xy.shape[1], 4), np.float32)
         image_wh = (max(w for (_h, w) in sizes), max(h for (h, _w) in sizes))
         tvr = self._run_two_view(pairs, kp_xy, kp_mask, descs, cal, image_wh, pair_matches)
@@ -273,6 +309,7 @@ class SceneOptimizer:
                                        for k in TwoViewResult.__dataclass_fields__})
         host = {k: getattr(tvr, k).cpu().numpy() for k in TwoViewResult.__dataclass_fields__}
         frontend_sec = time.perf_counter() - t0
+        logger.info("two-view: %d pairs (%d valid) in %.1fs", len(pairs), int(host["valid"].sum()), frontend_sec)
         groups.append(MetricsGroup("frontend_summary", [
             Metric("num_input_images", n),
             Metric("num_keypoints_per_image", np.asarray(kp_mask).sum(axis=1)),
@@ -285,8 +322,15 @@ class SceneOptimizer:
             Metric("retriever_duration_sec", retriever_sec),
             Metric("two_view_sec", frontend_sec),
         ]))
+        reports = make_reports(pairs, host, gt) if gt is not None or self._telemetry is not None else None
         if gt is not None:
-            groups.append(aggregate_frontend_metrics(make_reports(pairs, host, gt)))
+            groups.append(aggregate_frontend_metrics(reports))
+        if self._telemetry is not None:
+            self._telemetry.log_metadata(num_images=n, num_pairs=len(pairs))
+            self._telemetry.log_two_view_results(reports)
+            self._telemetry.log_stage("detect_describe", detect_sec)
+            self._telemetry.log_stage("retriever", retriever_sec)
+            self._telemetry.log_stage("two_view", frontend_sec)
         if sim is not None and gt is not None and len(pairs):
             groups.append(retrieval_metrics(pairs, np.asarray(sim), gt))
 
@@ -308,6 +352,8 @@ class SceneOptimizer:
                 keypoints_xy=kp_xy, cal=cal, meta=meta,
             )
         mvo_metrics["backend_sec"] = time.perf_counter() - t_mvo
+        logger.info("back-end: %d cameras, %d tracks in %.1fs", data.number_images(), data.number_tracks(),
+                    mvo_metrics["backend_sec"])
         self.backend_metrics = mvo_metrics
         groups.append(MetricsGroup("multiview_optimizer_metrics", [
             Metric(k, v) for k, v in mvo_metrics.items() if isinstance(v, (int, float))
@@ -417,8 +463,10 @@ class SceneOptimizer:
                                        [Metric(k, v) for k, v in gs_metrics.items()]))
         elif gs_init is not None:
             gs_result = gs_init
-        groups.append(MetricsGroup("total_summary",
-                                   [Metric("total_runtime_sec", time.perf_counter() - t_start)]))
+        total_sec = time.perf_counter() - t_start
+        groups.append(MetricsGroup("total_summary", [Metric("total_runtime_sec", total_sec)]))
+        if self._telemetry is not None:
+            self._telemetry.log_stage("total", total_sec)
         if opts.output_root:
             results_dir = os.path.join(opts.output_root, "results")
             os.makedirs(results_dir, exist_ok=True)
@@ -582,8 +630,8 @@ class SceneOptimizer:
                                pair_matches=None) -> TwoViewResult:
         """Two-view estimation over chunks of ``pair_batch_size`` pairs with
         the scene's keypoints and descriptors resident on the device. With
-        ``pair_matches`` (the direct branch's (E, K) corr_i1 / corr_i2 /
-        corr_mask) each chunk verifies those matches; else a matcher, if
+        ``pair_matches`` (the direct branch's matches, see _match_table)
+        each chunk verifies those matches; else a matcher, if
         any, matches each chunk first (``image_wh``: the scene's largest
         width and height, for its keypoint normalization). The last chunk
         is not padded: each pair's random stream is keyed by its global
@@ -595,7 +643,7 @@ class SceneOptimizer:
         d_dev = torch.as_tensor(descs, dtype=torch.float32, device=dev)
         pairs_dev = torch.as_tensor(pairs, dtype=torch.int64, device=dev)
         if pair_matches is not None:
-            midx, mmask = self._match_table(pair_matches, kp_xy.shape[1])
+            midx, mmask = self._match_table(pairs, pair_matches, kp_xy.shape[1])
             midx_dev = torch.as_tensor(midx, device=dev)
             mmask_dev = torch.as_tensor(mmask, device=dev)
         chunks = []
@@ -622,13 +670,25 @@ class SceneOptimizer:
         })
 
     @staticmethod
-    def _match_table(pair_matches, K: int) -> tuple:
+    def _match_table(pairs, pair_matches, K: int) -> tuple:
         """(E, K) match_idx / match_mask tables (match_idx[p, k1] = k2) from
-        an (E, K) corr_i1 / corr_i2 / corr_mask triple."""
-        ci1, ci2, cm = (np.asarray(x) for x in pair_matches)
-        midx = np.zeros((cm.shape[0], K), np.int32)
-        mmask = np.zeros((cm.shape[0], K), bool)
-        r, k = np.nonzero(cm)
-        midx[r, ci1[r, k]] = ci2[r, k]
-        mmask[r, ci1[r, k]] = True
+        an (E, K) corr_i1 / corr_i2 / corr_mask triple aligned with
+        ``pairs`` (the synthetic generator's) or the aggregator's dict
+        {(i1, i2): (idx1, idx2, keep)} (a keypoint of image 1 matched twice
+        keeps its last match, as numpy's assignment in the reference)."""
+        midx = np.zeros((len(pairs), K), np.int32)
+        mmask = np.zeros((len(pairs), K), bool)
+        if isinstance(pair_matches, tuple):
+            ci1, ci2, cm = (np.asarray(x) for x in pair_matches)
+            r, k = np.nonzero(cm[: len(pairs)])
+            midx[r, ci1[r, k]] = ci2[r, k]
+            mmask[r, ci1[r, k]] = True
+            return midx, mmask
+        for p, (a, b) in enumerate(np.asarray(pairs).tolist()):
+            e = pair_matches.get((a, b))
+            if e is None:
+                continue
+            idx1, idx2, keep = e
+            midx[p, idx1[keep]] = idx2[keep]
+            mmask[p, idx1[keep]] = True
         return midx, mmask

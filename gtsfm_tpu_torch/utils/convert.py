@@ -502,3 +502,158 @@ def patchmatchnet_state_dict(params, eps: float = 1e-5) -> dict:
     conv("upsample_net.res", ref["res"])
     bn("upsample_net.bn", ref["bn"]["scale"], ref["bn"]["shift"])
     return sd
+
+
+# ---- the direct image-correspondence nets and SuperGlue: the reference's
+# params (numpy leaves) -> the port's public-layout state_dicts
+
+
+def _put_linear(sd: dict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _f32(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _put_folded_bn(sd: dict, key: str, scale, shift, eps: float = 1e-5) -> None:
+    """A folded (scale, shift) pair as BatchNorm statistics that fold back
+    to it: mean 0, variance 1, weight scale * sqrt(1 + eps)."""
+    scale = np.asarray(scale, np.float64)
+    sd[f"{key}.weight"] = _f32(scale * np.sqrt(1.0 + eps))
+    sd[f"{key}.bias"] = _f32(shift)
+    sd[f"{key}.running_mean"] = _f32(np.zeros_like(scale))
+    sd[f"{key}.running_var"] = _f32(np.ones_like(scale))
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _put_conv_nobias(sd: dict, key: str, p) -> None:
+    sd[f"{key}.weight"] = _f32(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+
+def loftr_state_dict(params) -> dict:
+    """``LoFTRNet``'s params -> the official outdoor_ds.ckpt layout (without
+    the ``matcher.`` prefix)."""
+    sd = {}
+    bb = params["backbone"]
+
+    def bn(key, p):
+        _put_folded_bn(sd, key, p["scale"], p["shift"])
+
+    _put_conv_nobias(sd, "backbone.conv1", bb["conv1"])
+    bn("backbone.bn1", bb["bn1"])
+    for stage in (1, 2, 3):
+        for j in (0, 1):
+            p, key = bb[f"layer{stage}_{j}"], f"backbone.layer{stage}.{j}"
+            for name in ("conv1", "conv2"):
+                _put_conv_nobias(sd, f"{key}.{name}", p[name])
+            bn(f"{key}.bn1", p["bn1"])
+            bn(f"{key}.bn2", p["bn2"])
+            if "down_conv" in p:
+                _put_conv_nobias(sd, f"{key}.downsample.0", p["down_conv"])
+                bn(f"{key}.downsample.1", p["down_bn"])
+    for name in ("layer3_outconv", "layer2_outconv", "layer1_outconv"):
+        _put_conv_nobias(sd, f"backbone.{name}", bb[name])
+    for name in ("layer2_outconv2", "layer1_outconv2"):
+        _put_conv_nobias(sd, f"backbone.{name}.0", bb[f"{name}_0"])
+        bn(f"backbone.{name}.1", bb[f"{name}_1"])
+        _put_conv_nobias(sd, f"backbone.{name}.3", bb[f"{name}_3"])
+    for tr in ("loftr_coarse", "loftr_fine"):
+        for layer, p in params[tr].items():
+            key = f"{tr}.layers.{int(layer[len('layer'):])}"
+            for name in ("q_proj", "k_proj", "v_proj", "merge"):
+                _put_linear(sd, f"{key}.{name}", p[name])
+            _put_linear(sd, f"{key}.mlp.0", p["mlp_0"])
+            _put_linear(sd, f"{key}.mlp.2", p["mlp_2"])
+            for name in ("norm1", "norm2"):
+                sd[f"{key}.{name}.weight"] = _f32(p[name]["scale"])
+                sd[f"{key}.{name}.bias"] = _f32(p[name]["bias"])
+    if "fine_preprocess_down_proj" in params:
+        _put_linear(sd, "fine_preprocess.down_proj", params["fine_preprocess_down_proj"])
+        _put_linear(sd, "fine_preprocess.merge_feat", params["fine_preprocess_merge_feat"])
+    return sd
+
+
+def dense_matcher_state_dict(params) -> dict:
+    """``DenseMatcherNet``'s params -> the port's ``DenseMatcherNet``
+    state_dict (the same module names)."""
+    sd = {}
+    for name, p in params["encoder"].items():
+        _put_conv(sd, f"encoder.{name}", p)
+    for block, p in params.items():
+        if block != "encoder":
+            for name in ("q", "k", "v", "proj"):
+                _put_linear(sd, f"{block}.{name}", p[name])
+    return sd
+
+
+def superglue_state_dict(params) -> dict:
+    """``SuperGlueNet``'s params -> the official superglue_outdoor.pth
+    layout (1x1 Conv1d weights (out, in, 1); the MLPs' convs at 3i, their
+    BatchNorms at 3i + 1)."""
+    sd = {}
+
+    def conv1d(key, p):
+        sd[f"{key}.weight"] = _f32(np.asarray(p["kernel"]).T[:, :, None])
+        sd[f"{key}.bias"] = _f32(p["bias"])
+
+    def stack(key, p):
+        n = sum(1 for k in p if k.startswith("conv"))
+        for i in range(n):
+            conv1d(f"{key}.{3 * i}", p[f"conv{i}"])
+            if i < n - 1:
+                _put_folded_bn(sd, f"{key}.{3 * i + 1}", p[f"bn{i}_scale"], p[f"bn{i}_shift"])
+
+    stack("kenc.encoder", params["kenc"]["encoder"])
+    n_layers = sum(1 for k in params if k.startswith("gnn"))
+    for i in range(n_layers):
+        p = params[f"gnn{i}"]
+        key = f"gnn.layers.{i}"
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            conv1d(f"{key}.attn.proj.{j}", p["attn"][name])
+        conv1d(f"{key}.attn.merge", p["attn"]["merge"])
+        stack(f"{key}.mlp", p["mlp"])
+    conv1d("final_proj", params["final_proj"])
+    sd["bin_score"] = _f32(np.asarray(params["bin_score"]).reshape(()))
+    return sd
+
+
+def mast3r_state_dict(params) -> dict:
+    """The reference's MASt3R params (``init_params`` or its
+    ``load_torch_weights``) -> the public checkpoint's layout as the
+    reference reads it."""
+    sd = {"patch_embed.proj.weight": _f32(np.asarray(params["patch_kernel"]).transpose(3, 2, 0, 1)),
+          "patch_embed.proj.bias": _f32(params["patch_bias"])}
+
+    def lin(key, p, name):
+        sd[f"{key}.weight"] = _f32(np.asarray(p[f"{name}_kernel"]).T)
+        sd[f"{key}.bias"] = _f32(p[f"{name}_bias"])
+
+    def ln(key, p):
+        sd[f"{key}.weight"] = _f32(p["scale"])
+        sd[f"{key}.bias"] = _f32(p["bias"])
+
+    def block(key, p):
+        ln(f"{key}.norm1", p["norm1"])
+        lin(f"{key}.attn.qkv", p["attn"], "qkv")
+        lin(f"{key}.attn.proj", p["attn"], "proj")
+        ln(f"{key}.norm2", p["norm2"])
+        lin(f"{key}.mlp.fc1", p["mlp"], "fc1")
+        lin(f"{key}.mlp.fc2", p["mlp"], "fc2")
+        if "cross_attn" in p:
+            for name in ("q", "k", "v"):
+                lin(f"{key}.cross_attn.proj{name}", p["cross_attn"], name)
+            lin(f"{key}.cross_attn.proj", p["cross_attn"], "proj")
+            ln(f"{key}.norm_y", p["norm_y"])
+            ln(f"{key}.norm3", p["norm3"])
+
+    for i, p in enumerate(params["enc_blocks"]):
+        block(f"enc_blocks.{i}", p)
+    ln("enc_norm", params["enc_norm"])
+    lin("decoder_embed", params, "decoder_embed")
+    for name in ("dec_blocks", "dec_blocks2"):
+        for i, p in enumerate(params[name]):
+            block(f"{name}.{i}", p)
+    ln("dec_norm", params["dec_norm"])
+    head = "downstream_head1.head_local_features.proj"
+    lin(f"{head}.0", params["head_local_features"], "fc1")
+    lin(f"{head}.2", params["head_local_features"], "fc2")
+    return sd

@@ -37,7 +37,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from gtsfm_tpu_torch.utils.logger import get_logger
 from gtsfm_tpu_torch.utils.numerics import resolve_device
+
+logger = get_logger("prewarm")
 
 
 def _warm_two_view(pair_batch: int, max_keypoints: int, desc_dim: int, hypotheses: int, dev) -> None:
@@ -123,6 +126,7 @@ def prewarm_standard_shapes(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings[name] = round(time.perf_counter() - t0, 2)
+        logger.info("prewarmed %s in %.1fs", name, timings[name])
 
     if dev.type == "cuda":
         from gtsfm_tpu_torch.utils import cuda_build
@@ -139,9 +143,9 @@ def prewarm_standard_shapes(
 
 def main():
     timings = prewarm_standard_shapes()
+    logger.info("prewarm complete: %d steps, %.1fs total", len(timings), sum(timings.values()))
     for k, v in timings.items():
         print(f"{k}: {v}s")
-    print(f"prewarm complete: {len(timings)} steps, {sum(timings.values()):.1f}s total")
 
 
 if __name__ == "__main__":

@@ -28,3 +28,17 @@ def load_torch_checkpoint(path: str):
             stacklevel=2,
         )
         return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_public_state_dict(net, sd: dict) -> None:
+    """Load a public checkpoint's state_dict into ``net``: keys the net
+    lacks (heads it does not build) are dropped, values take the net's
+    shapes (a 0-d parameter saved as (1,)), and BatchNorm's
+    ``num_batches_tracked`` (unused in eval) may be missing; any other
+    missing key raises."""
+    own = net.state_dict()
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"the state_dict lacks {missing[:5]} ({len(missing)} keys)")
+    net.load_state_dict({k: torch.as_tensor(v).reshape(own[k].shape) for k, v in sd.items() if k in own},
+                        strict=False)

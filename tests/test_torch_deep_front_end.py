@@ -102,8 +102,8 @@ def test_registry_builds_the_deep_components():
         out = registry.build_global_descriptor({"name": name, **cfg}).describe_batch(np.full((2, 48, 64), 0.5,
                                                                                              np.float32))
         assert out.shape[0] == 2 and np.isfinite(out).all()
-    unported = {n for names in registry._UNPORTED.values() for n in names}
-    assert not unported & {"superpoint", "d2net", "disk", "netvlad", "hloc_netvlad", "megaloc"}
+    # no component of the reference's registry is listed as still to port
+    assert not hasattr(registry, "_UNPORTED")
 
 
 def _scalars(output_root):

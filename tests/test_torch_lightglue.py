@@ -206,8 +206,12 @@ def test_build_matcher(tmp_path):
                                                              input_dim=64).items()}, str(path))
     m = build_matcher({"name": "lightglue", "weights_path": str(path)})
     assert (m.options.dim, m.options.num_heads, m.options.num_layers) == (64, 2, 2)
+    from gtsfm_tpu_torch.frontend.matchers.superglue import SuperGlueMatcher
+
+    sg = build_matcher({"name": "superglue", "num_layers": 1})
+    assert isinstance(sg, SuperGlueMatcher) and sg.options.num_layers == 1 and sg.options.dim == 256
     with pytest.raises(ValueError):
-        build_matcher({"name": "superglue"})
+        build_matcher({"name": "nope"})
 
 
 def _scalars(groups):

@@ -71,7 +71,8 @@ COLMAP_PARAMS = {
     "OPENCV_FISHEYE": "190.0 191.0 80.0 60.0 0.02 -0.005 0.001 -0.0001",
 }
 SHIPPED = ("unified", "sift_front_end", "door", "cluster", "synthetic_front_end", "unit_test", "vggt", "fastvggt",
-           "anysplat")
+           "anysplat", "deep_front_end", "megaloc_sift_frontend", "onedsfm_front_end", "colmap_front_end",
+           "skydio_front_end", "mast3r")
 VIEWS = 8  # ring views of the end-to-end test
 MVS_COUNT_TOL = 0.02  # the --run_mvs runners' dense point counts, relative
 # the feed-forward runners' folder: chip_smoke.feedforward_views of the
@@ -339,32 +340,63 @@ def _options_equal(t, j, path):
             assert a == b, f"{path}.{name}: {a!r} != {b!r}"
 
 
+def _component_options_equal(t, j, path):
+    """Two packages' components of the same class name with equal options,
+    and so their matchers (the dense generators); the reference's COLMAP
+    replay sits in a wrapper (its ``g``) that the port does not need."""
+    if hasattr(j, "g"):
+        j = j.g
+    assert type(t).__name__ == type(j).__name__, path
+    if hasattr(j, "options"):
+        _options_equal(t.options, j.options, f"{path}.options")
+    if hasattr(j, "matcher"):
+        _component_options_equal(t.matcher, j.matcher, f"{path}.matcher")
+
+
 @pytest.mark.parametrize("name", SHIPPED)
-def test_shipped_configs_build_as_the_reference(name):
-    cfg_t = config.load_config(name, ["scene_optimizer.device=cpu"])
-    cfg_j = j_config.load_config(name)
+def test_shipped_configs_build_as_the_reference(name, tmp_path):
+    """Every config of the reference loads in the port as it does there
+    (colmap_front_end with its colmap_dir set) and builds components of
+    the same classes with equal options."""
+    extra = []
+    if name == "colmap_front_end":
+        n = 3
+        gt = spectral_ring_poses(chip_smoke.ring_pairs(n), n)
+        chip_smoke.write_colmap_tracks(str(tmp_path / "model"), gt.R.numpy(), gt.t.numpy(), [])
+        extra = [f"correspondence.colmap_dir={tmp_path / 'model'}"]
+    cfg_t = config.load_config(name, extra + ["scene_optimizer.device=cpu"])
+    cfg_j = j_config.load_config(name, extra)
     cfg_t["scene_optimizer"].pop("device")
     assert cfg_t == cfg_j
-    so_t = config.build_scene_optimizer(config.load_config(name, ["scene_optimizer.device=cpu"]))
+    so_t = config.build_scene_optimizer(config.load_config(name, extra + ["scene_optimizer.device=cpu"]))
     so_j = j_config.build_scene_optimizer(cfg_j)
     _options_equal(so_t.options, so_j.options, "scene_optimizer")
     assert type(so_t.retriever).__name__ == type(so_j.retriever).__name__
     if hasattr(so_j.retriever, "options"):
         _options_equal(so_t.retriever.options, so_j.retriever.options, "retriever")
-    _options_equal(so_t.detector.options, so_j.detector.detector.options, "detector")
-    assert so_t.matcher is None and so_j.matcher is None
+    _component_options_equal(getattr(so_t.detector, "detector", so_t.detector), so_j.detector.detector, "detector")
+    for slot in ("matcher", "global_descriptor", "correspondence"):
+        t, j = getattr(so_t, slot), getattr(so_j, slot)
+        assert (t is None) == (j is None), slot
+        if j is not None:
+            _component_options_equal(t, j, slot)
     assert so_t.device == torch.device("cpu")
 
 
 def test_unported_components_and_flags_raise_before_any_work(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        registry.build_detector({"name": "sift"})
+    from gtsfm_tpu_torch.frontend.correspondence import DenseCorrespondenceGenerator
+
+    sift = registry.build_detector({"name": "sift", "max_keypoints": 64})
+    assert sift.max_keypoints == 64 and sift.detector.options.kind == "sift"
     with pytest.raises(ValueError, match="Unknown detector"):
         registry.build_detector({"name": "nope"})
     with pytest.raises(ValueError):
         registry.build_global_descriptor({"name": "nope"})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        registry.build_correspondence({"name": "loftr"})
+    loftr = registry.build_correspondence({"name": "loftr", "d_coarse": 32, "d_fine": 16, "nhead": 4,
+                                           "initial_dim": 16, "block_dims": (16, 24, 32)}, device="cpu")
+    assert isinstance(loftr, DenseCorrespondenceGenerator) and loftr.matcher.options.d_coarse == 32
+    with pytest.raises(ValueError, match="Unknown correspondence generator"):
+        registry.build_correspondence({"name": "nope"})
     assert registry.build_correspondence({"name": "synthetic"}).requires_gt
     with pytest.raises(NotImplementedError, match="TwoViewOptions has no option 'no_such_option'"):
         config.build_scene_optimizer(config.load_config("unified",

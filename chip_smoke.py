@@ -83,10 +83,10 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    gtsfm_tpu_torch.runner.main with the unified config (DoG-SIFT K=2048,
    the joint retriever with the tiny descriptor, the two-view batch at
    P=64 through the matcher kernel, bridges, MVO, evaluation, COLMAP
-   export), in this process, cold and then warm, first on an Olsson folder
+   export), in this process, first cold and then warm on an Olsson folder
    of the 32 ring views of runner_scene below, rendered by the port at
    480x640, f=600, then with --loader colmap on a COLMAP folder of the same
-   views resampled through a known OPENCV camera (OPENCV_CAMERA: fx 600,
+   views resampled through a known OPENCV camera, cold only (OPENCV_CAMERA: fx 600,
    fy 606, k1 -0.05, k2 0.01, p1 5e-4, p2 -3e-4; the resampling map from
    this file's own float64 Newton inversion of the model), whose Cal3DS2
    sends MVO's dense BA to the entry layout; each run requires DoG-SIFT on
@@ -100,11 +100,24 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    between the two, runner_options: the Olsson folder again with
    RUNNER_OPTIONS (the homography and indeterminacy checks, LMedS scoring,
    top-K-baseline triangulation, one cycle-filter pass, uniform rotation
-   weights, measurement-seeded MFAS directions), cold and warm, against
+   weights, measurement-seeded MFAS directions), cold only, against
    scripts/runner_options_reference.py's bars, with the pairs each check
    rejected; then the first chunk's first 16 pairs through the two-view
    batch on `cuda` and on the CPU with the same matches and draws (made on
    the card): valid equal on every pair away from the thresholds;
+then distributed (after runner, on its folder): the runner as 4 ranks of
+   one torch.distributed job on the one card through --distributed_*
+   (Gloo, mesh (2, 2): two-view chunks over data, kernel #1's desc1 rows
+   over model through its tile and finish kernels' own C entries, BA's
+   measurements over data), each rank in its own process: 32/32 at the
+   runner's AUC@5 bar, kernel #1's tile and finish entries launched on
+   every rank, BA in scatter alone, every rank's scene and two-view table
+   bit-identical, each rank's table against the single-process table on
+   the same inputs (integers and masks equal, floats within 1e-5), nothing
+   written by ranks 1-3; ba_scene on 2 ranks, mesh (2, 1), within 1e-4 of
+   the single-process scatter solve and bit-identical on repeat; a 1-rank
+   NCCL world through the same BA; prints the backend and each rank's
+   wall time, peak memory and launches (they join the kernels line);
 13. splat: GaussianSplatting.train at full width, 50,000 gaussian slots at
    480x640 for 400 steps, on the 32 ring views of the splat scene rendered
    by the port; final L1 < 0.7 of the initial and >= 400 compositing
@@ -167,7 +180,7 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    the analytic depth beside the JAX package's; one plane-sweep view
    timed at 960x1280;
 20. mvs_runner: the runner with --run_mvs on the runner phase's 32 views,
-   cold and warm, then with --mvs_backend patchmatchnet: the runner's bars,
+   cold (its warm run cut for time), then with --mvs_backend patchmatchnet: the runner's bars,
    an mvs_metrics group with a depth map for every registered view but
    one at most, a plane-sweep dense_points.ply with points, matcher
    launches (they join the kernels line); mvs_sec and its three parts;
@@ -186,7 +199,9 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    GTSFM_TPU_TRACE's directory a torch.profiler trace. Runs B-D on seeded
    checkpoints in the public layouts (write_correspondence_weights):
    skydio_front_end with LoFTR at its published widths, mast3r at its
-   published widths (ViT-L encoder, base decoders, long edge 512) and
+   published widths (ViT-L encoder, base decoders, long edge 512; both on
+   the first CORR_FRAMES views for time, mast3r at a lookahead of
+   CORR_MAST3R_LOOKAHEAD: 120 and 54 pairs) and
    deep_front_end with matcher.name=superglue; recorded, not held (seeded
    nets make no photo result): correspondences per pair, valid pairs,
    registered, AUC@5, the stage seconds, the generator's seconds, the
@@ -348,6 +363,20 @@ BA_COST_RATIO = 1e-2
 BA_LAYOUT_GAP = 0.05
 BA_LONG_TRACK = 200
 
+# the distributed phase: the runner as DIST_RANKS ranks of one
+# torch.distributed job on the one card (Gloo: NCCL refuses two ranks on one
+# device), mesh (2, 2); its two-view tables against the single-process
+# table on the same inputs (integers exact, floats within DIST_TABLE_TOL,
+# the reference's mesh tolerance); then ba_scene on DIST_BA_RANKS ranks,
+# mesh (2, 1), against the single-process scatter solve (DIST_BA_RTOL, the
+# reference's mesh tolerance) and bit-identical on repeat; then a 1-rank
+# NCCL world through the same BA
+DIST_RANKS = 4
+DIST_BA_RANKS = 2
+DIST_TIMEOUT = 600  # seconds a world of ranks may take
+DIST_TABLE_TOL = 1e-5
+DIST_BA_RTOL = 1e-4
+
 # the deep_front_end and megaloc_sift phases: the runner with the deep
 # configs on the runner phase's views and the seeded checkpoints of
 # write_deep_weights, once for each of DEEP_SEEDS (scene_optimizer.seed).
@@ -382,6 +411,13 @@ CORR_REFERENCE = "scripts/correspondence_reference.json"
 CORR_REFERENCE_NPZ = "scripts/correspondence_reference.npz"
 CORR_GT_POINTS = 4000
 CORR_HOLD_PAIRS = ((0, 1), (0, 2), (0, 3), (0, 4))
+# runs B and C on the first CORR_FRAMES views, C at a sequential retriever
+# lookahead of CORR_MAST3R_LOOKAHEAD, for the script's time: B 120 pairs
+# (475 on 32 views), C 54 (265 on 32 views at the config's 10); the first
+# four pairs of both are still CORR_HOLD_PAIRS (the retrievers return
+# sorted pairs)
+CORR_FRAMES = 16
+CORR_MAST3R_LOOKAHEAD = 4
 CORR_MATCH_SHARE = 0.99  # of the reference's matches identical, per generator
 # LoFTR's refined coordinates of the common matches: at the published
 # widths float32 order alone moves one of pair (0, 1)'s by 1.5e-3 px on the
@@ -1843,10 +1879,43 @@ def phase_kernel_runner():
     if err > KERNEL_TOL_BEST or bad:
         raise AssertionError(f"kernel disagrees on P64_K2048: max|best| err {err:.3g}, "
                              f"{bad}/{n_dec} decisive rows differ")
+    _check_split_entries(a, b, ma, mb)
     ms, bound = _time_matcher("P64_K2048", a, b, ma, mb)
     del a, b, d
     torch.cuda.empty_cache()
     return err, ms, bound
+
+
+def _check_split_entries(a, b, ma, mb) -> None:
+    """Kernel #1's split over two model ranks, in one process: the tile
+    kernel's own entry on each rank's whole 128-row tiles of desc1 (K1 =
+    2048 and K1 = 300, a partial last tile), the outputs concatenated in
+    rank order and the finish kernel's own entry on them; the matches must
+    equal the unsplit call's bit for bit, and the finish entry must equal
+    its plain version (mutual_nn.finish_tiles) on the same buffers."""
+    import torch
+
+    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import TILE, finish_tiles
+    from gtsfm_tpu_torch.parallel.sharding import shard_range
+
+    bb = b.to(torch.bfloat16).contiguous()
+    for K1 in (a.shape[1], 300):
+        ak, mk = a[:, :K1].to(torch.bfloat16).contiguous(), ma[:, :K1].contiguous()
+        cuts = [shard_range(K1, 2, i, TILE) for i in range(2)]
+        parts = [fused_matcher.launch_tiles(ak[:, lo:hi].contiguous(), bb, mk[:, lo:hi].contiguous(), mb, lo)
+                 for lo, hi in cuts]
+        bufs = [torch.cat([p[j] for p in parts], dim=1) for j in range(5)]
+        split = fused_matcher.launch_finish(*bufs, mk, 0.8)
+        whole = fused_matcher.fused_match_descriptors(a[:, :K1], b, ma[:, :K1], mb)
+        plain = finish_tiles(*bufs, mk, 0.8)
+        same = all(torch.equal(x, y) for x, y in zip(split, whole))
+        finish_same = all(torch.equal(x, y) for x, y in zip(split, plain))
+        print(f"kernel split entries K1={K1}: rows {cuts} through the tile entry, the finish entry on the "
+              f"gathered buffers: equal to the unsplit call {same}, to the plain finish {finish_same}, "
+              f"{int(split[1].sum())} matches", flush=True)
+        if not (same and finish_same):
+            raise AssertionError(f"kernel #1's split entries disagree at K1={K1}")
 
 
 def attention_agrees(got, want, v):
@@ -2557,16 +2626,16 @@ def phase_hierarchical(smi: str, n: int = HIER_CAMERAS):
 
 
 def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_auc5: float, smi: str,
-                 check_export=None) -> dict:
+                 check_export=None, runs: tuple = ("cold", "warm")) -> dict:
     """``gtsfm_tpu_torch.runner.main(argv + --output_root)``, in this
-    process, cold and then warm, with every launch count and
+    process, once per name in ``runs`` (cold and then warm), with every launch count and
     ``ba.layout_counts`` set to 0 just before each run and read just after.
     Each run requires DoG-SIFT on `cuda` and nowhere else, a matcher launch
     per chunk of RUNNER_PAIR_BATCH pairs at least, registered >=
     min_registered, AUC@5 >= min_auc5, finite poses, the metrics JSON of
     every group the run reports and a COLMAP export that reads back with
     every registered camera (``check_export(export dir, scene, layouts)``
-    checks more). Returns the launches and BA layouts of the warm run."""
+    checks more). Returns the launches and BA layouts of the last run."""
     import os
     import tempfile
 
@@ -2582,7 +2651,7 @@ def _runner_runs(name: str, argv: list, n_views: int, min_registered: int, min_a
 
     totals = {}
     with tempfile.TemporaryDirectory() as work:
-        for run in ("cold", "warm"):
+        for run in runs:
             out = os.path.join(work, run)
             dog_sift.calls_by_device.clear()
             ba.layout_counts.clear()
@@ -2664,6 +2733,323 @@ def phase_runner(smi: str, R, t, work: str) -> tuple:
                        len(order), RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
                        RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK, smi)
     return out["launches"], data_dir, len(order), out["totals"]["cold"]
+
+
+def _sha(*tensors) -> str:
+    """A digest of the tensors' bytes (bit-identity across processes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _table_gap(got, want) -> dict:
+    """Two TwoViewResults: whether every integer and bool field is equal,
+    and the largest float difference (NaN equal to NaN)."""
+    import torch
+
+    ints, gap = True, 0.0
+    for k in type(got).__dataclass_fields__:
+        a, b = getattr(got, k), getattr(want, k)
+        if a.dtype.is_floating_point:
+            both = torch.isnan(a) & torch.isnan(b)
+            d = torch.where(both, 0.0, (a - b).abs())
+            gap = max(gap, float(d.max()) if d.numel() else 0.0)
+        else:
+            ints &= bool(torch.equal(a, b))
+    return {"ints_equal": ints, "float_gap": gap}
+
+
+def _dist_runner_rank(rank: int, world: int, port: str, argv: list) -> tuple:
+    """``runner.main(argv + --distributed_*)`` as rank ``rank`` in this
+    process, with the matcher's counts, ``ba.layout_counts`` and the
+    DoG-SIFT device count set to 0 just before and read just after, the
+    two-view stage's inputs and table recorded (by wrapping
+    ``SceneOptimizer._run_two_view``) and the scene ``SceneOptimizer.run``
+    returned. Returns (the record, a function that recomputes the table on
+    the same inputs with the same SceneOptimizer without its mesh, the
+    single-process table, and adds the comparison to the record)."""
+    import torch
+
+    from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.bundle import ba
+    from gtsfm_tpu_torch.frontend.detectors import dog_sift
+    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizer
+
+    two_view, run = SceneOptimizer._run_two_view, SceneOptimizer.run
+    calls, scenes = [], []
+
+    def recorded_two_view(self, *args, **kwargs):
+        res = two_view(self, *args, **kwargs)
+        calls.append((self, args, kwargs, res))
+        return res
+
+    def recorded_run(self, loader):
+        out = run(self, loader)
+        scenes.append(out[0])
+        return out
+
+    dog_sift.calls_by_device.clear()
+    ba.layout_counts.clear()
+    fused_matcher.launch_count = fused_matcher.finish_launch_count = 0
+    SceneOptimizer._run_two_view, SceneOptimizer.run = recorded_two_view, recorded_run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = runner.main(argv + ["--distributed_coordinator", f"127.0.0.1:{port}", "--distributed_num_processes",
+                                 str(world), "--distributed_process_id", str(rank)])
+        torch.cuda.synchronize()
+    finally:
+        SceneOptimizer._run_two_view, SceneOptimizer.run = two_view, run
+    wall = time.perf_counter() - t0
+    rec = {"rc": rc, "wall": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "tiles": fused_matcher.launch_count, "finish": fused_matcher.finish_launch_count,
+           "layouts": dict(ba.layout_counts), "detector": dict(dog_sift.calls_by_device)}
+    so, args, kwargs, table = calls[0]
+    data = scenes[0]
+    rec["poses_sha"] = _sha(data.poses.R, data.poses.t, data.pose_mask, data.points)
+    rec["table_sha"] = _sha(*(getattr(table, k) for k in type(table).__dataclass_fields__))
+    rec["mesh"] = dict(so._mesh.shape)
+    rec["pairs"] = int(len(args[0]))
+
+    def hold_to_single():
+        so._mesh = None
+        t0 = time.perf_counter()
+        single = so._run_two_view_uncached(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["single_sec"] = time.perf_counter() - t0
+        rec.update(_table_gap(table, single))
+
+    return rec, hold_to_single
+
+
+def _dist_ba_rank(rank: int, world: int, port: str) -> dict:
+    """ba_scene on `cuda` through BundleAdjustment on the mesh of a
+    ``world``-rank job (runner.maybe_init_distributed: Gloo, the ranks
+    share the card), solved twice: each solve's seconds, costs, layouts and
+    digest of the result."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from gtsfm_tpu_torch import runner
+    from gtsfm_tpu_torch.bundle import ba
+    from gtsfm_tpu_torch.parallel.sharding import make_mesh
+
+    runner.maybe_init_distributed(types.SimpleNamespace(
+        distributed_coordinator=f"127.0.0.1:{port}", distributed_num_processes=world,
+        distributed_process_id=rank), device="cuda")
+    try:
+        mesh = make_mesh()
+        dev = torch.device("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        data = ba_sfm_data(ba_scene(), dev)
+        fixed = torch.arange(BA_CAMERAS, device=dev) < 2
+        solves = []
+        for _ in range(2):
+            ba.layout_counts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, m = ba.BundleAdjustment(ba.BAOptions(robust_huber_px=0.0), mesh=mesh).run(data, fixed_cam=fixed)
+            torch.cuda.synchronize()
+            solves.append({"sec": time.perf_counter() - t0, "initial_cost": m["initial_cost"],
+                           "final_cost": m["final_cost"], "layouts": dict(ba.layout_counts),
+                           "sha": _sha(out.poses.R, out.poses.t, out.points)})
+        return {"mesh": dict(mesh.shape), "solves": solves, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_worker(argv: list) -> int:
+    """One rank of the distributed phase, started by phase_distributed as
+    ``python -c "import chip_smoke, sys; sys.exit(chip_smoke.distributed_worker(sys.argv[1:]))"
+    RANK WORLD PORT BA_PORT RESULT RUNNER_ARGV...``: the runner as rank
+    RANK of WORLD (_dist_runner_rank, rendezvous on PORT); then ranks below
+    DIST_BA_RANKS join a second job on BA_PORT (_dist_ba_rank), in the same
+    process (no second start); then rank 0 recomputes its two-view table
+    unsharded. The record goes to the JSON file RESULT."""
+    rank, world, port, ba_port, result = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    t0 = time.perf_counter()
+    rec, hold_to_single = _dist_runner_rank(rank, world, port, argv[5:])
+    if rank < DIST_BA_RANKS:
+        rec["ba"] = _dist_ba_rank(rank, DIST_BA_RANKS, ba_port)
+    if rank == 0:
+        hold_to_single()
+    rec.update(rank=rank, process_sec=time.perf_counter() - t0)
+    with open(result, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_ranks(tag: str, world: int, work: str, argv: list) -> list:
+    """Start ``world`` distributed_worker processes (free localhost ports
+    for the two rendezvous; "{rank}" in ``argv`` becomes each rank's
+    number) from this file's directory, wait for
+    all of them at most DIST_TIMEOUT seconds, kill any still running, print
+    each rank's bring-up lines and fail if a rank failed. Returns the ranks'
+    records."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ports = [str(_free_port())]
+    while len(ports) < 2:
+        ports += [p for p in [str(_free_port())] if p != ports[0]]
+    code = "import chip_smoke, sys; sys.exit(chip_smoke.distributed_worker(sys.argv[1:]))"
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    results = [os.path.join(work, f"dist_rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), *ports, results[r],
+                               *(a.replace("{rank}", str(r)) for a in argv)],
+                              cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("distributed:"):
+                print(f"{tag} {line}", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: rank {r} exit code {p.returncode}:\n{out[-6000:]}")
+    recs = []
+    for path in results:
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def phase_distributed(smi: str, runner_dir: str, work: str) -> dict:
+    """The sharded path on the card, through the port's own --distributed_*
+    flags, in DIST_RANKS processes (distributed_worker):
+
+    - ``gtsfm_tpu_torch.runner.main`` with the unified config on the runner
+      phase's 32 views as DIST_RANKS ranks on the one card (Gloo, mesh (2,
+      2): two-view chunks over data, kernel #1's desc1 rows over model, BA's
+      measurements over data): rank 0's metrics 32/32 at AUC@5 >= the
+      runner phase's bar, kernel #1's tile and finish entries launched on
+      every rank, BA in scatter alone, every rank's scene and two-view
+      tables bit for bit the same, rank 0's table against the
+      single-process table on the same inputs (integers and masks equal,
+      floats within DIST_TABLE_TOL); ranks above 0 wrote nothing;
+    - then, in the first DIST_BA_RANKS of those processes, BA on ba_scene
+      (ba_layouts' 281 cameras x 20,000 points) as a second job, mesh (2,
+      1), solved twice: within DIST_BA_RTOL of the single-process scatter
+      solve (in this process), bit-identical on repeat and on both ranks;
+    - a 1-rank NCCL world in this process through the same BA (mesh (1,
+      1): NCCL's all_reduce on the card).
+
+    Prints the backend, each rank's wall time, peak memory and launches.
+    Returns the ranks' kernel #1 launches and the BA numbers."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from gtsfm_tpu_torch.bundle import ba
+    from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup
+    from gtsfm_tpu_torch.parallel.sharding import backend_for, make_mesh
+
+    outs = [os.path.join(work, f"dist_rank{r}") for r in range(DIST_RANKS)]
+    argv = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", runner_dir,
+            "--output_root", os.path.join(work, "dist_rank{rank}")]
+    t0 = time.perf_counter()
+    recs = _launch_ranks("distributed", DIST_RANKS, work, argv)
+    world_sec = time.perf_counter() - t0
+    mdir = os.path.join(outs[0], "results", "metrics")
+    metrics = {g.name: {m.name: m for m in g.metrics}
+               for g in (MetricsGroup.from_json(os.path.join(mdir, f)) for f in sorted(os.listdir(mdir)))}
+    pose = metrics["ba_pose_metrics"]
+    registered = len(pose["rotation_error_deg"].dist)
+    auc5 = pose["pose_auc_@5.0_deg"].scalar
+    chunks = -(-recs[0]["pairs"] // RUNNER_PAIR_BATCH)
+    for r in recs:
+        print(f"distributed runner rank {r['rank']}: mesh {r['mesh']}, main {r['wall']:.3f} s (the process "
+              f"{r['process_sec']:.3f} s), peak device memory {r['peak_gib']:.3f} GiB, kernel #1 tile launches "
+              f"{r['tiles']} and finish launches {r['finish']} for {r['pairs']} pairs, BA solves by layout "
+              f"{r['layouts']}, DoG-SIFT calls by device {r['detector']} | {smi}", flush=True)
+    r0 = recs[0]
+    print(f"distributed runner: rank 0's two-view table against the single-process table on the same inputs "
+          f"({r0['single_sec']:.3f} s): integers and masks equal {r0['ints_equal']}, floats at most "
+          f"{r0['float_gap']:.3g} apart (bar {DIST_TABLE_TOL})", flush=True)
+    bad = [r["rank"] for r in recs
+           if r["tiles"] < chunks or r["finish"] < chunks or set(r["layouts"]) != {"scatter"}
+           or set(r["detector"]) != {"cuda"} or r["mesh"] != {"data": DIST_RANKS // 2, "model": 2}]
+    same = len({(r["poses_sha"], r["table_sha"]) for r in recs}) == 1
+    wrote = [o for o in outs[1:] if os.path.exists(o)]
+    bar = RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK
+    print(f"distributed runner: {DIST_RANKS} ranks in {world_sec:.3f} s; rank 0 {registered}/{NUM_CAMERAS} "
+          f"registered, pose AUC@5 {auc5:.4f} (bar {bar:.4f}); scenes and tables bit-identical on every rank "
+          f"{same}; directories written by ranks 1-{DIST_RANKS - 1}: {wrote} | {smi}", flush=True)
+    if bad or not same or wrote or registered != NUM_CAMERAS or auc5 < bar or not r0["ints_equal"] \
+            or r0["float_gap"] > DIST_TABLE_TOL:
+        raise AssertionError(f"distributed runner: ranks {bad} failed a check, bit-identical {same}, written by "
+                             f"ranks > 0 {wrote}, registered {registered}, AUC@5 {auc5:.4f}, table {r0}")
+
+    dev = torch.device("cuda")
+    data = ba_sfm_data(ba_scene(), dev)
+    fixed = torch.arange(BA_CAMERAS, device=dev) < 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, m = ba.BundleAdjustment(ba.BAOptions(robust_huber_px=0.0, layout="scatter")).run(data, fixed_cam=fixed)
+    torch.cuda.synchronize()
+    single = {"sec": time.perf_counter() - t0, "final_cost": m["final_cost"],
+              "sha": _sha(out.poses.R, out.poses.t, out.points)}
+    ba_recs = [r["ba"] for r in recs[:DIST_BA_RANKS]]
+    for r, b in enumerate(ba_recs):
+        print(f"distributed ba rank {r}: mesh {b['mesh']}, solves "
+              + "; ".join(f"{s['sec']:.3f} s, cost {s['initial_cost']:.6g} -> {s['final_cost']:.9g}, layouts "
+                          f"{s['layouts']}" for s in b["solves"])
+              + f", peak device memory {b['peak_gib']:.3f} GiB | {smi}", flush=True)
+    solves = [s for b in ba_recs for s in b["solves"]]
+    gap = abs(solves[0]["final_cost"] / single["final_cost"] - 1.0)
+    repeat = len({s["sha"] for s in solves}) == 1
+    print(f"distributed ba: final cost {solves[0]['final_cost']:.9g} against the single-process scatter solve's "
+          f"{single['final_cost']:.9g} ({single['sec']:.3f} s): relative gap {gap:.3g} (bar {DIST_BA_RTOL}); "
+          f"bit-identical on repeat and across ranks {repeat}, to the single-process solve "
+          f"{solves[0]['sha'] == single['sha']}", flush=True)
+    if gap > DIST_BA_RTOL or not repeat or any(s["layouts"] != {"scatter": 1} for s in solves) \
+            or ba_recs[0]["mesh"] != {"data": DIST_BA_RANKS, "model": 1}:
+        raise AssertionError(f"distributed ba: gap {gap}, bit-identical {repeat}, solves {solves}")
+
+    backend = backend_for("cuda", 1, torch.cuda.device_count())
+    dist.init_process_group(backend=backend, init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        ba.layout_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, m = ba.BundleAdjustment(ba.BAOptions(robust_huber_px=0.0), mesh=mesh).run(data, fixed_cam=fixed)
+        torch.cuda.synchronize()
+        nccl = {"sec": time.perf_counter() - t0, "final_cost": m["final_cost"], "layouts": dict(ba.layout_counts),
+                "same_as_single": _sha(out.poses.R, out.poses.t, out.points) == single["sha"]}
+    finally:
+        dist.destroy_process_group()
+    print(f"distributed nccl: backend {backend}, mesh {mesh.shape}, BA {nccl['sec']:.3f} s, final cost "
+          f"{nccl['final_cost']:.9g}, layouts {nccl['layouts']}, bit-identical to the single-process scatter solve "
+          f"{nccl['same_as_single']} | {smi}", flush=True)
+    if backend != "nccl" or abs(nccl["final_cost"] / single["final_cost"] - 1.0) > DIST_BA_RTOL \
+            or nccl["layouts"] != {"scatter": 1}:
+        raise AssertionError(f"distributed nccl: backend {backend}, {nccl}")
+    return {"tiles": [r["tiles"] for r in recs], "finish": [r["finish"] for r in recs],
+            "ba_sec": [s["sec"] for s in solves], "ba_gap": gap, "nccl": nccl}
 
 
 def write_gt_colmap(data_dir: str, out_dir: str) -> None:
@@ -2863,10 +3249,10 @@ def phase_runner_options(smi: str, data_dir: str, n_views: int) -> dict:
     with RUNNER_OPTIONS (the homography and indeterminacy checks, LMedS
     scoring, top-K-baseline triangulation, one cycle-filter pass, uniform
     rotation weights, measurement-seeded MFAS directions) through
-    _runner_runs, cold and warm: registered >= the JAX reference's - 1,
-    AUC@5 >= its - 0.02 (scripts/runner_options_reference.py), and both
-    checks on in the two-view batch; prints how many pairs each check
-    rejected in each run.
+    _runner_runs, cold only (the warm run cut for the script's time):
+    registered >= the JAX reference's - 1, AUC@5 >= its - 0.02
+    (scripts/runner_options_reference.py), and both checks on in the
+    two-view batch; prints how many pairs each check rejected.
 
     Then the card against the CPU on the two-view batch alone: the first
     OPTIONS_CHECK_PAIRS pairs of the cold run's first chunk (its inputs
@@ -2877,7 +3263,7 @@ def phase_runner_options(smi: str, data_dir: str, n_views: int) -> dict:
     on every pair whose inlier ratio, H/F ratio and eigenvalue ratio lie
     more than OPTIONS_CHECK_MARGIN (relative) from their thresholds on both
     devices and whose inlier count is not within one of its bar. Returns the
-    launches of the warm run."""
+    launches of the run."""
     import torch
 
     from gtsfm_tpu_torch.frontend import two_view
@@ -2910,7 +3296,7 @@ def phase_runner_options(smi: str, data_dir: str, n_views: int) -> dict:
         out = _runner_runs("runner_options", ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath",
                                               data_dir] + RUNNER_OPTIONS,
                            n_views, RUNNER_OPTIONS_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
-                           RUNNER_OPTIONS_REF_AUC5 - RUNNER_AUC5_SLACK, smi, check_export)
+                           RUNNER_OPTIONS_REF_AUC5 - RUNNER_AUC5_SLACK, smi, check_export, runs=("cold",))
     finally:
         scene_optimizer.run_two_view_batch = run_two_view
 
@@ -2970,14 +3356,14 @@ def colmap_opencv_views(R, t, dev) -> tuple:
 def phase_colmap_runner(smi: str, R, t) -> dict:
     """The runner with ``--loader colmap`` on `cuda`: colmap_opencv_views
     written as a COLMAP folder (one OPENCV camera, GT poses), then
-    _runner_runs with the unified config, cold and warm: DoG-SIFT on the
-    distorted images, the matcher kernel, two-view estimation through
-    Cal3DS2, MVO, whose dense BA falls back to the entry layout for
-    Cal3DS2, and the COLMAP export. Each run requires at least one BA solve
-    in the entry layout and none in dense, registered >= the JAX
-    reference's - 1, AUC@5 >= its - 0.02, and cameras.txt written as
-    OPENCV with the distortion within OPENCV_EXPORT_TOL of the truth.
-    Returns the launches of the warm run."""
+    _runner_runs with the unified config, cold only (the warm run cut for
+    the script's time): DoG-SIFT on the distorted images, the matcher
+    kernel, two-view estimation through Cal3DS2, MVO, whose dense BA falls
+    back to the entry layout for Cal3DS2, and the COLMAP export. The run
+    requires at least one BA solve in the entry layout and none in dense,
+    registered >= the JAX reference's - 1, AUC@5 >= its - 0.02, and
+    cameras.txt written as OPENCV with the distortion within
+    OPENCV_EXPORT_TOL of the truth. Returns the launches of the run."""
     import os
     import tempfile
 
@@ -3007,7 +3393,7 @@ def phase_colmap_runner(smi: str, R, t) -> dict:
         out = _runner_runs("colmap_runner",
                            ["--config_name", "unified", "--loader", "colmap", "--dataset_dirpath", data_dir],
                            len(views), COLMAP_REF_REGISTERED - RUNNER_REGISTERED_SLACK,
-                           COLMAP_REF_AUC5 - RUNNER_AUC5_SLACK, smi, check_export)
+                           COLMAP_REF_AUC5 - RUNNER_AUC5_SLACK, smi, check_export, runs=("cold",))
     return out["launches"]
 
 
@@ -3193,7 +3579,8 @@ def _print_run(tag: str, res: dict, bars, smi: str) -> None:
     the run to them."""
     kps = res["metrics"]["frontend_summary"]["num_keypoints_per_image"].dist
     bar = f" (bars {bars[0]}, {bars[1]:.4f})" if bars else ""
-    print(f"{tag}: {res['registered']}/{NUM_CAMERAS} registered, pose AUC@5 {res['auc5']:.4f}{bar}, "
+    views = int(res["metrics"]["frontend_summary"]["num_input_images"].scalar)
+    print(f"{tag}: {res['registered']}/{views} registered, pose AUC@5 {res['auc5']:.4f}{bar}, "
           f"{res['pairs']} pairs ({res['valid']} valid), keypoints per image median "
           f"{float(np.median(kps)):.0f} min {int(np.min(kps))} max {int(np.max(kps))}, launches {res['launches']}, "
           f"DoG-SIFT calls by device {res['detector']}, peak device memory {res['peak_gib']:.2f} GiB", flush=True)
@@ -4190,14 +4577,15 @@ def _mvs_big_view(smi: str, views: np.ndarray, data, src, ranges) -> dict:
 
 def phase_mvs_runner(smi: str, runner_dir: str, work: str) -> dict:
     """``gtsfm_tpu_torch.runner.main`` with --run_mvs on the runner phase's
-    32 rendered views, cold and warm (the plane sweep), then once with
+    32 rendered views, cold (the plane sweep; its warm run cut for the
+    script's time), then once with
     --mvs_backend patchmatchnet on pmnet_fixture, through _runner_once:
     each run holds the runner phase's bars, DoG-SIFT on `cuda`, a matcher
     launch per RUNNER_PAIR_BATCH pairs, an mvs_metrics group with a depth
     map for every registered view but one at most, and for the plane sweep
     a dense_points.ply that reads back with points; prints mvs_sec and its
     three parts and the peak device memory. Returns the matcher launches
-    of the three runs."""
+    of the two runs."""
     import os
 
     from gtsfm_tpu_torch.io.ply import read_ply
@@ -4207,7 +4595,7 @@ def phase_mvs_runner(smi: str, runner_dir: str, work: str) -> dict:
     base = ["--config_name", "unified", "--loader", "olsson", "--dataset_dirpath", runner_dir, "--run_mvs"]
     bars = (RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK, RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK)
     out = {"launches": 0, "runs": {}}
-    for tag, argv in (("plane_sweep cold", base), ("plane_sweep warm", base),
+    for tag, argv in (("plane_sweep cold", base),
                       ("patchmatchnet", base + ["--mvs_backend", "patchmatchnet", "--mvs_weights_path", path])):
         dest = os.path.join(work, "mvs_runner_" + tag.replace(" ", "_"))
         res = _runner_once(f"mvs_runner {tag}", argv, dest)
@@ -4343,8 +4731,11 @@ def phase_correspondence(smi: str, runner_dir: str, R, t, work: str) -> dict:
     runs = {
         "A colmap_front_end": ["--config_name", "colmap_front_end", f"correspondence.colmap_dir={colmap_dir}",
                                f"scene_optimizer.telemetry_db={os.path.join(work, 'telemetry.sqlite')}"],
-        "B skydio_front_end": ["--config_name", "skydio_front_end", f"correspondence.weights_path={weights['loftr']}"],
-        "C mast3r": ["--config_name", "mast3r", f"correspondence.weights_path={weights['mast3r']}"],
+        "B skydio_front_end": ["--config_name", "skydio_front_end", "--max_frames", str(CORR_FRAMES),
+                               f"correspondence.weights_path={weights['loftr']}"],
+        "C mast3r": ["--config_name", "mast3r", "--max_frames", str(CORR_FRAMES),
+                     f"correspondence.weights_path={weights['mast3r']}",
+                     f"retriever.max_frame_lookahead={CORR_MAST3R_LOOKAHEAD}"],
         "D deep_front_end superglue": ["--config_name", "deep_front_end", "matcher.name=superglue",
                                        f"matcher.weights_path={weights['superglue']}",
                                        f"detector.weights_path={weights['superpoint']}"],
@@ -4537,6 +4928,7 @@ def main() -> int:
     timed("ba_layouts", phase_ba_layouts, smi)
     with tempfile.TemporaryDirectory() as work:
         runner_launches, runner_dir, runner_views, runner_cold = timed("runner", phase_runner, smi, R, t, work)
+        distributed = timed("distributed", phase_distributed, smi, runner_dir, work)
         options_launches = timed("runner_options", phase_runner_options, smi, runner_dir, runner_views)
         colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
         comp_launches = timed("splat", phase_splat, R, t)
@@ -4562,8 +4954,10 @@ def main() -> int:
         "shape": "P64_K2048_D128",
         "launches": runner_launches["matcher"] + options_launches["matcher"] + colmap_launches["matcher"]
         + sum(r["launches"]["matcher"] for r in megaloc["runs"]) + mvs_launches + corr["launches"]
-        + outputs["matcher"],
+        + outputs["matcher"] + sum(distributed["tiles"]),
         "runner_launches": runner_launches["matcher"],
+        "distributed_tile_launches": distributed["tiles"],
+        "distributed_finish_launches": distributed["finish"],
         "runner_outputs_launches": {tag: r["matcher"] for tag, r in outputs["runs"].items()},
         "runner_options_launches": options_launches["matcher"],
         "colmap_runner_launches": colmap_launches["matcher"],

@@ -28,6 +28,16 @@ without closed-form Jacobians and for a track longer than the dense cap
 (128), as the reference does; ``run_compact`` leaves ``dense`` above 1024
 live cameras, or above 96 on the CPU. ``layout_counts`` counts the layout
 each solve actually ran.
+
+``BundleAdjustment(options, mesh)`` on a (data, model) mesh of ranks
+(parallel/sharding.py) pads the measurements to a multiple of ``data`` with
+rows of weight 0, keeps this rank's consecutive share of them, cameras and
+points whole, and runs ``scatter`` whatever ``options.layout`` says, as the
+reference does: every measurement -> camera or track sum (the normal
+equations' blocks, each PCG product, the back-substitution) and the cost's
+measurement sum are ``all_reduce``d over ``data``, so every rank takes the
+same step. There is no float atomic anywhere: a fixed world gives
+bit-identical repeat runs.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 
 from gtsfm_tpu_torch.common.sfm_data import SfmData
 from gtsfm_tpu_torch.geometry import SE3, PinholeCamera, so3
+from gtsfm_tpu_torch.parallel.sharding import ReducedSum, all_reduce_sum, shard_ba_problem
 from gtsfm_tpu_torch.utils.numerics import SegmentSum, TensorStruct, jacobian_fwd_stacked, precise, where_struct
 
 # solves per layout actually run (after the fallbacks), like
@@ -723,11 +734,15 @@ def _extras_cost(prob: BAProblem, opts: BAOptions, extras) -> torch.Tensor:
     return c
 
 
-def _cost(prob: BAProblem, opts: BAOptions, extras=None, priors=(True, True)) -> torch.Tensor:
+def _cost(prob: BAProblem, opts: BAOptions, extras=None, priors=(True, True), mesh=None) -> torch.Tensor:
+    """With ``mesh`` the measurement sum is over every rank's shard."""
     r, depth = _residuals(prob)
     nrm = torch.linalg.vector_norm(r, dim=-1)
     base = prob.meas_w * (depth > 1e-6)
-    c = torch.sum(base * _robust_rho(nrm, opts)) / (opts.measurement_sigma_px**2) + _prior_cost(prob, priors)
+    meas = torch.sum(base * _robust_rho(nrm, opts)) / (opts.measurement_sigma_px**2)
+    if mesh is not None:
+        meas = all_reduce_sum(mesh, "data", meas.reshape(1))[0]
+    c = meas + _prior_cost(prob, priors)
     return c if extras is None else c + _extras_cost(prob, opts, extras)
 
 
@@ -751,9 +766,11 @@ class _Index(NamedTuple):
     rel_pair_sum: SegmentSum | None  # (a, b) then (b, a) -> camera pairs (dense)
 
 
-def _optimize(prob: BAProblem, opts: BAOptions):
+def _optimize(prob: BAProblem, opts: BAOptions, mesh=None):
     """Fixed-count LM in ``opts.layout``; returns (problem, initial cost,
-    final cost, cost history) with every cost still on the device."""
+    final cost, cost history) with every cost still on the device. With
+    ``mesh`` (layout ``scatter``) ``prob`` holds this rank's measurement
+    shard, and every measurement sum runs over all the shards."""
     n_cam = prob.fixed_cam.shape[0]
     n_track = prob.points.shape[0]
     dev = prob.points.device
@@ -764,10 +781,12 @@ def _optimize(prob: BAProblem, opts: BAOptions):
     priors = (bool((prob.rel_weight != 0).any()), bool((prob.prior_weight != 0).any()))
     a_idx, b_idx = prob.rel_edges[:, 0], prob.rel_edges[:, 1]
     ends = torch.cat([a_idx, b_idx])
+    cam_sum = None if dense else SegmentSum((n_cam,), prob.meas_cam)
+    trk_sum = SegmentSum((n_track,), prob.meas_track)
+    if mesh is not None:
+        cam_sum, trk_sum = ReducedSum(cam_sum, mesh), ReducedSum(trk_sum, mesh)
     ix = _Index(
-        meas_cam=prob.meas_cam, meas_track=prob.meas_track,
-        cam_sum=None if dense else SegmentSum((n_cam,), prob.meas_cam),
-        trk_sum=SegmentSum((n_track,), prob.meas_track),
+        meas_cam=prob.meas_cam, meas_track=prob.meas_track, cam_sum=cam_sum, trk_sum=trk_sum,
         rel_sum=SegmentSum((n_cam,), ends) if priors[0] else None,
         rel_pair_sum=SegmentSum((n_cam, n_cam), ends, torch.cat([b_idx, a_idx])) if dense and priors[0] else None,
     )
@@ -803,7 +822,7 @@ def _optimize(prob: BAProblem, opts: BAOptions):
         base_e = prob.meas_w.reshape(n_track, L).T
         cost0 = _cost_dense(prob, opts, extras, L, priors)
     else:
-        cost0 = _cost(prob, opts, extras, priors)
+        cost0 = _cost(prob, opts, extras, priors, mesh)
     cost = cost0
     lam = torch.tensor(opts.init_lambda, dtype=torch.float32, device=dev)
     hist = []
@@ -826,7 +845,7 @@ def _optimize(prob: BAProblem, opts: BAOptions):
                 J_c, J_p, r, w, ix, prob.fixed_cam, lam, opts.cg_iterations, prior_terms=prior_terms,
                 shared_cal_dims=shared_dc, point_prior=point_prior, karcher=karcher)
         cand = _apply_step(prob, delta_c, delta_p, opts)
-        new_cost = _cost_dense(cand, opts, extras, L, priors) if dense else _cost(cand, opts, extras, priors)
+        new_cost = _cost_dense(cand, opts, extras, L, priors) if dense else _cost(cand, opts, extras, priors, mesh)
         accept = new_cost < cost
         prob = where_struct(accept, cand, prob)
         lam = torch.clamp(torch.where(accept, lam * opts.lambda_down, lam * opts.lambda_up),
@@ -840,8 +859,12 @@ class BundleAdjustment:
     """BA over SfmData; ``run_staged`` is the [10, 5, 3] px optimize +
     filter schedule."""
 
-    def __init__(self, options: BAOptions = BAOptions()):
+    def __init__(self, options: BAOptions = BAOptions(), mesh=None):
+        """mesh: a parallel.sharding.Mesh, or None: with it, the solve's
+        measurements shard over its ``data`` axis (the module's docstring)
+        and every rank of the mesh must make the same calls."""
         self.options = options
+        self.mesh = mesh
 
     def run(self, data: SfmData, fixed_cam=None, **prior_kwargs) -> tuple:
         """-> (optimized SfmData, metrics). prior_kwargs go to
@@ -851,7 +874,11 @@ class BundleAdjustment:
         with precise():
             prob = problem_from_sfm_data(data, fixed_cam=fixed_cam, **prior_kwargs)
             opts_run = opts
-            if opts.layout == "dense":
+            if self.mesh is not None:
+                # a measurement shard per rank: the segment-sum layout
+                opts_run = opts._replace(layout="scatter")
+                prob = shard_ba_problem(self.mesh, prob)
+            elif opts.layout == "dense":
                 if type(prob.cal).__name__ not in _DENSE_CALS:
                     opts_run = opts._replace(layout="entry")  # no closed-form linearization
                 else:
@@ -861,7 +888,7 @@ class BundleAdjustment:
                     except ValueError:
                         opts_run = opts._replace(layout="entry")  # a track past the dense cap
             layout_counts[opts_run.layout] += 1
-            prob_f, cost0, cost_f, hist = _optimize(prob, opts_run)
+            prob_f, cost0, cost_f, hist = _optimize(prob, opts_run, self.mesh)
         out = problem_to_sfm_data(prob_f, data)
         costs = torch.stack([cost0, cost_f] + hist).cpu().numpy()
         metrics = {
@@ -941,9 +968,9 @@ class BundleAdjustment:
         solver = self
         if self.options.layout == "dense":
             if dev.type == "cpu" and len(act_idx) > 96:
-                solver = BundleAdjustment(self.options._replace(layout="scatter"))
+                solver = BundleAdjustment(self.options._replace(layout="scatter"), mesh=self.mesh)
             elif len(act_idx) > 1024:
-                solver = BundleAdjustment(self.options._replace(layout="entry"))
+                solver = BundleAdjustment(self.options._replace(layout="entry"), mesh=self.mesh)
         out_l, metrics = solver.run(local, fixed_cam=None if fixed_cam is None else fixed_cam[ai], **prior_kwargs)
         # the solve changes poses, calibrations and points, and a GNC filter
         # the masks; each live row goes back to its one slot (no accumulation)

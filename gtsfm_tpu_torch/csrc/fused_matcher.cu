@@ -12,7 +12,10 @@
 //   (P, ceil(K1 / 128), K2) buffer;
 // then, in a second kernel launched by the same call, the column buffer's
 // argmax across row tiles (the first on ties), the mutual check and the
-// ratio test (fused_matcher._finish is its plain version).
+// ratio test (fused_matcher._finish is its plain version). Each kernel
+// also has a C entry of its own, for a split of desc1's rows over ranks
+// (parallel/sharding.py): the tile kernel on each rank's rows, the finish
+// kernel on the gathered buffers.
 //
 // What bounds it on an H100: at the two-view shape (P = 96, K = 1024,
 // D = 128) the products are 25.8 GFLOP of bf16 (0.026 ms at 989 TFLOP/s)
@@ -88,6 +91,7 @@ struct MatcherArgs {
   const uint8_t* m1;
   const uint8_t* m2;
   int K1, K2, D, Dpad;
+  int row0;  // desc1's first row in the whole desc1: added to colidx
   float* best;
   float* second;
   int* bidx;
@@ -255,7 +259,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) fused_matcher_kernel(const Matche
           br = r[w * BN];
         }
       args.colbest[colBase + c] = bv;
-      args.colidx[colBase + c] = r0 + br;
+      args.colidx[colBase + c] = args.row0 + r0 + br;
     }
   };
 
@@ -446,27 +450,69 @@ static int launch(const MatcherArgs& a, int P, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+static int launch_tiles(const MatcherArgs& a, int P, cudaStream_t s) {
+  return a.D <= 16 ? launch<1>(a, P, s)
+         : a.D <= 32 ? launch<2>(a, P, s)
+         : a.D <= 64 ? launch<4>(a, P, s)
+         : a.D <= 128 ? launch<8>(a, P, s)
+                      : launch<0>(a, P, s);
+}
+
+static int launch_finish(const float* best, const float* second, const int* bidx,
+                         const float* colbest, const int* colidx, const uint8_t* m1, int P,
+                         int K1, int K2, float ratio2, int* match_idx, uint8_t* match_ok,
+                         cudaStream_t s) {
+  const dim3 grid((K1 + FINISH_THREADS - 1) / FINISH_THREADS, P);
+  fused_matcher_finish<<<grid, FINISH_THREADS, 0, s>>>(best, second, bidx, colbest, colidx, m1, K1,
+                                                        K2, (K1 + ROWS - 1) / ROWS, ratio2,
+                                                        match_idx, match_ok);
+  return (int)cudaGetLastError();
+}
+
+static bool bad_sizes(int P, int K1, int K2, int D) {
+  return P <= 0 || P > 65535 || K1 <= 0 || K2 <= 0 || D <= 0 || (D % 8) != 0 || D > MAX_D;
+}
+
 // Launches the tile kernel and then the finish kernel on one stream.
 // ratio2 is the ratio test's ratio squared, rounded to float32.
 extern "C" int gtsfm_fused_matcher(const void* d1, const void* d2, const void* m1, const void* m2,
                                    int P, int K1, int K2, int D, float ratio2, void* best,
                                    void* second, void* bidx, void* colbest, void* colidx,
                                    void* match_idx, void* match_ok, void* stream) {
-  if (P <= 0 || P > 65535 || K1 <= 0 || K2 <= 0 || D <= 0 || (D % 8) != 0 || D > MAX_D)
-    return (int)cudaErrorInvalidValue;
+  if (bad_sizes(P, K1, K2, D)) return (int)cudaErrorInvalidValue;
   const MatcherArgs a{(const __nv_bfloat16*)d1, (const __nv_bfloat16*)d2, (const uint8_t*)m1,
-                      (const uint8_t*)m2, K1, K2, D, (D + 15) & ~15, (float*)best,
+                      (const uint8_t*)m2, K1, K2, D, (D + 15) & ~15, 0, (float*)best,
                       (float*)second, (int*)bidx, (float*)colbest, (int*)colidx};
   const cudaStream_t s = (cudaStream_t)stream;
-  const int rc = D <= 16 ? launch<1>(a, P, s)
-                 : D <= 32 ? launch<2>(a, P, s)
-                 : D <= 64 ? launch<4>(a, P, s)
-                 : D <= 128 ? launch<8>(a, P, s)
-                            : launch<0>(a, P, s);
+  const int rc = launch_tiles(a, P, s);
   if (rc != 0) return rc;
-  const dim3 grid((K1 + FINISH_THREADS - 1) / FINISH_THREADS, P);
-  fused_matcher_finish<<<grid, FINISH_THREADS, 0, s>>>(
-      a.best, a.second, a.bidx, a.colbest, a.colidx, a.m1, K1, K2, (K1 + ROWS - 1) / ROWS, ratio2,
-      (int*)match_idx, (uint8_t*)match_ok);
-  return (int)cudaGetLastError();
+  return launch_finish(a.best, a.second, a.bidx, a.colbest, a.colidx, a.m1, P, K1, K2, ratio2,
+                       (int*)match_idx, (uint8_t*)match_ok, s);
+}
+
+// The tile kernel alone, for a split of desc1's rows over ranks: d1 and m1
+// hold the K1 rows row0 .. row0 + K1 of the whole desc1 (row0 a multiple
+// of ROWS, so the column buffer's row tiles are those of the whole), and
+// colidx gets global rows.
+extern "C" int gtsfm_fused_matcher_tiles(const void* d1, const void* d2, const void* m1,
+                                         const void* m2, int P, int K1, int K2, int D, int row0,
+                                         void* best, void* second, void* bidx, void* colbest,
+                                         void* colidx, void* stream) {
+  if (bad_sizes(P, K1, K2, D) || row0 < 0 || row0 % ROWS != 0) return (int)cudaErrorInvalidValue;
+  const MatcherArgs a{(const __nv_bfloat16*)d1, (const __nv_bfloat16*)d2, (const uint8_t*)m1,
+                      (const uint8_t*)m2, K1, K2, D, (D + 15) & ~15, row0, (float*)best,
+                      (float*)second, (int*)bidx, (float*)colbest, (int*)colidx};
+  return launch_tiles(a, P, (cudaStream_t)stream);
+}
+
+// The finish kernel alone, on the tile outputs of all K1 rows (gathered
+// from the ranks of a split): the column buffer holds ceil(K1 / ROWS) tiles.
+extern "C" int gtsfm_fused_matcher_finish(const void* best, const void* second, const void* bidx,
+                                          const void* colbest, const void* colidx, const void* m1,
+                                          int P, int K1, int K2, float ratio2, void* match_idx,
+                                          void* match_ok, void* stream) {
+  if (P <= 0 || P > 65535 || K1 <= 0 || K2 <= 0) return (int)cudaErrorInvalidValue;
+  return launch_finish((const float*)best, (const float*)second, (const int*)bidx,
+                       (const float*)colbest, (const int*)colidx, (const uint8_t*)m1, P, K1, K2,
+                       ratio2, (int*)match_idx, (uint8_t*)match_ok, (cudaStream_t)stream);
 }

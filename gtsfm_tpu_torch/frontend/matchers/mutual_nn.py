@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 NEG = -1e9
+TILE = 128  # desc1 rows per tile: the CUDA kernel's block height
 
 
 def match_descriptors(
@@ -32,23 +33,58 @@ def match_descriptors(
     The descriptors are rounded to bf16 and their products summed in
     float32, the reference's bf16 similarity with f32 accumulation. TF32
     must be off (``numerics.precise``) for that sum to be float32 on the
-    card.
+    card. It is ``finish_tiles`` of ``tile_outputs``: the kernel's two
+    steps, so that a split of desc1's rows (``tile_outputs`` on each part,
+    the parts concatenated) gives the same matches bit for bit.
     """
+    return finish_tiles(*tile_outputs(desc1, desc2, mask1, mask2), mask1, ratio)
+
+
+def tile_outputs(desc1: torch.Tensor, desc2: torch.Tensor, mask1: torch.Tensor, mask2: torch.Tensor,
+                row0: int = 0) -> tuple:
+    """The tile kernel's outputs, plain: desc1 (..., K1, D) holds the rows
+    row0 .. row0 + K1 of a larger desc1 (row0 a multiple of TILE), desc2
+    (..., K2, D) all of desc2. Returns (best, second, bidx (..., K1): each
+    row's best similarity, its second best (over every column but the
+    first-index argmax one) and that argmax; colbest, colidx (...,
+    ceil(K1 / TILE), K2): each column's best over each TILE-row tile and
+    the lowest (global) row that holds it). The similarity is taken one
+    TILE-row tile at a time, so a row's values do not depend on how the
+    rows were split. Rows past K1 count as masked."""
+    if row0 % TILE:
+        raise ValueError(f"row0={row0} is not a multiple of {TILE}")
     a = desc1.to(torch.bfloat16).to(torch.float32)
-    b = desc2.to(torch.bfloat16).to(torch.float32)
-    sim = torch.matmul(a, b.transpose(-1, -2))
+    bt = desc2.to(torch.bfloat16).to(torch.float32).transpose(-1, -2)
+    K1, K2 = desc1.shape[-2], desc2.shape[-2]
+    sim = torch.cat([torch.matmul(a[..., r : r + TILE, :], bt) for r in range(0, K1, TILE)], dim=-2)
     neg = torch.full((), NEG, dtype=sim.dtype, device=sim.device)
     sim = torch.where(mask1[..., :, None] & mask2[..., None, :], sim, neg)
 
-    nn12 = torch.argmax(sim, dim=-1)  # first index of the max
-    nn21 = torch.argmax(sim, dim=-2)
-    K1 = desc1.shape[-2]
-    mutual = torch.arange(K1, device=sim.device) == torch.gather(nn21, -1, nn12)
-
+    bidx = torch.argmax(sim, dim=-1)  # first index of the max
     best = torch.amax(sim, dim=-1)
-    second = torch.amax(sim.scatter(-1, nn12[..., None], NEG), dim=-1)
+    second = torch.amax(sim.scatter(-1, bidx[..., None], NEG), dim=-1)
+    n_rt = -(-K1 // TILE)
+    pad = sim.new_full(sim.shape[:-2] + (n_rt * TILE - K1, K2), NEG)
+    tiles = torch.cat([sim, pad], dim=-2).reshape(sim.shape[:-2] + (n_rt, TILE, K2))
+    colbest = torch.amax(tiles, dim=-2)
+    rows = row0 + TILE * torch.arange(n_rt, device=sim.device)[:, None]
+    colidx = torch.argmax(tiles, dim=-2) + rows  # the lowest row of the max
+    return best, second, bidx.to(torch.int32), colbest, colidx.to(torch.int32)
+
+
+def finish_tiles(best, second, bidx, colbest, colidx, mask1, ratio):
+    """Cross-tile column argmax (first tile on ties, i.e. the lowest row),
+    mutual check and ratio test on ``tile_outputs``' outputs for all of
+    desc1's rows — the part the reference leaves to XLA after its kernel.
+    The plain version of the finish kernel in csrc/fused_matcher.cu, which
+    must agree with it exactly."""
+    K1 = best.shape[-1]
+    blk = torch.argmax(colbest, dim=-2, keepdim=True)  # (..., 1, K2)
+    nn21 = torch.gather(colidx, -2, blk).squeeze(-2).to(torch.int64)  # (..., K2)
+    nn12 = bidx.to(torch.int64)
+    mutual = torch.gather(nn21, -1, nn12) == torch.arange(K1, device=best.device)
+    ok = mask1 & mutual & (best > -1e8)
     d2_best = torch.clamp(2.0 - 2.0 * best, min=0.0)
     d2_second = torch.clamp(2.0 - 2.0 * second, min=1e-12)
-    ok = mask1 & mutual & (best > -1e8) & (d2_best < (ratio**2) * d2_second)
-    match_idx = torch.where(ok, nn12, -1).to(torch.int32)
-    return match_idx, ok, best
+    ok = ok & (d2_best < (ratio**2) * d2_second)
+    return torch.where(ok, nn12, -1).to(torch.int32), ok, best

@@ -122,12 +122,14 @@ def run_two_view_batch(
     match_idx: torch.Tensor | None = None,  # i32 (P, K) precomputed matches
     match_mask: torch.Tensor | None = None,  # bool (P, K)
     match_score: torch.Tensor | None = None,  # f32 (P, K)
+    mesh=None,  # parallel.sharding.Mesh: the matcher splits desc1's rows over "model"
 ) -> TwoViewResult:
     """When (match_idx, match_mask, match_score) are given, as a learned
     matcher produces them, verification runs on them and the mutual-NN
     matching is skipped; the scores weight RANSAC's sampling as the
     descriptor similarities otherwise do. Draws not passed in come from
-    ``draw_samples``."""
+    ``draw_samples``. With ``mesh``, every rank of this rank's model group
+    makes the same call (fused_matcher's row split)."""
     with precise():
         P, K, _ = kp_xy1.shape
         dev = kp_xy1.device
@@ -137,7 +139,7 @@ def run_two_view_batch(
             midx, mmask, mscore = match_idx, match_mask, match_score
         else:
             midx, mmask, mscore = fused_match_descriptors(
-                desc1, desc2, kp_mask1, kp_mask2, ratio=opts.matching_ratio
+                desc1, desc2, kp_mask1, kp_mask2, ratio=opts.matching_ratio, mesh=mesh
             )
         corr_i1 = torch.arange(K, dtype=torch.int32, device=dev).expand(P, K)
         corr_i2 = torch.where(mmask, midx, 0)

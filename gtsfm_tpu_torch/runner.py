@@ -37,8 +37,18 @@ cluster stages; the default root is ``~/.cache/gtsfm_tpu_torch``),
 the run, ``utils/prewarm.py``), ``--gs_video_frames`` (the splats'
 fly-through) and ``--compare_to`` (the exported reconstruction against a
 COLMAP directory, written to ``<output_root>/results/comparison/``).
-Multi-GPU runs are out of scope: the ``--distributed_*`` flags raise
-``NotImplementedError`` naming ROADMAP queue 1 item 10 before any work.
+
+``--distributed_coordinator host:port --distributed_num_processes N
+--distributed_process_id I`` runs the process as rank I of an N-rank
+``torch.distributed`` job (``maybe_init_distributed``, before any work):
+every rank runs the same command with its own id, the ranks form a (data,
+model) mesh (parallel/sharding.py) over which the two-view chunks, the
+matcher's desc1 rows and BA's measurements are sharded, and every rank
+computes the same reconstruction; only rank 0 writes the run's files (the
+results under ``--output_root``, the telemetry database, ``--compare_to``'s
+tables and ``--bal``'s export). Caches are read and written by every rank:
+give each rank its own ``--cache_root``. Rank 0's coordinator address is
+the ``tcp://`` rendezvous.
 """
 
 from __future__ import annotations
@@ -82,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_chunk_size", type=int, default=None,
                    help="load and detect N images at a time (bounds host memory)")
     p.add_argument("--distributed_coordinator", default=None,
-                   help="host:port of process 0 (multi-GPU runs: not ported)")
+                   help="host:port of process 0 (enables torch.distributed)")
     p.add_argument("--distributed_num_processes", type=int, default=None)
     p.add_argument("--distributed_process_id", type=int, default=None)
     p.add_argument("--prewarm", action="store_true",
@@ -91,13 +101,43 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for the multi-GPU flags: multi-GPU runs are
-    out of scope (ROADMAP queue 1 item 10, ``parallel/sharding.py``)."""
-    if args.distributed_coordinator or args.distributed_num_processes is not None \
-            or args.distributed_process_id is not None:
-        raise NotImplementedError("--distributed_*: multi-GPU runs are not ported "
-                                  "(ROADMAP queue 1 item 10, parallel/sharding.py)")
+def maybe_init_distributed(args, device: str = "cuda") -> bool:
+    """Join the ``torch.distributed`` job that the ``--distributed_*`` flags
+    name, before any work; returns True when it did, False without a
+    coordinator. The backend follows ``parallel.sharding.backend_for``:
+    NCCL when each rank of the host has a card of its own (rank r on
+    ``cuda:r``; LOCAL_RANK and LOCAL_WORLD_SIZE, when set, give the rank's
+    place on a host of several), Gloo when ranks share a card or the run is
+    on the CPU. Each rank keeps its share of the host's CPU threads.
+
+    Parity: the reference's ``jax.distributed.initialize`` bring-up
+    (gtsfm_tpu/runner.py ``maybe_init_distributed``)."""
+    if args.distributed_coordinator is None:
+        return False
+    if args.distributed_num_processes is None or args.distributed_process_id is None:
+        raise ValueError("--distributed_coordinator needs --distributed_num_processes and --distributed_process_id")
+    import torch
+    import torch.distributed as dist
+
+    from gtsfm_tpu_torch.parallel.sharding import backend_for
+    from gtsfm_tpu_torch.utils.numerics import resolve_device
+
+    world, rank = args.distributed_num_processes, args.distributed_process_id
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    dev_type = resolve_device(device).type
+    cards = torch.cuda.device_count() if dev_type == "cuda" else 0
+    backend = backend_for(dev_type, per_host, cards)
+    if dev_type == "cuda":
+        torch.cuda.set_device(local_rank % cards)
+    torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // per_host)))
+    where = f"cuda:{local_rank % cards} of {cards} card(s)" if dev_type == "cuda" else "the CPU"
+    why = ("a card per rank" if backend == "nccl" else
+           f"{per_host} ranks on {cards} card(s)" if dev_type == "cuda" else "the CPU")
+    print(f"distributed: rank {rank} of {world} on {where}, backend {backend} ({why})", flush=True)
+    dist.init_process_group(backend=backend, init_method=f"tcp://{args.distributed_coordinator}",
+                            world_size=world, rank=rank)
+    return True
 
 
 def build_loader(args):
@@ -182,13 +222,27 @@ def run_bal(path: str, output_root: str, device="cuda") -> int:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    check_ported(args)
-    from gtsfm_tpu_torch.configs.config import build_scene_optimizer, load_config
+    from gtsfm_tpu_torch.configs.config import load_config
 
     cfg = load_config(args.config_name, args.overrides)
     so_cfg = cfg.setdefault("scene_optimizer", {})
+    joined = maybe_init_distributed(args, so_cfg.get("device", "cuda"))
+    try:
+        return _run(parser, args, cfg, so_cfg, writes=not joined or args.distributed_process_id == 0)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(parser, args, cfg: dict, so_cfg: dict, writes: bool) -> int:
+    """The run of ``main`` after the distributed bring-up; ``writes``: this
+    process writes the run's files (rank 0 or a single process)."""
+    from gtsfm_tpu_torch.configs.config import build_scene_optimizer
+
     if args.bal:
-        return run_bal(args.bal, args.output_root, so_cfg.get("device", "cuda"))
+        return run_bal(args.bal, args.output_root if writes else None, so_cfg.get("device", "cuda"))
     if not args.dataset_dirpath:
         parser.error("--dataset_dirpath is required (except with --bal)")
     if args.prewarm:
@@ -196,7 +250,9 @@ def main(argv=None) -> int:
 
         timings = prewarm_standard_shapes(device=so_cfg.get("device", "cuda"))
         print("prewarm: " + " ".join(f"{k} {v}s" for k, v in timings.items()), flush=True)
-    so_cfg["output_root"] = args.output_root
+    so_cfg["output_root"] = args.output_root if writes else None
+    if not writes:
+        so_cfg["telemetry_db"] = None
     if args.run_mvs:
         so_cfg["run_mvs"] = True
     if args.mvs_backend != "plane_sweep":
@@ -227,7 +283,7 @@ def main(argv=None) -> int:
         for k, v in g.to_dict()[g.name].items():
             if isinstance(v, (int, float)):
                 print(f"  {g.name}/{k}: {v}")
-    if args.compare_to:
+    if args.compare_to and writes:
         compare_to(args.output_root, args.compare_to)
     return 0
 

@@ -79,9 +79,13 @@ def _kp_track_map(aux: dict, num_images: int, max_kp: int) -> np.ndarray:
 class HierarchicalReconstruction:
     """Runs the partitioned back end on flat front-end outputs."""
 
-    def __init__(self, options: HierarchicalOptions = HierarchicalOptions(), cluster_cache=None):
-        """cluster_cache: a DiskCache for the leaves' results, or None."""
+    def __init__(self, options: HierarchicalOptions = HierarchicalOptions(), mesh=None, cluster_cache=None):
+        """mesh: a parallel.sharding.Mesh for each leaf's MVO (its BA shards
+        over ``data``; the merges' parent BAs run unsharded, as in the
+        reference), or None; cluster_cache: a DiskCache for the leaves'
+        results, or None."""
         self.options = options
+        self.mesh = mesh
         self.cluster_cache = cluster_cache
         self.node_results = []  # [(path tuple, SfmData)] of the last run, postorder
         self._last_merge_fail = "unknown"
@@ -113,7 +117,7 @@ class HierarchicalReconstruction:
         def edge_subset(sub_edges: np.ndarray) -> np.ndarray:
             return np.array([eindex[(int(a), int(b))] for a, b in sub_edges], np.int64)
 
-        mvo = MultiViewOptimizer(opts.mvo)
+        mvo = MultiViewOptimizer(opts.mvo, mesh=self.mesh)
         cluster_metrics = []
         leaf_nodes = [nd for nd in _iter_nodes(tree) if nd.is_leaf and len(nd.value)]
         # every leaf pads to the largest leaf's bucket, as in the reference

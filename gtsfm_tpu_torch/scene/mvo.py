@@ -66,8 +66,11 @@ def _pad_rows(a: np.ndarray, rows: int, fill=0) -> np.ndarray:
 
 
 class MultiViewOptimizer:
-    def __init__(self, options: MVOOptions = MVOOptions()):
+    def __init__(self, options: MVOOptions = MVOOptions(), mesh=None):
+        """mesh: a parallel.sharding.Mesh for the bundle adjustment, whose
+        measurements shard over its ``data`` axis (bundle/ba.py), or None."""
         self.options = options
+        self.mesh = mesh
 
     def run(
         self,
@@ -207,7 +210,7 @@ class MultiViewOptimizer:
         counts = np.bincount(meas_cam, minlength=num_images) * cam_valid
         fixed = np.zeros(num_images, bool)
         fixed[np.argsort(-counts)[:1]] = True
-        data, ba_metrics = BundleAdjustment(opts.ba).run_staged(
+        data, ba_metrics = BundleAdjustment(opts.ba, mesh=self.mesh).run_staged(
             data, reproj_thresholds=opts.reproj_thresholds,
             fixed_cam=torch.as_tensor(fixed, device=dev),
         )

@@ -64,6 +64,16 @@ With ``telemetry_db`` the per-pair two-view results, the stage timings and
 the run's metadata go to a sqlite file (common/telemetry.py). ``run`` is
 traced with ``torch.profiler`` when ``GTSFM_TPU_TRACE`` names a directory
 (utils/tracing.py). Stage times are logged (utils/logger.py).
+
+In a ``torch.distributed`` world of more than one rank (the runner's
+``--distributed_*`` flags) with ``use_mesh``, the ranks form a (data, model)
+mesh (parallel/sharding.py) and every rank runs the same program: each
+two-view chunk whose length divides by ``data`` is split over the data
+ranks (and desc1's rows inside the matcher over the model ranks), its
+results gathered in pair order on every rank; a chunk that does not divide
+runs whole on every rank, as the reference's does. The back end's BA shards
+its measurements over ``data`` (bundle/ba.py); every other stage runs
+replicated, so every rank ends with the same reconstruction.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gtsfm_tpu_torch.common.sfm_data import SceneMeta
 from gtsfm_tpu_torch.common.telemetry import TelemetryDB
@@ -100,6 +111,7 @@ from gtsfm_tpu_torch.geometry import SE3
 from gtsfm_tpu_torch.io import colmap as colmap_io
 from gtsfm_tpu_torch.io.ply import write_ply
 from gtsfm_tpu_torch.loader.base import LoaderBase, batch_calibrations
+from gtsfm_tpu_torch.parallel.sharding import gather, make_mesh, shard_pair_batch
 from gtsfm_tpu_torch.products.scene_tree import SceneTree
 from gtsfm_tpu_torch.retriever.bridge import find_bridge_pairs
 from gtsfm_tpu_torch.retriever.retrievers import (
@@ -173,9 +185,9 @@ class SceneOptimizerOptions(NamedTuple):
     # two-view and cluster stages (root: utils/cache.DEFAULT_CACHE_ROOT)
     use_cache: bool = False
     cache_root: Optional[str] = None
-    # the reference's switch for sharding over a multi-device mesh: with one
-    # device it builds no mesh, and neither does the port, on its one card
-    # or on the CPU (multi-GPU runs and parallel/sharding.py are not ported)
+    # shard two-view chunks and BA over a (data, model) mesh of the
+    # torch.distributed ranks when there are more than one (the reference's
+    # mesh over its devices); a world of one builds no mesh
     use_mesh: bool = True
     # images per load-and-detect chunk (0: the whole scene at once)
     load_chunk_size: int = 0
@@ -226,6 +238,9 @@ class SceneOptimizer:
         self.global_descriptor = global_descriptor
         self.correspondence = correspondence
         self._telemetry = TelemetryDB(options.telemetry_db) if options.telemetry_db else None
+        self._mesh = None
+        if options.use_mesh and dist.is_initialized() and dist.get_world_size() > 1:
+            self._mesh = make_mesh()
         self.backend_metrics: dict = {}  # the back end's metrics dict of the last run
         self.node_results: list = []  # [(cluster path, SfmData)] of the last hierarchical run
         self._detect_cache = self._two_view_cacher = self._cluster_cache = None
@@ -339,13 +354,13 @@ class SceneOptimizer:
         self.node_results = []
         if opts.hierarchical:
             hier = HierarchicalReconstruction(
-                HierarchicalOptions(mvo=opts.mvo, max_cluster_size=opts.max_cluster_size),
+                HierarchicalOptions(mvo=opts.mvo, max_cluster_size=opts.max_cluster_size), mesh=self._mesh,
                 cluster_cache=self._cluster_cache)
             tvr_h = dict(host, i2Ri1=tvr.i2Ri1, i2Ui1=tvr.i2Ui1)
             data, mvo_metrics = hier.run(n, pairs, tvr_h, kp_xy, cal, meta=meta)
             self.node_results = hier.node_results
         else:
-            data, mvo_metrics = MultiViewOptimizer(opts.mvo).run(
+            data, mvo_metrics = MultiViewOptimizer(opts.mvo, mesh=self._mesh).run(
                 num_images=n, pairs=pairs, i2Ri1=tvr.i2Ri1, i2Ui1=tvr.i2Ui1,
                 pair_valid=host["valid"], num_inliers=host["num_inliers"],
                 corr_i1=host["corr_i1"], corr_i2=host["corr_i2"], corr_mask=host["corr_mask"],
@@ -635,9 +650,13 @@ class SceneOptimizer:
         any, matches each chunk first (``image_wh``: the scene's largest
         width and height, for its keypoint normalization). The last chunk
         is not padded: each pair's random stream is keyed by its global
-        index, so chunking does not change the result."""
+        index, so chunking does not change the result. On a mesh, a chunk
+        whose length divides by ``data`` is split over the data ranks
+        (``shard_pair_batch``, the global pair indices with it, so no draw
+        changes) and the ranks' results are gathered in pair order."""
         opts = self.options
         dev = cal.u0.device  # a field of every calibration model
+        mesh = self._mesh
         kp_dev = torch.as_tensor(kp_xy, dtype=torch.float32, device=dev)
         kpm_dev = torch.as_tensor(kp_mask, dtype=torch.bool, device=dev)
         d_dev = torch.as_tensor(descs, dtype=torch.float32, device=dev)
@@ -648,23 +667,30 @@ class SceneOptimizer:
             mmask_dev = torch.as_tensor(mmask, device=dev)
         chunks = []
         for s in range(0, len(pairs), opts.pair_batch_size):
-            i1 = pairs_dev[s : s + opts.pair_batch_size, 0]
-            i2 = pairs_dev[s : s + opts.pair_batch_size, 1]
+            e = min(s + opts.pair_batch_size, len(pairs))
+            part = dict(i1=pairs_dev[s:e, 0], i2=pairs_dev[s:e, 1], pair_ids=torch.arange(s, e, device=dev),
+                        pair_mask=torch.ones(e - s, dtype=torch.bool, device=dev))
+            if pair_matches is not None:
+                part.update(match_idx=midx_dev[s:e], match_mask=mmask_dev[s:e])
+            sharded = mesh is not None and (e - s) % mesh.shape["data"] == 0
+            if sharded:
+                part = shard_pair_batch(mesh, part)
+            i1, i2, pair_mask = part.pop("i1"), part.pop("i2"), part.pop("pair_mask")
             batch = xy1, xy2, d1, d2, m1, m2 = (
                 kp_dev[i1], kp_dev[i2], d_dev[i1], d_dev[i2], kpm_dev[i1], kpm_dev[i2])
-            matches = {}
             if pair_matches is not None:
-                mm_ = mmask_dev[s : s + len(i1)]
-                matches = dict(match_idx=midx_dev[s : s + len(i1)], match_mask=mm_, match_score=mm_.to(torch.float32))
+                part["match_score"] = part["match_mask"].to(torch.float32)
             elif self.matcher is not None:
                 midx_c, mmask_c, mscore = self.matcher.match_batch(d1, d2, xy1, xy2, m1, m2, image_size=image_wh)
-                matches = dict(match_idx=midx_c, match_mask=mmask_c, match_score=mscore)
-            chunks.append(run_two_view_batch(
-                *batch, cal.map(lambda a: a[i1]), cal.map(lambda a: a[i2]),
-                torch.ones(len(i1), dtype=torch.bool, device=dev),
-                seed=opts.seed, opts=opts.two_view,
-                pair_ids=torch.arange(s, s + len(i1), device=dev), **matches,
-            ))
+                part.update(match_idx=midx_c, match_mask=mmask_c, match_score=mscore)
+            res = run_two_view_batch(
+                *batch, cal.map(lambda a: a[i1]), cal.map(lambda a: a[i2]), pair_mask, seed=opts.seed,
+                opts=opts.two_view, mesh=mesh if sharded else None, **part)
+            if sharded:
+                lo = mesh.coord["data"] * ((e - s) // mesh.shape["data"])  # this rank's place in the chunk
+                res = TwoViewResult(**{k: gather(mesh, "data", getattr(res, k), lo, e - s)
+                                       for k in TwoViewResult.__dataclass_fields__})
+            chunks.append(res)
         return TwoViewResult(**{
             k: torch.cat([getattr(c, k) for c in chunks]) for k in TwoViewResult.__dataclass_fields__
         })

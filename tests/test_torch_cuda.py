@@ -170,6 +170,29 @@ def test_kernel_is_bitwise_repeatable(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "rows129", "one_pair", "all_masked", "runner_p64_k2048"])
+def test_split_entries_equal_the_unsplit_call(case):
+    """The tile kernel's own entry on two model ranks' whole 128-row tiles,
+    the finish kernel's own entry on the outputs concatenated in rank
+    order: the unsplit call's matches bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import TILE
+    from gtsfm_tpu_torch.parallel.sharding import shard_range
+
+    d1, d2, m1, m2 = _inputs(case)
+    a, b = d1.to(torch.bfloat16).contiguous(), d2.to(torch.bfloat16).contiguous()
+    tiles, finish = fused_matcher.launch_count, fused_matcher.finish_launch_count
+    cuts = [c for c in (shard_range(a.shape[1], 2, i, TILE) for i in range(2)) if c[1] > c[0]]
+    parts = [fused_matcher.launch_tiles(a[:, lo:hi].contiguous(), b, m1[:, lo:hi].contiguous(), m2, lo)
+             for lo, hi in cuts]
+    split = fused_matcher.launch_finish(*(torch.cat([p[j] for p in parts], dim=1) for j in range(5)), m1, 0.8)
+    assert fused_matcher.launch_count == tiles + len(cuts) and fused_matcher.finish_launch_count == finish + 1
+    for x, y in zip(split, fused_matcher.fused_match_descriptors(d1, d2, m1, m2)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -17,6 +17,7 @@ from different random streams in the two packages, so the runs are held to
 the accuracy bar: equal registered counts and pose AUC@5 within 0.02.
 """
 
+import argparse
 import csv
 import os
 
@@ -383,7 +384,7 @@ def test_shipped_configs_build_as_the_reference(name, tmp_path):
     assert so_t.device == torch.device("cpu")
 
 
-def test_unported_components_and_flags_raise_before_any_work(tmp_path):
+def test_unported_components_and_flags_raise_before_any_work(tmp_path, monkeypatch):
     from gtsfm_tpu_torch.frontend.correspondence import DenseCorrespondenceGenerator
 
     sift = registry.build_detector({"name": "sift", "max_keypoints": 64})
@@ -402,10 +403,23 @@ def test_unported_components_and_flags_raise_before_any_work(tmp_path):
         config.build_scene_optimizer(config.load_config("unified",
                                                         ["scene_optimizer.two_view.no_such_option=true"]))
     base = ["--dataset_dirpath", str(tmp_path), "--output_root", str(tmp_path / "out")]
-    for flags in (["--distributed_coordinator", "localhost:1"], ["--distributed_num_processes", "2"],
-                  ["--distributed_process_id", "0"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            runner.main(base + flags)
+    # the --distributed_* flags: a no-op without a coordinator; with one,
+    # init_process_group gets the rendezvous, the world, the rank and the
+    # backend of the topology (the CPU: gloo), as the reference hands them
+    # to jax.distributed.initialize
+    off = argparse.Namespace(distributed_coordinator=None, distributed_num_processes=None,
+                             distributed_process_id=None)
+    assert runner.maybe_init_distributed(off) is False
+    calls = {}
+    monkeypatch.setattr(torch.distributed, "init_process_group", lambda **kw: calls.update(kw))
+    on = argparse.Namespace(distributed_coordinator="10.0.0.1:8476", distributed_num_processes=4,
+                            distributed_process_id=2)
+    with threads(torch.get_num_threads()):  # each rank keeps its share of the threads: restored after
+        assert runner.maybe_init_distributed(on, device="cpu") is True
+    assert calls == {"backend": "gloo", "init_method": "tcp://10.0.0.1:8476", "world_size": 4, "rank": 2}
+    with pytest.raises(ValueError, match="--distributed_num_processes"):
+        runner.maybe_init_distributed(argparse.Namespace(distributed_coordinator="localhost:1",
+                                                         distributed_num_processes=None, distributed_process_id=0))
     # PatchmatchNet without weights raises, as the reference does, but before any work
     with pytest.raises(RuntimeError, match="requires weights"):
         runner.main(base + ["--run_mvs", "--mvs_backend", "patchmatchnet", "scene_optimizer.device=cpu"])

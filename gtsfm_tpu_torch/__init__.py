@@ -3,7 +3,8 @@
 Each module mirrors one file of the JAX package (``gtsfm_tpu``), which stays
 the reference: the same function names, the same padded layouts and masks,
 the same defaults. The entry points (``SceneOptimizer``,
-``GaussianSplatting``) run on the CUDA card unless given ``device="cpu"``.
+``GaussianSplatting``, the feed-forward, VGGT and PatchmatchNet models) run
+on the CUDA card unless given ``device="cpu"``.
 Every Pallas kernel of the reference is a hand-written CUDA kernel under
 ``csrc/`` that runs on a CUDA tensor; on a CPU tensor its plain PyTorch
 version runs.

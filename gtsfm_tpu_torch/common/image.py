@@ -1,8 +1,8 @@
 """Host-side image container with EXIF-based intrinsics inference.
 
-Port of gtsfm_tpu/common/image.py (``Image``, ``rgb_to_gray`` and the EXIF
-focal length and intrinsics; the patch extraction is not ported). Images
-stay host numpy until the detector takes a padded batch to the device.
+Port of gtsfm_tpu/common/image.py (``Image`` with its EXIF focal length and
+intrinsics and its patch extraction, ``rgb_to_gray``). Images stay host
+numpy until the detector takes a padded batch to the device.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ class Image:
     value_array: np.ndarray  # (H, W, 3) uint8 or (H, W) grayscale
     exif_data: Optional[dict] = None
     file_name: Optional[str] = None
+    mask: Optional[np.ndarray] = None  # (H, W) bool, True = use pixel
 
     @property
     def height(self) -> int:
@@ -30,6 +31,10 @@ class Image:
     @property
     def width(self) -> int:
         return self.value_array.shape[1]
+
+    @property
+    def shape(self):
+        return self.value_array.shape
 
     def focal_length_from_exif(self) -> Optional[float]:
         """Focal length in pixels from EXIF, else None: from
@@ -60,6 +65,19 @@ class Image:
         if f is None:
             f = DEFAULT_FOCAL_RATIO * max(self.height, self.width)
         return float(f), self.width / 2.0, self.height / 2.0
+
+    def extract_patch(self, x: int, y: int, size: int) -> np.ndarray:
+        """The size x size patch centered at (x, y), zero-padded past the
+        borders."""
+        half = size // 2
+        h, w = self.height, self.width
+        patch = np.zeros((size, size) + self.value_array.shape[2:], dtype=self.value_array.dtype)
+        y0, y1 = max(0, y - half), min(h, y - half + size)
+        x0, x1 = max(0, x - half), min(w, x - half + size)
+        py0 = y0 - (y - half)
+        px0 = x0 - (x - half)
+        patch[py0 : py0 + (y1 - y0), px0 : px0 + (x1 - x0)] = self.value_array[y0:y1, x0:x1]
+        return patch
 
 
 def rgb_to_gray(value_array: np.ndarray) -> np.ndarray:

@@ -13,6 +13,8 @@ Port of gtsfm_tpu/common/sfm_data.py:
   meas_mask   bool [M]
 
 Filtering is a mask update on the device; padded shapes never change.
+Compaction, the largest component and downsampling are host numpy, their
+results put back on the scene's device.
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ class SfmData(TensorStruct):
     @property
     def max_tracks(self) -> int:
         return self.track_mask.shape[0]
+
+    @property
+    def max_measurements(self) -> int:
+        return self.meas_mask.shape[0]
 
     def number_images(self) -> int:
         return int(self.pose_mask.sum())
@@ -109,14 +115,100 @@ class SfmData(TensorStruct):
             return 0.0, 0.0
         return float(np.mean(vals)), float(np.median(vals))
 
+    def compact(self) -> "SfmData":
+        """Tracks and measurements compacted to the live ones (host);
+        cameras stay, their indexing is positional."""
+        tm = self.track_mask.cpu().numpy()
+        meas_track = self.meas_track.cpu().numpy()
+        keep_meas = self.meas_mask.cpu().numpy() & tm[meas_track]
+        track_old2new = np.cumsum(tm) - 1
+        dev = self.points.device
+        return SfmData(
+            poses=self.poses,
+            cal=self.cal,
+            pose_mask=self.pose_mask,
+            points=torch.as_tensor(self.points.cpu().numpy()[tm], device=dev),
+            track_mask=torch.ones(int(tm.sum()), dtype=torch.bool, device=dev),
+            meas_cam=torch.as_tensor(self.meas_cam.cpu().numpy()[keep_meas], device=dev),
+            meas_track=torch.as_tensor(track_old2new[meas_track[keep_meas]], device=dev),
+            meas_uv=torch.as_tensor(self.meas_uv.cpu().numpy()[keep_meas], device=dev),
+            meas_mask=torch.ones(int(keep_meas.sum()), dtype=torch.bool, device=dev),
+            meta=self.meta,
+        )
+
+    def select_largest_connected_component(self) -> "SfmData":
+        """Keep the cameras of the largest component of the co-observation
+        graph (two cameras connect when they see one track), their
+        measurements and the tracks left with two or more (host
+        union-find, the reference's order)."""
+        n = self.max_cameras
+        parent = np.arange(n)
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        meas_cam = self.meas_cam.cpu().numpy()
+        meas_track = self.meas_track.cpu().numpy()
+        mm_ = self.meas_mask.cpu().numpy()
+        order = np.argsort(meas_track[mm_], kind="stable")
+        cams = meas_cam[mm_][order]
+        tracks = meas_track[mm_][order]
+        for i in range(1, len(cams)):
+            if tracks[i] == tracks[i - 1]:
+                ra, rb = find(cams[i]), find(cams[i - 1])
+                if ra != rb:
+                    parent[ra] = rb
+        pose_mask = self.pose_mask.cpu().numpy()
+        roots = np.array([find(i) if pose_mask[i] else -1 for i in range(n)])
+        valid_roots = roots[roots >= 0]
+        if valid_roots.size == 0:
+            return self
+        keep_cam = (roots == np.bincount(valid_roots).argmax()) & pose_mask
+        keep_meas = mm_ & keep_cam[meas_cam]
+        counts = np.zeros(self.max_tracks, np.int64)
+        np.add.at(counts, meas_track[keep_meas], 1)
+        keep_track = self.track_mask.cpu().numpy() & (counts >= 2)
+        keep_meas = keep_meas & keep_track[meas_track]
+        dev = self.pose_mask.device
+        return self.replace(
+            pose_mask=torch.as_tensor(keep_cam, device=dev),
+            track_mask=torch.as_tensor(keep_track, device=dev),
+            meas_mask=torch.as_tensor(keep_meas, device=dev),
+        )
+
+    def downsample(self, max_tracks: int, seed: int = 0) -> "SfmData":
+        """A random subset of max_tracks live tracks (host), drawn by
+        numpy's ``default_rng(seed)`` as the reference draws it."""
+        alive = np.nonzero(self.track_mask.cpu().numpy())[0]
+        if len(alive) <= max_tracks:
+            return self
+        keep = np.zeros(self.max_tracks, bool)
+        keep[np.random.default_rng(seed).permutation(alive)[:max_tracks]] = True
+        keep_t = torch.as_tensor(keep, device=self.track_mask.device)
+        return self.replace(track_mask=keep_t, meas_mask=self.meas_mask & keep_t[self.meas_track])
+
     @classmethod
-    def from_cameras_and_tracks(cls, poses: SE3, cal, tracks, num_cameras: Optional[int] = None,
-                                meta: Optional[SceneMeta] = None) -> "SfmData":
+    def from_cameras_and_tracks(
+        cls,
+        poses: SE3,
+        cal,
+        tracks,
+        num_cameras: Optional[int] = None,
+        pose_mask: Optional[np.ndarray] = None,
+        meta: Optional[SceneMeta] = None,
+        pad_tracks_to: Optional[int] = None,
+        pad_meas_to: Optional[int] = None,
+    ) -> "SfmData":
         """Host-side builder on the poses' device. tracks: a sequence of
-        (point_xyz, [(cam_idx, uv), ...]); every camera is marked posed."""
+        (point_xyz, [(cam_idx, uv), ...]); every camera is marked posed
+        unless ``pose_mask`` says otherwise. ``pad_tracks_to`` and
+        ``pad_meas_to`` pad the track and measurement arrays (masked)."""
         n = num_cameras if num_cameras is not None else poses.t.shape[0]
-        T = max(len(tracks), 1)
-        points = np.zeros((T, 3), np.float32)
+        t = len(tracks)
+        points = np.zeros((max(t, 1), 3), np.float32)
         mc, mt, muv = [], [], []
         for j, (xyz, obs) in enumerate(tracks):
             points[j] = xyz
@@ -124,25 +216,33 @@ class SfmData(TensorStruct):
                 mc.append(cam_idx)
                 mt.append(j)
                 muv.append(uv)
-        M = max(len(mc), 1)
+        m = len(mc)
+        T = pad_tracks_to or max(t, 1)
+        M = pad_meas_to or max(m, 1)
+        if T < t or M < m:
+            raise ValueError(f"pad_tracks_to={T} / pad_meas_to={M} below {t} tracks / {m} measurements")
+        if T > len(points):
+            points = np.concatenate([points, np.zeros((T - len(points), 3), np.float32)])
         meas_cam = np.zeros(M, np.int64)
         meas_track = np.zeros(M, np.int64)
         meas_uv = np.zeros((M, 2), np.float32)
-        meas_cam[: len(mc)] = mc
-        meas_track[: len(mt)] = mt
+        meas_cam[:m] = mc
+        meas_track[:m] = mt
         if muv:
-            meas_uv[: len(muv)] = np.asarray(muv, np.float32)
+            meas_uv[:m] = np.asarray(muv, np.float32)
+        if pose_mask is None:
+            pose_mask = np.ones(n, bool)
         dev = poses.t.device
         return cls(
             poses=poses,
             cal=cal,
-            pose_mask=torch.ones(n, dtype=torch.bool, device=dev),
-            points=torch.as_tensor(points, device=dev),
-            track_mask=torch.as_tensor(np.arange(T) < len(tracks), device=dev),
+            pose_mask=torch.as_tensor(np.asarray(pose_mask, bool), device=dev),
+            points=torch.as_tensor(points[:T], device=dev),
+            track_mask=torch.as_tensor(np.arange(T) < t, device=dev),
             meas_cam=torch.as_tensor(meas_cam, device=dev),
             meas_track=torch.as_tensor(meas_track, device=dev),
             meas_uv=torch.as_tensor(meas_uv, device=dev),
-            meas_mask=torch.as_tensor(np.arange(M) < len(mc), device=dev),
+            meas_mask=torch.as_tensor(np.arange(M) < m, device=dev),
             meta=meta,
         )
 

@@ -501,10 +501,11 @@ def load_torch_weights(path: str) -> dict:
     return _strip_prefix(sd)
 
 
-def build_net(state_dict: dict, device="cpu") -> PatchmatchNet:
-    """A ``PatchmatchNet`` in eval mode on ``device`` holding state_dict
-    (tensors or numpy arrays; every key of the official layout must be
-    present)."""
+def build_net(state_dict: dict, device="cuda") -> PatchmatchNet:
+    """A ``PatchmatchNet`` in eval mode on ``device`` (the CUDA card unless
+    given ``device="cpu"``) holding state_dict (tensors or numpy arrays;
+    every key of the official layout must be present)."""
+    device = resolve_device(device)
     net = PatchmatchNet()
     net.load_state_dict({k: torch.as_tensor(v) for k, v in _strip_prefix(state_dict).items()})
     return net.eval().to(device)

@@ -27,9 +27,9 @@ class MatcherCacher:
     the descriptors and coordinates, the keypoint counts and the matcher's
     class name, so a change downstream never re-runs matching."""
 
-    def __init__(self, matcher, root=None):
+    def __init__(self, matcher, root=None, enabled: bool = True):
         self.matcher = matcher
-        self.cache = DiskCache("matcher", root=root)
+        self.cache = DiskCache("matcher", root=root, enabled=enabled)
 
     def _key(self, desc0, desc1, coords0, coords1, mask0, mask1) -> str:
         stride = max(1, desc0.shape[1] // 32)
@@ -55,9 +55,9 @@ class GlobalDescriptorCacher:
     """Wraps a global descriptor's ``describe_batch``. The key covers the
     images subsampled by 8, their shape and the descriptor's class name."""
 
-    def __init__(self, descriptor, root=None):
+    def __init__(self, descriptor, root=None, enabled: bool = True):
         self.descriptor = descriptor
-        self.cache = DiskCache("global_descriptor", root=root)
+        self.cache = DiskCache("global_descriptor", root=root, enabled=enabled)
 
     def describe_batch(self, images) -> np.ndarray:
         key = content_key(to_numpy(images[:, ::8, ::8]), tuple(images.shape), type(self.descriptor).__name__)

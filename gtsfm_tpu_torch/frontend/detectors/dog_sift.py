@@ -33,7 +33,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from gtsfm_tpu_torch.utils.numerics import precise
+from gtsfm_tpu_torch.common.keypoints import Keypoints
+from gtsfm_tpu_torch.utils.numerics import precise, resolve_device
 
 # detect_and_describe calls by device type ("cuda", "cpu"): a run can show
 # where the detector ran
@@ -267,6 +268,15 @@ class DoGSift:
     def __init__(self, options: DoGSiftOptions = DoGSiftOptions()):
         self.options = options
         self.max_keypoints = options.max_keypoints
+
+    def __call__(self, image, device="cuda") -> tuple:
+        """One (H, W) image (numpy or a tensor) -> (Keypoints (K,),
+        descriptors (K, 128)) on ``device``: the reference's per-image call,
+        through the batched detector. The card by default; raises without
+        one (``numerics.resolve_device``)."""
+        image = torch.as_tensor(image, device=resolve_device(device))
+        coords, scales, responses, mask, descs = detect_and_describe(image[None], self.options)
+        return Keypoints(coordinates=coords[0], scales=scales[0], responses=responses[0], mask=mask[0]), descs[0]
 
     def detect_batch(self, images) -> tuple:
         coords, _scales, _responses, mask, descs = detect_and_describe(torch.as_tensor(images), self.options)

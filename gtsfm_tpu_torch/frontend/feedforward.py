@@ -35,7 +35,7 @@ from torch import nn
 
 from gtsfm_tpu_torch.common.sfm_data import SfmData
 from gtsfm_tpu_torch.geometry import SE3, PinholeCamera, so3
-from gtsfm_tpu_torch.utils.numerics import attention, precise
+from gtsfm_tpu_torch.utils.numerics import attention, precise, resolve_device
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 MAX_FRAMES = 32  # rows of the frame embedding
@@ -207,17 +207,19 @@ class FeedforwardReconstruction:
     """run(images (B, H, W)) -> (poses SE3 [B], depth (B, H, W), conf (B,
     hp, wp), focal ratio (B,)), the last track features in
     ``last_track_feat``. ``state_dict`` (the port's layout) or the seeded
-    init of ``init_net``; the net runs on ``device``."""
+    init of ``init_net``; the net runs on ``device``, the CUDA card unless
+    given ``device="cpu"``."""
 
     def __init__(self, options: FeedforwardOptions = FeedforwardOptions(), state_dict: Optional[dict] = None,
-                 example_hw: tuple = (64, 64), device="cpu"):
+                 example_hw: tuple = (64, 64), device="cuda"):
+        device = resolve_device(device)
         self.options = options
         self.net = init_net(options, example_hw)
         if state_dict is not None:
             self.net.load_state_dict({k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
                                       for k, v in state_dict.items()})
         self.net.to(device).eval().requires_grad_(False)
-        self.device = torch.device(device)
+        self.device = device
         self.last_track_feat = None
 
     def run(self, images) -> tuple:

@@ -287,6 +287,11 @@ def options_from_state_dict(sd: dict, opts: MegaLocOptions = MegaLocOptions()) -
     )
 
 
+# the reduced dims of ``MegaLocDescriptor(test_small=True)``, the reference's
+TEST_SMALL = dict(embed_dim=32, depth=2, num_heads=2, pretrain_grid=5, num_clusters=8, cluster_dim=16,
+                  token_dim=16, mlp_dim=32, feat_dim=64, image_size=70)
+
+
 class MegaLocDescriptor:
     """describe_batch over MegaLoc. Images: (B, H, W) grayscale or (B, H,
     W, 3) RGB in [0, 1] (numpy, or a tensor on the device to run on),
@@ -295,12 +300,15 @@ class MegaLocDescriptor:
 
     ``state_dict`` (megaloc.torch layout; its shapes set the dims), else
     ``weights_path``'s checkpoint, else the random init of seed 0 at
-    ``options``' dims."""
+    ``options``' dims, or with ``test_small`` at the reference's reduced
+    test dims (``TEST_SMALL``)."""
 
     def __init__(self, options: MegaLocOptions = MegaLocOptions(), weights_path: Optional[str] = None,
-                 state_dict: Optional[dict] = None):
+                 state_dict: Optional[dict] = None, test_small: bool = False):
         if state_dict is None and weights_path is not None:
             state_dict, options = load_torch_weights(weights_path, options)
+        elif state_dict is None and test_small:
+            options = options._replace(**TEST_SMALL)
         elif state_dict is not None:
             state_dict = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32) for k, v in state_dict.items()}
             options = options_from_state_dict(state_dict, options)

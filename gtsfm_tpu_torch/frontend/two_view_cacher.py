@@ -20,12 +20,12 @@ from gtsfm_tpu_torch.utils.convert import to_numpy
 
 
 class TwoViewEstimatorCacher:
-    def __init__(self, run_fn, options_repr: str = "", root=None):
+    def __init__(self, run_fn, options_repr: str = "", root=None, enabled: bool = True):
         """run_fn: ``(pairs, kp_xy, kp_mask, descs, cal, *args) ->
         TwoViewResult``."""
         self.run_fn = run_fn
         self.options_repr = options_repr
-        self.cache = DiskCache("two_view", root=root)
+        self.cache = DiskCache("two_view", root=root, enabled=enabled)
 
     def _key(self, pairs, kp_xy, kp_mask, descs) -> str:
         # samples of the content, as the reference samples keypoints

@@ -41,7 +41,7 @@ from torch import nn
 
 from gtsfm_tpu_torch.frontend.global_descriptors.megaloc import DinoViT, MegaLocOptions, interpolate_pos_embed
 from gtsfm_tpu_torch.frontend.mast3r import apply_rope2d
-from gtsfm_tpu_torch.utils.numerics import attention, precise
+from gtsfm_tpu_torch.utils.numerics import attention, precise, resolve_device
 
 RESNET_MEAN = (0.485, 0.456, 0.406)
 RESNET_STD = (0.229, 0.224, 0.225)
@@ -435,11 +435,12 @@ class VGGTModel:
     world->cam, intrinsic (S, 3, 3), depth (S, H', W'), depth_conf}: the
     run_VGGT contract. ``track`` runs the track head. ``state_dict`` (the
     public layout; its shapes set the dims) or the seeded init of
-    ``init_net`` at ``options`` (with a track head at ``track_options``)."""
+    ``init_net`` at ``options`` (with a track head at ``track_options``),
+    on ``device``: the CUDA card unless given ``device="cpu"``."""
 
     def __init__(self, options: VGGTOptions = VGGTOptions(), state_dict: Optional[dict] = None, seed: int = 0,
-                 track_options=None, device="cpu"):
-        self.device = torch.device(device)
+                 track_options=None, device="cuda"):
+        self.device = resolve_device(device)
         if state_dict is not None:
             options, track_options = options_from_state_dict(state_dict, options)
             with torch.device("meta"):

@@ -32,6 +32,9 @@ class PinholeCamera(TensorStruct):
         ray = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1) * depth[..., None]
         return self.pose.transform(ray)
 
+    def center(self) -> torch.Tensor:
+        return self.pose.t
+
     def reprojection_error(self, p_world: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
         proj, _ = self.project(p_world)
         return torch.linalg.vector_norm(proj - uv, dim=-1)

@@ -36,12 +36,31 @@ class SE3(TensorStruct):
         Rinv = self.R.transpose(-1, -2)
         return SE3(R=Rinv, t=-so3.rotate(Rinv, self.t))
 
+    def __mul__(self, other: "SE3") -> "SE3":
+        return self.compose(other)
+
+    def between(self, other: "SE3") -> "SE3":
+        """self^-1 * other: wTi.between(wTj) = iTj."""
+        return self.inverse().compose(other)
+
     def transform(self, p: torch.Tensor) -> torch.Tensor:
         return so3.rotate(self.R, p) + self.t
 
     def transform_to(self, p: torch.Tensor) -> torch.Tensor:
         """World -> local frame."""
         return so3.rotate(self.R.transpose(-1, -2), p - self.t)
+
+    def matrix(self) -> torch.Tensor:
+        """Homogeneous 4x4 matrix(es)."""
+        M = torch.zeros(self.batch_shape + (4, 4), dtype=self.R.dtype, device=self.R.device)
+        M[..., :3, :3] = self.R
+        M[..., :3, 3] = self.t
+        M[..., 3, 3] = 1.0
+        return M
+
+    @classmethod
+    def from_matrix(cls, M: torch.Tensor) -> "SE3":
+        return cls(R=M[..., :3, :3], t=M[..., :3, 3])
 
     @classmethod
     def exp(cls, xi: torch.Tensor) -> "SE3":
@@ -83,5 +102,13 @@ class SE3(TensorStruct):
         """Right retraction: self * Exp(xi)."""
         return self.compose(SE3.exp(xi))
 
+    def local(self, other: "SE3") -> torch.Tensor:
+        """Inverse of retract: Log(self^-1 * other)."""
+        return self.between(other).log()
+
     def __getitem__(self, idx) -> "SE3":
         return SE3(R=self.R[idx], t=self.t[idx])
+
+    @property
+    def batch_shape(self) -> tuple:
+        return tuple(self.t.shape[:-1])

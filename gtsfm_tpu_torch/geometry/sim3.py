@@ -22,8 +22,29 @@ class Sim3(TensorStruct):
     t: torch.Tensor
     s: torch.Tensor
 
+    @classmethod
+    def identity(cls, batch_shape: tuple = (), dtype=torch.float32, device=None) -> "Sim3":
+        shape = tuple(batch_shape)
+        return cls(
+            R=torch.eye(3, dtype=dtype, device=device).expand(shape + (3, 3)).clone(),
+            t=torch.zeros(shape + (3,), dtype=dtype, device=device),
+            s=torch.ones(shape, dtype=dtype, device=device),
+        )
+
     def transform(self, p: torch.Tensor) -> torch.Tensor:
         return self.s[..., None] * so3.rotate(self.R, p) + self.t
+
+    def compose(self, other: "Sim3") -> "Sim3":
+        return Sim3(
+            R=mm(self.R, other.R),
+            t=self.s[..., None] * so3.rotate(self.R, other.t) + self.t,
+            s=self.s * other.s,
+        )
+
+    def inverse(self) -> "Sim3":
+        Rinv = self.R.transpose(-1, -2)
+        sinv = 1.0 / self.s
+        return Sim3(R=Rinv, t=-sinv[..., None] * so3.rotate(Rinv, self.t), s=sinv)
 
     def transform_pose(self, wTi: SE3) -> SE3:
         """aSb * bTi -> aTi: rotation R_sim @ R, center s R_sim c + t."""

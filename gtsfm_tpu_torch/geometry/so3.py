@@ -29,6 +29,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat. W: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
@@ -128,6 +133,17 @@ def relative_angle_rad(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
 
 def relative_angle_deg(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(relative_angle_rad(R1, R2))
+
+
+def random(generator: torch.Generator, shape: tuple = (), dtype=torch.float32, device=None) -> torch.Tensor:
+    """Uniformly random rotations (shape + (3, 3)) through normalized
+    quaternions: standard normals drawn from ``generator`` (on its device
+    unless ``device`` is given) and passed through ``from_quat``. The
+    reference draws the normals from a JAX key, a stream torch cannot
+    repeat."""
+    device = generator.device if device is None else device
+    q = torch.randn(tuple(shape) + (4,), generator=generator, dtype=dtype, device=device)
+    return from_quat(q)
 
 
 def rotate(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -77,6 +77,14 @@ class LoaderBase:
         temporal order or a benchmark pair list restrict this."""
         return 0 <= idx1 < idx2 < len(self)
 
+    def valid_pairs(self) -> np.ndarray:
+        """All loader-valid (i, j) pairs as an (E, 2) int array."""
+        n = len(self)
+        return np.array(
+            [(i, j) for i in range(n) for j in range(i + 1, n) if self.is_valid_pair(i, j)],
+            np.int32,
+        ).reshape(-1, 2)
+
     def _scale_for(self, index: int, h: int, w: int) -> float:
         """Downscale factor so that the short side is <= max_resolution."""
         short = min(h, w)
@@ -109,15 +117,17 @@ class LoaderBase:
             return cal
         return _rescale_cal(cal, s)
 
-    def load_grayscale_batch(self, indices=None):
+    def load_grayscale_batch(self, indices=None, pad_to: Optional[tuple] = None):
         """-> (images f32 (B, H, W) in [0, 1] zero-padded to a common size,
-        list of (orig_h, orig_w))."""
+        at least ``pad_to`` = (H, W) when given, list of (orig_h, orig_w))."""
         if indices is None:
             indices = range(len(self))
         grays = [rgb_to_gray(self.get_image(i).value_array) for i in indices]
         sizes = [(g.shape[0], g.shape[1]) for g in grays]
         H = max(s[0] for s in sizes)
         W = max(s[1] for s in sizes)
+        if pad_to is not None:
+            H, W = max(H, pad_to[0]), max(W, pad_to[1])
         batch = np.zeros((len(grays), H, W), np.float32)
         for b, g in enumerate(grays):
             batch[b, : g.shape[0], : g.shape[1]] = g

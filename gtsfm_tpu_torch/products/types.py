@@ -8,7 +8,7 @@ not import the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,3 +64,16 @@ class ClusterTree:
     def map_postorder(self, fn):
         """Bottom-up fold: fn(node, child_results) -> result."""
         return fn(self, [c.map_postorder(fn) for c in self.children])
+
+
+@dataclasses.dataclass(frozen=True)
+class OneViewData:
+    """Frozen per-view record: the view's index, file name, intrinsics,
+    absolute pose prior and ground-truth camera and pose."""
+
+    index: int
+    fname: Optional[str] = None
+    intrinsics: Optional[object] = None
+    absolute_pose_prior: Optional[object] = None
+    gt_camera: Optional[object] = None
+    gt_pose: Optional[object] = None

@@ -41,6 +41,7 @@ from gtsfm_tpu_torch.frontend.feedforward import (
 )
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler, PinholeCamera
 from gtsfm_tpu_torch.splat.gs_data import GSData
+from gtsfm_tpu_torch.utils.numerics import resolve_device
 
 MIN_TRACKS = 8  # fewer multi-view tracks fall back to depth self-tracks
 
@@ -71,10 +72,10 @@ REDUCED_TRACK = dict(latent_dim=32, hidden_size=48, corr_levels=3, corr_radius=2
                      num_virtual_tracks=8, iters=2, dpt_features=32)
 
 
-def _resolve_model(opts: ClusterFeedforwardOptions, hw: tuple, state_dict=None, device="cpu"):
-    """The cached compact model for ``hw`` on ``device``; a ``state_dict``
-    replaces it."""
-    key = (opts.model, tuple(hw), str(torch.device(device)))
+def _resolve_model(opts: ClusterFeedforwardOptions, hw: tuple, state_dict=None, device="cuda"):
+    """The cached compact model for ``hw`` on ``device`` (the card unless
+    asked for the CPU); a ``state_dict`` replaces it."""
+    key = (opts.model, tuple(hw), str(resolve_device(device)))
     if state_dict is not None or key not in _MODEL_CACHE:
         _MODEL_CACHE[key] = FeedforwardReconstruction(opts.model, state_dict=state_dict, example_hw=hw,
                                                       device=device)
@@ -107,11 +108,14 @@ def pad_to_patch_grid(images: np.ndarray, P: int) -> np.ndarray:
 
 
 class ClusterFeedforward:
+    """The feed-forward cluster optimizer on ``device``: the CUDA card by
+    default, raising without one; pass ``device="cpu"`` for a CPU run."""
+
     def __init__(self, options: ClusterFeedforwardOptions = ClusterFeedforwardOptions(), state_dict=None,
-                 device="cpu"):
+                 device="cuda"):
         self.options = options
         self.state_dict = state_dict
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def run(self, images: np.ndarray, cal) -> tuple:
         """images (B, H, W) grayscale in [0, 1]; cal: batched calibration
@@ -229,7 +233,7 @@ class ClusterFastFeedforward(ClusterFeedforward):
     """The FastVGGT-class slot: the compact model with token-merged global
     attention (``global_kv_stride`` 4 unless the options set more than 1)."""
 
-    def __init__(self, options: Optional[ClusterFeedforwardOptions] = None, state_dict=None, device="cpu"):
+    def __init__(self, options: Optional[ClusterFeedforwardOptions] = None, state_dict=None, device="cuda"):
         if options is None:
             options = ClusterFeedforwardOptions(model=FeedforwardOptions(global_kv_stride=4))
         elif options.model.global_kv_stride <= 1:

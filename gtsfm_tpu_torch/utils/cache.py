@@ -3,8 +3,9 @@
 Port of gtsfm_tpu/utils/cache.py: SHA1 content keys over numpy arrays,
 bytes, strings and numbers, and a pickle store namespaced per stage.
 The stage cachers (frontend/cachers.py, frontend/two_view_cacher.py, the
-cluster cache of scene/hierarchical.py) replay each stage from disk on a
-re-run with the same inputs.
+cluster cache of scene/hierarchical.py, ``DetectorCacher`` here for a
+one-image detector) replay each stage from disk on a re-run with the same
+inputs; ``enabled=False`` turns a cache off.
 
 The default root is the port's own, ``~/.cache/gtsfm_tpu_torch``: entries
 written by the JAX package are never replayed here. Entries hold host
@@ -24,10 +25,14 @@ from __future__ import annotations
 import hashlib
 import os
 import pickle
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from gtsfm_tpu_torch.common.keypoints import Keypoints
+from gtsfm_tpu_torch.utils.convert import to_numpy
+from gtsfm_tpu_torch.utils.numerics import resolve_device
 
 DEFAULT_CACHE_ROOT = os.path.join(os.path.expanduser("~"), ".cache", "gtsfm_tpu_torch")
 
@@ -67,16 +72,21 @@ def _check_host(value: Any) -> None:
 
 class DiskCache:
     """Pickle store keyed by content hash, namespaced per stage. A missing
-    or unreadable entry is a miss."""
+    or unreadable entry is a miss. With ``enabled=False`` no directory is
+    made, every ``get`` misses and ``put`` does nothing."""
 
-    def __init__(self, namespace: str, root: Optional[str] = None):
+    def __init__(self, namespace: str, root: Optional[str] = None, enabled: bool = True):
         self.dir = os.path.join(root or DEFAULT_CACHE_ROOT, namespace)
-        os.makedirs(self.dir, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(self.dir, exist_ok=True)
 
     def _path(self, key: str) -> str:
         return os.path.join(self.dir, f"{key}.pkl")
 
     def get(self, key: str) -> Optional[Any]:
+        if not self.enabled:
+            return None
         p = self._path(key)
         if not os.path.exists(p):
             return None
@@ -87,8 +97,46 @@ class DiskCache:
             return None
 
     def put(self, key: str, value: Any) -> None:
+        if not self.enabled:
+            return
         _check_host(value)
         tmp = self._path(key) + f".{os.getpid()}.tmp"
         with open(tmp, "wb") as f:
             pickle.dump(value, f, protocol=pickle.HIGHEST_PROTOCOL)
         os.replace(tmp, self._path(key))
+
+    def get_or_compute(self, key: str, fn: Callable[[], Any]) -> Any:
+        hit = self.get(key)
+        if hit is not None:
+            return hit
+        value = fn()
+        self.put(key, value)
+        return value
+
+
+class DetectorCacher:
+    """Wraps a detector-descriptor ``detector(image, device=) -> (Keypoints,
+    descriptors)`` for one image: the cache is keyed on the image's content
+    plus the detector's class name and options, and holds host numpy. A
+    miss runs the detector on ``device``, a replay rebuilds the port's
+    ``Keypoints`` and descriptors there; the card by default, raising
+    without one (``numerics.resolve_device``)."""
+
+    def __init__(self, detector, root: Optional[str] = None, enabled: bool = True):
+        self.detector = detector
+        tag = type(detector).__name__ + repr(getattr(detector, "options", ""))
+        self.cache = DiskCache(f"detector/{hashlib.sha1(tag.encode()).hexdigest()[:12]}",
+                               root=root, enabled=enabled)
+
+    def __call__(self, image, device="cuda"):
+        dev = resolve_device(device)
+        key = content_key(np.asarray(to_numpy(image)))
+        hit = self.cache.get(key)
+        if hit is not None:
+            kps_d, desc = hit
+            return (Keypoints(**{f: torch.as_tensor(v, device=dev) for f, v in kps_d.items()}),
+                    torch.as_tensor(desc, device=dev))
+        kps, desc = self.detector(image, device=dev)
+        if self.cache.enabled:
+            self.cache.put(key, (to_numpy(kps), to_numpy(desc)))
+        return kps, desc

@@ -1,15 +1,49 @@
-"""Pose-set comparison.
+"""Rotation, translation and pose-set comparison.
 
-Port of ``compare_global_poses`` from gtsfm_tpu/utils/geometry_comparisons.py
-(the integration-test criterion reported in the ``ba_pose_metrics`` group).
+Port of gtsfm_tpu/utils/geometry_comparisons.py. ``compare_global_poses``
+is the integration-test criterion reported in the ``ba_pose_metrics``
+group. Inputs are tensors or numpy arrays; a numpy array becomes a tensor
+of its own dtype on the CPU, a tensor stays on its device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from gtsfm_tpu_torch.geometry import SE3, so3
 from gtsfm_tpu_torch.geometry.sim3 import align_poses_sim3
+
+
+def compute_relative_rotation_angle(R1, R2) -> float:
+    """Geodesic angle between two rotations in degrees."""
+    R1 = torch.as_tensor(R1)
+    return float(so3.relative_angle_deg(R1, torch.as_tensor(R2, device=R1.device)))
+
+
+def compute_relative_unit_translation_angle(u1, u2) -> float:
+    """Angle between two translation directions (sign-invariant), degrees."""
+    u1, u2 = (np.asarray(torch.as_tensor(u).cpu(), np.float64) for u in (u1, u2))
+    c = abs(np.dot(u1, u2)) / max(np.linalg.norm(u1) * np.linalg.norm(u2), 1e-12)
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def pose_distance(aTb: SE3, aTc: SE3) -> tuple:
+    """(rotation deg, translation L2) between two poses in the same frame."""
+    rot = float(so3.relative_angle_deg(aTb.R, aTc.R))
+    trans = float(torch.linalg.vector_norm(aTb.t - aTc.t))
+    return rot, trans
+
+
+def compare_rotations(wRi_a, wRi_b, angular_error_threshold_deg: float = 5.0) -> bool:
+    """True when the two global-rotation sets (N, 3, 3) agree up to one
+    global rotation (the Karcher mean of Rb Ra^T) within the threshold."""
+    Ra = torch.as_tensor(wRi_a)
+    Rb = torch.as_tensor(wRi_b, device=Ra.device)
+    G = so3.karcher_mean(torch.einsum("nij,nkj->nik", Rb, Ra))
+    aligned = torch.einsum("ij,njk->nik", G, Ra)
+    errs = so3.relative_angle_deg(aligned, Rb).cpu().numpy()
+    return bool(np.all(errs < angular_error_threshold_deg))
 
 
 def compare_global_poses(

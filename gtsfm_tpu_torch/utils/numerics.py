@@ -4,7 +4,9 @@ Port of gtsfm_tpu/utils/numerics.py. On the TPU, geometry code had to pin
 every matmul to HIGHEST precision; on an NVIDIA card the float32 hazard is
 TF32: a float32 matmul may run on the tensor cores with a 10-bit mantissa
 when ``torch.backends.cuda.matmul.allow_tf32`` is set, and cuDNN does so by
-default. ``precise()`` turns both off for a solver stage. Only the matchers'
+default. ``precise()`` turns both off for a solver stage (``einsum`` runs
+under it; the reference's ``HIGHEST`` constant has no counterpart). Only
+the matchers'
 descriptor similarity and LightGlue's transformer run in bf16, and they
 do so explicitly.
 
@@ -113,6 +115,14 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Matmul for small geometry matrices (float32; callers run under
     ``precise()``)."""
     return torch.matmul(a, b)
+
+
+def einsum(subscripts: str, *operands) -> torch.Tensor:
+    """Full-precision einsum: ``torch.einsum`` under ``precise()``, the
+    port's counterpart of the reference's einsum at ``HIGHEST`` (torch has
+    no per-call precision argument)."""
+    with precise():
+        return torch.einsum(subscripts, *operands)
 
 
 class TensorStruct:
@@ -304,6 +314,76 @@ def nullvec_pinned_scalarized(AtA: torch.Tensor) -> torch.Tensor:
     y = torch.stack([M[i][m] for i in range(m)], dim=-1)
     e = torch.cat([y, torch.ones_like(y[..., :1])], dim=-1)
     return e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True), min=1e-20)
+
+
+def nullvec_pinned_from_rows(A8: torch.Tensor) -> torch.Tensor:
+    """``nullvec_pinned_scalarized`` fed from the (..., 8, 9) sample rows:
+    builds the entries of the 9x9 normal matrix that the pinned solve reads
+    (the leading 8x8 block's upper triangle and the pinned column) as
+    batch-shaped tensors and solves without forming the matrix, with one
+    pass of iterative refinement (the residual in float32, corrected
+    through the same elimination). The reference's TPU branch of the
+    essential solver; the port's essential path runs the scalarized solve,
+    the reference's CPU branch."""
+    m = 8
+    a = [[A8[..., k, j] for j in range(9)] for k in range(m)]
+    ent = {}
+    for i in range(m):
+        for j in range(i, m):
+            ent[(i, j)] = sum(a[k][i] * a[k][j] for k in range(m))
+    B = [[ent[(i, j)] if i <= j else ent[(j, i)] for j in range(m)] for i in range(m)]
+    b = [-sum(a[k][i] * a[k][8] for k in range(m)) for i in range(m)]
+
+    def gj_solve(rhs):
+        M = [list(B[i]) + [rhs[i]] for i in range(m)]
+        for k in range(m):
+            piv = M[k][k]
+            inv = torch.where(
+                piv.abs() > 1e-30,
+                1.0 / torch.where(piv == 0, torch.ones_like(piv), piv),
+                torch.full_like(piv, 1e30),
+            )
+            row_k = [M[k][j] * inv for j in range(m + 1)]
+            for i in range(m):
+                if i == k:
+                    M[i] = row_k
+                else:
+                    f = M[i][k]
+                    M[i] = [M[i][j] - f * row_k[j] for j in range(m + 1)]
+        return [M[i][m] for i in range(m)]
+
+    y = gj_solve(b)
+    r = [b[i] - sum(B[i][j] * y[j] for j in range(m)) for i in range(m)]
+    dy = gj_solve(r)
+    ys = torch.stack([y[i] + dy[i] for i in range(m)], dim=-1)
+    e = torch.cat([ys, torch.ones_like(ys[..., :1])], dim=-1)
+    return e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True), min=1e-20)
+
+
+def smallest_eigvec_power(A: torch.Tensor, iters: int = 60, est_iters: int = 12) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of small SPD matrices
+    A (..., n, n) by shifted power iteration: ``est_iters`` steps estimate
+    the largest eigenvalue (a Rayleigh quotient), then ``iters`` steps on
+    1.01 lambda_max I - A, whose top eigenvector is A's bottom one. The
+    start vector is the reference's fixed linspace(1, 2, n), normalized."""
+    n = A.shape[-1]
+    ramp = torch.linspace(1.0, 2.0, n, dtype=torch.float32)
+    v0 = (ramp / torch.linalg.vector_norm(ramp)).to(dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (n,))
+
+    def normalize(v):
+        return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
+
+    with precise():
+        v = v0
+        for _ in range(est_iters):
+            v = normalize(torch.einsum("...ij,...j->...i", A, v))
+        lam_max = torch.sum(v * torch.einsum("...ij,...j->...i", A, v), dim=-1)
+        shift = 1.01 * lam_max[..., None, None] + 1e-12
+        Bm = shift * torch.eye(n, dtype=A.dtype, device=A.device) - A
+        v = v0
+        for _ in range(iters):
+            v = normalize(torch.einsum("...ij,...j->...i", Bm, v))
+    return v
 
 
 def ceil_pow2(n: int, floor: int = 1) -> int:

@@ -177,7 +177,7 @@ def port_vggt_check(R, t, ref: dict) -> dict:
     from gtsfm_tpu_torch.frontend.vggt import VGGTModel
 
     vo, to = chip_smoke.vggt_check_options()
-    model = VGGTModel(vo, state_dict=chip_smoke.vggt_fixture(chip_smoke.VGGT_SEED, vo, to))
+    model = VGGTModel(vo, state_dict=chip_smoke.vggt_fixture(chip_smoke.VGGT_SEED, vo, to), device="cpu")
     images, qp = chip_smoke.vggt_check_inputs(R, t)
     run = {k: v.numpy() for k, v in model.run(images).items()}
     track = {k: v.numpy() for k, v in model.track(images, qp).items()}

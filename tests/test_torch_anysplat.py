@@ -94,7 +94,7 @@ def pair():
     jm = j_as.AnySplatModel(j_vggt.VGGTOptions(**SMALL),
                             splat_options=j_as.AnySplatOptions(max_gaussians=ALL, conf_threshold=0.0))
     sd, head = _split(convert.vggt_state_dict(jax.tree.map(np.asarray, jm.params)))
-    tm = anysplat.AnySplatModel(vggt.VGGTModel(vggt.VGGTOptions(**SMALL), state_dict=sd),
+    tm = anysplat.AnySplatModel(vggt.VGGTModel(vggt.VGGTOptions(**SMALL), state_dict=sd, device="cpu"),
                                 anysplat.AnySplatOptions(max_gaussians=ALL, conf_threshold=0.0), gaussian_head=head)
     return jm, tm
 
@@ -142,12 +142,12 @@ def _cal(B, f=60.0, c=32.0):
 def test_vggt_exact_slot_matches_reference(restore_caches):
     imgs = np.random.default_rng(1).uniform(size=(3, 64, 64)).astype(np.float32)
     jcal, cal = _cal(3)
-    model = vggt.VGGTModel(vggt.VGGTOptions(**cf.REDUCED_VGGT), state_dict=_reference_vggt_exact_sd())
+    model = vggt.VGGTModel(vggt.VGGTOptions(**cf.REDUCED_VGGT), state_dict=_reference_vggt_exact_sd(), device="cpu")
     assert model.track_options == TrackOptions(**{**cf.REDUCED_TRACK, "iters": 4})
     cf._MODEL_CACHE[("vggt_exact", "", (64, 64), "cpu")] = model
     opts = dict(backbone="vggt_exact", run_post_ba=False, conf_threshold=0.3)
     want, wm, (wp, wd, wc) = j_cf.ClusterFeedforward(j_cf.ClusterFeedforwardOptions(**opts)).run_raw(imgs, jcal)
-    got, gm, (tp, td, tc) = cf.ClusterFeedforward(cf.ClusterFeedforwardOptions(**opts)).run_raw(imgs, cal)
+    got, gm, (tp, td, tc) = cf.ClusterFeedforward(cf.ClusterFeedforwardOptions(**opts), device="cpu").run_raw(imgs, cal)
     np.testing.assert_allclose(tp.R.numpy(), np.asarray(wp.R), atol=TOL_CAM)
     np.testing.assert_allclose(tp.t.numpy(), np.asarray(wp.t), atol=TOL_CAM)
     np.testing.assert_allclose(td, np.asarray(wd), rtol=TOL, atol=TOL)
@@ -166,7 +166,7 @@ def test_anysplat_slot_splats_match_reference(restore_caches, monkeypatch):
     jcal, cal = _cal(2)
     sd = _reference_vggt_exact_sd()
     cf._MODEL_CACHE[("vggt_exact", "", (64, 64), "cpu")] = vggt.VGGTModel(vggt.VGGTOptions(**cf.REDUCED_VGGT),
-                                                                          state_dict=sd)
+                                                                          state_dict=sd, device="cpu")
     j_head = j_as.init_gaussian_head(jax.random.PRNGKey(1), j_vggt.VGGTOptions(**cf.REDUCED_VGGT))
     _, head = _split(convert.vggt_state_dict({**jax.tree.map(np.asarray, {"gaussian_head": j_head}),
                                               **_reference_params_stub()}))
@@ -174,7 +174,7 @@ def test_anysplat_slot_splats_match_reference(restore_caches, monkeypatch):
     opts = dict(backbone="vggt_exact", run_post_ba=False, conf_threshold=0.0)
     jo, to = j_cf.ClusterFeedforwardOptions(**opts), cf.ClusterFeedforwardOptions(**opts)
     want = JSceneOptimizer._feedforward_splats(j_cf.ClusterFeedforward(jo), imgs, None, None, jcal, None, jo)
-    got = SceneOptimizer._feedforward_splats(cf.ClusterFeedforward(to), imgs, None, None, cal, None, to)
+    got = SceneOptimizer._feedforward_splats(cf.ClusterFeedforward(to, device="cpu"), imgs, None, None, cal, None, to)
     assert got.max_gaussians == ALL
     _assert_gaussian_sets_equal(got, want)
 

@@ -902,7 +902,7 @@ def test_feedforward_models_on_the_card_equal_the_cpu():
     rng = np.random.default_rng(0)
     imgs = rng.uniform(0, 1, (3, 70, 84, 3)).astype(np.float32)
     qp = rng.uniform(4, 60, (9, 2)).astype(np.float32)
-    host = VGGTModel(VGGTOptions(**REDUCED_VGGT), seed=0, track_options=TrackOptions(**REDUCED_TRACK))
+    host = VGGTModel(VGGTOptions(**REDUCED_VGGT), seed=0, track_options=TrackOptions(**REDUCED_TRACK), device="cpu")
     card = VGGTModel(VGGTOptions(**REDUCED_VGGT), state_dict=host.net.state_dict(), device="cuda")
     want, got = host.run(imgs), {k: v.cpu() for k, v in card.run(imgs).items()}
     for k, tol in (("extrinsic", 2e-4), ("intrinsic", 2e-4), ("depth", 5e-4), ("depth_conf", 5e-4)):

@@ -74,7 +74,8 @@ def test_net_matches_reference(stride):
     imgs = _images()
     want = [np.asarray(a) for a in j_ff.FeedforwardNet(o).apply({"params": params}, jnp.asarray(imgs))]
     rec = ff.FeedforwardReconstruction(ff.FeedforwardOptions(**SMALL, global_kv_stride=stride),
-                                       state_dict=convert.feedforward_state_dict(params), example_hw=HW)
+                                       state_dict=convert.feedforward_state_dict(params), example_hw=HW,
+                                       device="cpu")
     with torch.no_grad():
         got = [a.numpy() for a in rec.net(torch.as_tensor(imgs))]
     for name, g, w in zip(("pose", "depth", "conf", "track_feat"), got, want):
@@ -93,7 +94,7 @@ def test_net_matches_reference(stride):
 def test_more_frames_than_the_frame_embedding_raise():
     _o, params = _params(1, (32, 32))
     rec = ff.FeedforwardReconstruction(ff.FeedforwardOptions(**SMALL), convert.feedforward_state_dict(params),
-                                       example_hw=(32, 32))
+                                       example_hw=(32, 32), device="cpu")
     with pytest.raises(ValueError, match="32 rows"):
         rec.run(_images(33, (32, 32)))
 
@@ -170,7 +171,7 @@ def test_cluster_slot_matches_reference(restore_caches, fast):
         to = cf.ClusterFeedforwardOptions(model=ff.FeedforwardOptions(**SMALL, global_kv_stride=stride),
                                           conf_threshold=0.3, run_post_ba=post_ba)
         want, wm = jcls(jo, params=params).run(imgs, jcal)
-        got, gm = tcls(to, state_dict=sd).run(imgs, cal)
+        got, gm = tcls(to, state_dict=sd, device="cpu").run(imgs, cal)
         assert gm["num_tracks_ff"] == wm["num_tracks_ff"] > 4
         if not post_ba:
             _assert_sfm_equal(got, want, TOL)

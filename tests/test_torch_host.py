@@ -139,3 +139,43 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     assert SceneOptimizer(SceneOptimizerOptions(device="cpu"), **stub).device == torch.device("cpu")
     assert GaussianSplatting(device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _feedforward_entry(name):
+    """(constructor taking ``device=``, the module its parameters live in)
+    for each feed-forward, VGGT and PatchmatchNet entry point, at reduced
+    widths."""
+    from gtsfm_tpu_torch.densify import patchmatchnet
+    from gtsfm_tpu_torch.frontend.feedforward import FeedforwardOptions, FeedforwardReconstruction
+    from gtsfm_tpu_torch.frontend.vggt import VGGTModel, VGGTOptions
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+
+    small = FeedforwardOptions(dim=64, depth=1, num_heads=2)
+    return {
+        "ClusterFeedforward": (lambda **kw: cf.ClusterFeedforward(**kw), None),
+        "ClusterFastFeedforward": (lambda **kw: cf.ClusterFastFeedforward(**kw), None),
+        "FeedforwardReconstruction": (lambda **kw: FeedforwardReconstruction(small, example_hw=(32, 32), **kw),
+                                      lambda m: m.net),
+        "VGGTModel": (lambda **kw: VGGTModel(VGGTOptions(**cf.REDUCED_VGGT), **kw), lambda m: m.net),
+        "build_net": (lambda **kw: patchmatchnet.build_net(chip_smoke.pmnet_fixture(0), **kw), lambda m: m),
+        "_resolve_model": (lambda **kw: cf._resolve_model(cf.ClusterFeedforwardOptions(model=small), (32, 32), **kw),
+                           lambda m: m.net),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["ClusterFeedforward", "ClusterFastFeedforward", "FeedforwardReconstruction",
+                                  "VGGTModel", "build_net", "_resolve_model"])
+def test_feedforward_vggt_and_patchmatchnet_default_to_the_card(name, monkeypatch):
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
+
+    make, module = _feedforward_entry(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cf, "_MODEL_CACHE", {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    built = make(device="cpu")
+    if module is None:
+        assert built.device == torch.device("cpu")
+    else:
+        devices = {p.device for p in module(built).parameters()}
+        assert devices == {torch.device("cpu")}

@@ -54,7 +54,7 @@ def weights():
 
 
 def _net(sd) -> pm.PatchmatchNet:
-    return pm.build_net(sd)
+    return pm.build_net(sd, device="cpu")
 
 
 def _inputs(seed=0):

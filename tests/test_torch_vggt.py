@@ -57,7 +57,7 @@ def models():
     params["track_head"] = jax.tree.map(np.asarray, j_track.init_track_params(
         jax.random.PRNGKey(1), j_track.TrackOptions(**TRACK), jo))
     sd = convert.vggt_state_dict(params)
-    port = vggt.VGGTModel(vggt.VGGTOptions(**OPTS), state_dict=sd)
+    port = vggt.VGGTModel(vggt.VGGTOptions(**OPTS), state_dict=sd, device="cpu")
     return jo, params, port
 
 

@@ -42,6 +42,7 @@ from gtsfm_tpu_torch.frontend.verifiers.fundamental import (
 )
 from gtsfm_tpu_torch.geometry import so3
 from gtsfm_tpu_torch.utils.numerics import TensorStruct, mm, precise
+from gtsfm_tpu_torch.utils.tracing import span
 
 
 class TwoViewOptions(NamedTuple):
@@ -130,7 +131,7 @@ def run_two_view_batch(
     descriptor similarities otherwise do. Draws not passed in come from
     ``draw_samples``. With ``mesh``, every rank of this rank's model group
     makes the same call (fused_matcher's row split)."""
-    with precise():
+    with precise(), span("verify", kp_xy1.shape[0]):
         P, K, _ = kp_xy1.shape
         dev = kp_xy1.device
         if pair_ids is None:
@@ -138,9 +139,10 @@ def run_two_view_batch(
         if match_idx is not None:
             midx, mmask, mscore = match_idx, match_mask, match_score
         else:
-            midx, mmask, mscore = fused_match_descriptors(
-                desc1, desc2, kp_mask1, kp_mask2, ratio=opts.matching_ratio, mesh=mesh
-            )
+            with span("verify.mutual_nn"):
+                midx, mmask, mscore = fused_match_descriptors(
+                    desc1, desc2, kp_mask1, kp_mask2, ratio=opts.matching_ratio, mesh=mesh
+                )
         corr_i1 = torch.arange(K, dtype=torch.int32, device=dev).expand(P, K)
         corr_i2 = torch.where(mmask, midx, 0)
         uv2 = torch.gather(kp_xy2, 1, corr_i2.to(torch.int64)[..., None].expand(P, K, 2))
@@ -154,30 +156,33 @@ def run_two_view_batch(
         thresh = opts.threshold_px / torch.clamp(f_mean, min=1e-6)  # (P,)
 
         if sample_idx is None or (h_sample_idx is None and opts.homography_degeneracy_ratio > 0):
-            drawn = draw_samples(mmask, mscore, pair_mask, opts, seed, pair_ids)
+            with span("verify.draw"):
+                drawn = draw_samples(mmask, mscore, pair_mask, opts, seed, pair_ids)
             sample_idx = drawn[0] if sample_idx is None else sample_idx
             h_sample_idx = drawn[1] if h_sample_idx is None else h_sample_idx
-        out = ransac_essential(x1, x2, cmask, thresh, opts=opts.ransac, sample_idx=sample_idx)
+        with span("verify.ransac"):
+            out = ransac_essential(x1, x2, cmask, thresh, opts=opts.ransac, sample_idx=sample_idx)
         R, t, inl = out["i2Ri1"], out["i2Ui1"], out["inliers"]
 
         if opts.run_two_view_ba:
-            # keep-best guard: never let the refinement reduce MSAC quality
-            def quality(R_, t_):
-                err_ = _sampson_error(mm(so3.hat(t_), R_), x1, x2)
-                gain = torch.clamp(thresh[:, None] ** 2 - err_, min=0.0)
-                return torch.sum(torch.where(cmask, gain, torch.zeros_like(gain)), dim=-1)
+            with span("verify.refine"):
+                # keep-best guard: never let the refinement reduce MSAC quality
+                def quality(R_, t_):
+                    err_ = _sampson_error(mm(so3.hat(t_), R_), x1, x2)
+                    gain = torch.clamp(thresh[:, None] ** 2 - err_, min=0.0)
+                    return torch.sum(torch.where(cmask, gain, torch.zeros_like(gain)), dim=-1)
 
-            q_pre, R_pre, t_pre, inl_pre = quality(R, t), R, t, inl
-            R, t = _refine_essential(
-                x1, x2, inl.to(x1.dtype), R, t, opts.ba_iterations, opts.ba_huber, thresh
-            )
-            E = mm(so3.hat(t), R)
-            inl = cmask & (_sampson_error(E, x1, x2) < thresh[:, None] ** 2)
-            R, t = recover_pose_from_essential(E, x1, x2, inl.to(x1.dtype))
-            worse = quality(R, t) < q_pre
-            R = torch.where(worse[:, None, None], R_pre, R)
-            t = torch.where(worse[:, None], t_pre, t)
-            inl = torch.where(worse[:, None], inl_pre, inl)
+                q_pre, R_pre, t_pre, inl_pre = quality(R, t), R, t, inl
+                R, t = _refine_essential(
+                    x1, x2, inl.to(x1.dtype), R, t, opts.ba_iterations, opts.ba_huber, thresh
+                )
+                E = mm(so3.hat(t), R)
+                inl = cmask & (_sampson_error(E, x1, x2) < thresh[:, None] ** 2)
+                R, t = recover_pose_from_essential(E, x1, x2, inl.to(x1.dtype))
+                worse = quality(R, t) < q_pre
+                R = torch.where(worse[:, None, None], R_pre, R)
+                t = torch.where(worse[:, None], t_pre, t)
+                inl = torch.where(worse[:, None], inl_pre, inl)
 
         n_match = cmask.sum(-1)
         n_inl = inl.sum(-1)
@@ -191,18 +196,20 @@ def run_two_view_batch(
         nan = torch.full((P,), float("nan"), device=dev)
         eig_ratio, hf_ratio = nan, nan
         if opts.indeterminacy_eig_ratio > 0:
-            min_eig, max_eig = essential_information_spectrum(x1, x2, inl.to(x1.dtype), R, t)
-            max_eig = torch.clamp(max_eig, min=1e-12)
-            valid = valid & (min_eig > opts.indeterminacy_eig_ratio * max_eig)
-            eig_ratio = min_eig / max_eig
+            with span("verify.checks"):
+                min_eig, max_eig = essential_information_spectrum(x1, x2, inl.to(x1.dtype), R, t)
+                max_eig = torch.clamp(max_eig, min=1e-12)
+                valid = valid & (min_eig > opts.indeterminacy_eig_ratio * max_eig)
+                eig_ratio = min_eig / max_eig
         if opts.homography_degeneracy_ratio > 0:
-            h_out = ransac_homography(
-                kp_xy1, uv2, cmask, threshold_px=opts.threshold_px, num_hypotheses=opts.homography_hypotheses,
-                sample_idx=h_sample_idx,
-            )
-            degenerate, hf_ratio = gric_select_model(inl, h_out["inliers"], cmask,
-                                                     h_f_inlier_ratio_threshold=opts.homography_degeneracy_ratio)
-            valid = valid & ~degenerate
+            with span("verify.checks"):
+                h_out = ransac_homography(
+                    kp_xy1, uv2, cmask, threshold_px=opts.threshold_px, num_hypotheses=opts.homography_hypotheses,
+                    sample_idx=h_sample_idx,
+                )
+                degenerate, hf_ratio = gric_select_model(
+                    inl, h_out["inliers"], cmask, h_f_inlier_ratio_threshold=opts.homography_degeneracy_ratio)
+                valid = valid & ~degenerate
         return TwoViewResult(
             i2Ri1=R, i2Ui1=t, corr_i1=corr_i1, corr_i2=corr_i2.to(torch.int32),
             corr_mask=inl & valid[:, None], num_matches=n_match.to(torch.int32),

@@ -36,6 +36,7 @@ from gtsfm_tpu_torch.utils.numerics import (
     nullvec_pinned_scalarized,
     precise,
 )
+from gtsfm_tpu_torch.utils.tracing import span
 
 # stage tags of the counter-based random streams
 TAG_POOL_TIE = 1
@@ -286,18 +287,20 @@ def ransac_essential(
         sample_idx = sample_minimal_sets(mask, sample_weights, opts.num_hypotheses, seed, stream_ids)
     H = sample_idx.shape[1]
 
-    p1h, p2h = _homog(x1), _homog(x2)
-    A_rows = (p2h[..., :, None] * p1h[..., None, :]).flatten(-2)  # (P, K, 9)
-    A_rows = A_rows / torch.clamp(torch.linalg.vector_norm(A_rows, dim=-1, keepdim=True), min=1e-12)
-    A_rows = A_rows * maskf[..., None]
-    A8 = torch.gather(A_rows, 1, sample_idx.reshape(P, H * 8, 1).expand(P, H * 8, 9).to(torch.int64))
-    A8 = A8.reshape(P, H, 8, 9)
-    AtA_h = torch.einsum("phkr,phks->phrs", A8, A8)
-    E_hyps = nullvec_pinned_scalarized(AtA_h).reshape(P, H, 3, 3)
+    with span("ransac.hypotheses"):
+        p1h, p2h = _homog(x1), _homog(x2)
+        A_rows = (p2h[..., :, None] * p1h[..., None, :]).flatten(-2)  # (P, K, 9)
+        A_rows = A_rows / torch.clamp(torch.linalg.vector_norm(A_rows, dim=-1, keepdim=True), min=1e-12)
+        A_rows = A_rows * maskf[..., None]
+        A8 = torch.gather(A_rows, 1, sample_idx.reshape(P, H * 8, 1).expand(P, H * 8, 9).to(torch.int64))
+        A8 = A8.reshape(P, H, 8, 9)
+        AtA_h = torch.einsum("phkr,phks->phrs", A8, A8)
+        E_hyps = nullvec_pinned_scalarized(AtA_h).reshape(P, H, 3, 3)
 
-    votes = hypothesis_votes(E_hyps, x1, x2, mask, thresh2, opts)
-    best = torch.argmax(votes, dim=-1)  # first maximum, as jnp.argmax
-    E_best = torch.gather(E_hyps, 1, best[:, None, None, None].expand(P, 1, 3, 3))[:, 0]
+    with span("ransac.score"):
+        votes = hypothesis_votes(E_hyps, x1, x2, mask, thresh2, opts)
+        best = torch.argmax(votes, dim=-1)  # first maximum, as jnp.argmax
+        E_best = torch.gather(E_hyps, 1, best[:, None, None, None].expand(P, 1, 3, 3))[:, 0]
 
     # full-set model quality of LO and the dual-start pick: the inlier
     # count under "inliers", the MSAC gain otherwise
@@ -321,36 +324,39 @@ def ransac_essential(
         mults = torch.linspace(2.0, 1.0, opts.lo_rounds, dtype=torch.float32).tolist()
     else:
         mults = [1.0] * opts.lo_rounds
-    # dual-start LO: the raw hypothesis and its manifold projection
-    E_a = E_best
-    E_b = _project_essential(E_best)
-    for m in mults:
-        E_a = lo_round(E_a, m)
-    for m in mults:
-        E_b = lo_round(E_b, m)
-    q_a = quality(_sampson_error(E_a, x1, x2))
-    q_b = quality(_sampson_error(E_b, x1, x2))
-    E_final = torch.where((q_a >= q_b)[:, None, None], E_a, E_b)
-    inliers = mask & (_sampson_error(E_final, x1, x2) < thresh2[:, None])
+    with span("ransac.lo"):
+        # dual-start LO: the raw hypothesis and its manifold projection
+        E_a = E_best
+        E_b = _project_essential(E_best)
+        for m in mults:
+            E_a = lo_round(E_a, m)
+        for m in mults:
+            E_b = lo_round(E_b, m)
+        q_a = quality(_sampson_error(E_a, x1, x2))
+        q_b = quality(_sampson_error(E_b, x1, x2))
+        E_final = torch.where((q_a >= q_b)[:, None, None], E_a, E_b)
+        inliers = mask & (_sampson_error(E_final, x1, x2) < thresh2[:, None])
 
-    R0, t0 = recover_pose_from_essential(E_final, x1, x2, inliers.to(x1.dtype))
-    if opts.polish_iterations > 0:
-        thresh = torch.sqrt(thresh2)
-        E_pre, R_pre, t_pre, inl_pre = E_final, R0, t0, inliers
-        q_pre = quality(_sampson_error(E_pre, x1, x2))
-        for _ in range(2):
-            R0, t0 = _refine_essential(
-                x1, x2, inliers.to(x1.dtype), R0, t0,
-                opts.polish_iterations, opts.polish_huber, thresh,
-            )
-            E_final = mm(so3.hat(t0), R0)
-            inliers = mask & (_sampson_error(E_final, x1, x2) < thresh2[:, None])
+    with span("ransac.pose"):
         R0, t0 = recover_pose_from_essential(E_final, x1, x2, inliers.to(x1.dtype))
-        worse = quality(_sampson_error(E_final, x1, x2)) < q_pre
-        E_final = torch.where(worse[:, None, None], E_pre, E_final)
-        R0 = torch.where(worse[:, None, None], R_pre, R0)
-        t0 = torch.where(worse[:, None], t_pre, t0)
-        inliers = torch.where(worse[:, None], inl_pre, inliers)
+    if opts.polish_iterations > 0:
+        with span("ransac.polish"):
+            thresh = torch.sqrt(thresh2)
+            E_pre, R_pre, t_pre, inl_pre = E_final, R0, t0, inliers
+            q_pre = quality(_sampson_error(E_pre, x1, x2))
+            for _ in range(2):
+                R0, t0 = _refine_essential(
+                    x1, x2, inliers.to(x1.dtype), R0, t0,
+                    opts.polish_iterations, opts.polish_huber, thresh,
+                )
+                E_final = mm(so3.hat(t0), R0)
+                inliers = mask & (_sampson_error(E_final, x1, x2) < thresh2[:, None])
+            R0, t0 = recover_pose_from_essential(E_final, x1, x2, inliers.to(x1.dtype))
+            worse = quality(_sampson_error(E_final, x1, x2)) < q_pre
+            E_final = torch.where(worse[:, None, None], E_pre, E_final)
+            R0 = torch.where(worse[:, None, None], R_pre, R0)
+            t0 = torch.where(worse[:, None], t_pre, t0)
+            inliers = torch.where(worse[:, None], inl_pre, inliers)
     num_inliers = inliers.sum(-1)
     return {
         "i2Ri1": R0,

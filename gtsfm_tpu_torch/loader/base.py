@@ -24,6 +24,7 @@ from PIL.ExifTags import TAGS
 from gtsfm_tpu_torch.common.image import Image, rgb_to_gray
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
 from gtsfm_tpu_torch.geometry.calibration import CALIBRATION_TYPES
+from gtsfm_tpu_torch.utils.tracing import span
 
 _EXIF_IFD = 0x8769  # the Exif sub-IFD: FocalLength and friends live there
 
@@ -93,14 +94,16 @@ class LoaderBase:
         return self.max_resolution / short
 
     def get_image(self, index: int) -> Image:
-        img = self._get_image_full_res(index)
+        with span("load.read", 1):
+            img = self._get_image_full_res(index)
         s = self._scale_for(index, img.height, img.width)
         self._scale_cache[index] = s
         if s == 1.0:
             return img
         new_h, new_w = int(round(img.height * s)), int(round(img.width * s))
-        return Image(value_array=_resize(img.value_array, new_h, new_w), exif_data=img.exif_data,
-                     file_name=img.file_name)
+        with span("load.resize", 1):
+            arr = _resize(img.value_array, new_h, new_w)
+        return Image(value_array=arr, exif_data=img.exif_data, file_name=img.file_name)
 
     def get_camera_intrinsics(self, index: int):
         cal = self._get_intrinsics_full_res(index)
@@ -122,15 +125,21 @@ class LoaderBase:
         at least ``pad_to`` = (H, W) when given, list of (orig_h, orig_w))."""
         if indices is None:
             indices = range(len(self))
-        grays = [rgb_to_gray(self.get_image(i).value_array) for i in indices]
-        sizes = [(g.shape[0], g.shape[1]) for g in grays]
-        H = max(s[0] for s in sizes)
-        W = max(s[1] for s in sizes)
-        if pad_to is not None:
-            H, W = max(H, pad_to[0]), max(W, pad_to[1])
-        batch = np.zeros((len(grays), H, W), np.float32)
-        for b, g in enumerate(grays):
-            batch[b, : g.shape[0], : g.shape[1]] = g
+        with span("load", len(indices)):
+            grays = []
+            for i in indices:
+                rgb = self.get_image(i).value_array
+                with span("load.gray", 1):
+                    grays.append(rgb_to_gray(rgb))
+            sizes = [(g.shape[0], g.shape[1]) for g in grays]
+            H = max(s[0] for s in sizes)
+            W = max(s[1] for s in sizes)
+            if pad_to is not None:
+                H, W = max(H, pad_to[0]), max(W, pad_to[1])
+            with span("load.pad", len(grays)):
+                batch = np.zeros((len(grays), H, W), np.float32)
+                for b, g in enumerate(grays):
+                    batch[b, : g.shape[0], : g.shape[1]] = g
         return batch, sizes
 
     def get_all_intrinsics(self):

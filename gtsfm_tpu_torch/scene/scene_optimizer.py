@@ -63,7 +63,21 @@ matcher, no two-view cache, no bridge reconnection).
 With ``telemetry_db`` the per-pair two-view results, the stage timings and
 the run's metadata go to a sqlite file (common/telemetry.py). ``run`` is
 traced with ``torch.profiler`` when ``GTSFM_TPU_TRACE`` names a directory
-(utils/tracing.py). Stage times are logged (utils/logger.py).
+(utils/tracing.py): ``<dir>/scene_optimizer_run/trace.json`` holds the
+device's activity with the host spans below, ``spans.json`` beside it the
+spans alone. Stage times are logged (utils/logger.py) and come from the
+spans ``stage.detect_describe``, ``stage.retriever`` and
+``stage.two_view``.
+
+The front end marks its host stages with spans (utils/tracing.py), which
+record only while a ``torch.profiler`` records in the process:
+``load_detect`` (a root per call: the loader's ``load`` with
+``load.read`` / ``load.resize`` / ``load.gray`` / ``load.pad``, the image
+upload, ``detect`` with one ``detect.net`` per detector batch, and
+``global_descriptor``) and ``two_view`` (a root per call: the upload, one
+``two_view.chunk`` per chunk with the learned matcher's ``match`` and the
+verifier's ``verify``, whose stages two_view.py and
+verifiers/essential.py mark).
 
 In a ``torch.distributed`` world of more than one rank (the runner's
 ``--distributed_*`` flags) with ``use_mesh``, the ranks form a (data, model)
@@ -138,7 +152,7 @@ from gtsfm_tpu_torch.utils.ellipsoid import align_scene_to_axes
 from gtsfm_tpu_torch.utils.geometry_comparisons import compare_global_poses
 from gtsfm_tpu_torch.utils.logger import get_logger
 from gtsfm_tpu_torch.utils.numerics import precise, resolve_device
-from gtsfm_tpu_torch.utils.tracing import device_trace
+from gtsfm_tpu_torch.utils.tracing import Span, device_trace, span
 from gtsfm_tpu_torch.utils.tracks import tracks_from_sfm_data
 from gtsfm_tpu_torch.visualization.viewer import export_scene_html
 from gtsfm_tpu_torch.visualization.viz import plot_scene_3d
@@ -269,61 +283,63 @@ class SceneOptimizer:
         direct = self.correspondence is not None
         synthetic = direct and getattr(self.correspondence, "requires_gt", False)
 
-        t0 = time.perf_counter()
-        cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
-        want_global = isinstance(self.retriever, (SimilarityRetriever, JointSimilaritySequentialRetriever))
-        kp_xy, kp_mask, descs, global_descs, sizes, images = self._load_detect_chunked(
-            loader, want_global, detect=not direct,
-            keep_images=opts.run_mvs or opts.run_gs or (direct and not synthetic))
-        detect_sec = time.perf_counter() - t0
+        with Span("stage.detect_describe", n) as clock:
+            cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
+            want_global = isinstance(self.retriever, (SimilarityRetriever, JointSimilaritySequentialRetriever))
+            kp_xy, kp_mask, descs, global_descs, sizes, images = self._load_detect_chunked(
+                loader, want_global, detect=not direct,
+                keep_images=opts.run_mvs or opts.run_gs or (direct and not synthetic))
+        detect_sec = clock.seconds
         logger.info("detect+describe: %d images in %.1fs", n, detect_sec)
 
-        t0 = time.perf_counter()
-        pairs = np.asarray(self.retriever.get_image_pairs(n, global_descriptors=global_descs, loader=loader),
-                           np.int64).reshape(-1, 2)
-        retriever_sec = time.perf_counter() - t0
+        with Span("stage.retriever") as clock:
+            pairs = np.asarray(self.retriever.get_image_pairs(n, global_descriptors=global_descs, loader=loader),
+                               np.int64).reshape(-1, 2)
+        retriever_sec = clock.seconds
 
-        t0 = time.perf_counter()
-        gt = loader.get_gt_poses()
-        if gt is not None:
-            gt = gt.map(lambda a: a.to(self.device))
-        pair_matches = None
-        if synthetic:
-            # synthetic correspondences from GT geometry through the
-            # production two-view and back-end path
-            if gt is None:
-                raise ValueError("the synthetic correspondence generator needs the loader's GT poses")
-            syn = self.correspondence.generate(gt, cal, pairs, [(w, h) for (h, w) in sizes])
-            kp_xy, kp_mask = syn["keypoints_xy"], syn["kp_mask"]
-            pair_matches = (syn["corr_i1"], syn["corr_i2"], syn["corr_mask"])
-            descs = np.zeros((n, kp_xy.shape[1], 4), np.float32)
-        elif direct:
-            # per-pair correspondences of the pairs' images, merged into
-            # global keypoints; the matches are the aggregator's per-pair
-            # index triples
-            pair_corrs = self.correspondence.generate([images[i][:h, :w] for i, (h, w) in enumerate(sizes)], pairs)
-            agg = KeypointAggregatorDedup(AggregatorOptions(max_keypoints_per_image=opts.direct_max_keypoints))
-            kp_xy, kp_mask, pair_matches = agg.aggregate(n, pair_corrs)
-            descs = np.zeros((n, kp_xy.shape[1], 4), np.float32)
-        image_wh = (max(w for (_h, w) in sizes), max(h for (h, _w) in sizes))
-        tvr = self._run_two_view(pairs, kp_xy, kp_mask, descs, cal, image_wh, pair_matches)
+        with Span("stage.two_view") as clock:
+            gt = loader.get_gt_poses()
+            if gt is not None:
+                gt = gt.map(lambda a: a.to(self.device))
+            pair_matches = None
+            if synthetic:
+                # synthetic correspondences from GT geometry through the
+                # production two-view and back-end path
+                if gt is None:
+                    raise ValueError("the synthetic correspondence generator needs the loader's GT poses")
+                syn = self.correspondence.generate(gt, cal, pairs, [(w, h) for (h, w) in sizes])
+                kp_xy, kp_mask = syn["keypoints_xy"], syn["kp_mask"]
+                pair_matches = (syn["corr_i1"], syn["corr_i2"], syn["corr_mask"])
+                descs = np.zeros((n, kp_xy.shape[1], 4), np.float32)
+            elif direct:
+                # per-pair correspondences of the pairs' images, merged into
+                # global keypoints; the matches are the aggregator's per-pair
+                # index triples
+                pair_corrs = self.correspondence.generate(
+                    [images[i][:h, :w] for i, (h, w) in enumerate(sizes)], pairs)
+                agg = KeypointAggregatorDedup(AggregatorOptions(max_keypoints_per_image=opts.direct_max_keypoints))
+                kp_xy, kp_mask, pair_matches = agg.aggregate(n, pair_corrs)
+                descs = np.zeros((n, kp_xy.shape[1], 4), np.float32)
+            image_wh = (max(w for (_h, w) in sizes), max(h for (h, _w) in sizes))
+            tvr = self._run_two_view(pairs, kp_xy, kp_mask, descs, cal, image_wh, pair_matches)
 
-        # bridge reconnection: if the valid graph split into islands, add the
-        # most similar cross-component pairs (by the retriever's similarity
-        # matrix) and estimate them too (not in the direct branch: new pairs
-        # would need new correspondences)
-        sim = None if direct else getattr(self.retriever, "latest_similarity_matrix", None)
-        if opts.reconnect_bridges and sim is not None:
-            bridges = find_bridge_pairs(n, pairs[tvr.valid.cpu().numpy()], sim)
-            existing = {tuple(p) for p in pairs.tolist()}
-            bridges = np.asarray([b for b in bridges.tolist() if tuple(b) not in existing], np.int64).reshape(-1, 2)
-            if len(bridges):
-                tvr_b = self._run_two_view(bridges, kp_xy, kp_mask, descs, cal, image_wh)
-                pairs = np.concatenate([pairs, bridges])
-                tvr = TwoViewResult(**{k: torch.cat([getattr(tvr, k), getattr(tvr_b, k)])
-                                       for k in TwoViewResult.__dataclass_fields__})
-        host = {k: getattr(tvr, k).cpu().numpy() for k in TwoViewResult.__dataclass_fields__}
-        frontend_sec = time.perf_counter() - t0
+            # bridge reconnection: if the valid graph split into islands, add the
+            # most similar cross-component pairs (by the retriever's similarity
+            # matrix) and estimate them too (not in the direct branch: new pairs
+            # would need new correspondences)
+            sim = None if direct else getattr(self.retriever, "latest_similarity_matrix", None)
+            if opts.reconnect_bridges and sim is not None:
+                bridges = find_bridge_pairs(n, pairs[tvr.valid.cpu().numpy()], sim)
+                existing = {tuple(p) for p in pairs.tolist()}
+                bridges = np.asarray([b for b in bridges.tolist() if tuple(b) not in existing],
+                                     np.int64).reshape(-1, 2)
+                if len(bridges):
+                    tvr_b = self._run_two_view(bridges, kp_xy, kp_mask, descs, cal, image_wh)
+                    pairs = np.concatenate([pairs, bridges])
+                    tvr = TwoViewResult(**{k: torch.cat([getattr(tvr, k), getattr(tvr_b, k)])
+                                           for k in TwoViewResult.__dataclass_fields__})
+            host = {k: getattr(tvr, k).cpu().numpy() for k in TwoViewResult.__dataclass_fields__}
+        frontend_sec = clock.seconds
         logger.info("two-view: %d pairs (%d valid) in %.1fs", len(pairs), int(host["valid"].sum()), frontend_sec)
         groups.append(MetricsGroup("frontend_summary", [
             Metric("num_input_images", n),
@@ -581,19 +597,23 @@ class SceneOptimizer:
         n = len(loader)
         C = self.options.load_chunk_size if self.options.load_chunk_size and not keep_images else n
         detections, gdescs, sizes, kept = [], [], [], None
-        for s in range(0, n, C):
-            images, csizes = loader.load_grayscale_batch(indices=range(s, min(s + C, n)))
-            images_dev = torch.as_tensor(images, device=self.device)
-            kept = images if keep_images else None
-            del images
-            if detect:
-                detections.append(self._detect_batch(images_dev, csizes))
-            if want_global_descs:
-                gdescs.append(self._global_descriptor().describe_batch(images_dev))
-            sizes += csizes
-            del images_dev
-        kp_xy, kp_mask, descs = (np.concatenate(a) for a in zip(*detections)) if detect else (None, None, None)
-        return kp_xy, kp_mask, descs, np.concatenate(gdescs) if gdescs else None, sizes, kept
+        with span("load_detect", n):
+            for s in range(0, n, C):
+                images, csizes = loader.load_grayscale_batch(indices=range(s, min(s + C, n)))
+                with span("load_detect.upload", len(csizes)):
+                    images_dev = torch.as_tensor(images, device=self.device)
+                kept = images if keep_images else None
+                del images
+                if detect:
+                    detections.append(self._detect_batch(images_dev, csizes))
+                if want_global_descs:
+                    with span("global_descriptor", len(csizes)):
+                        gdescs.append(self._global_descriptor().describe_batch(images_dev))
+                sizes += csizes
+                del images_dev
+            kp_xy, kp_mask, descs = (np.concatenate(a) for a in zip(*detections)) if detect else (None, None, None)
+            gdescs = np.concatenate(gdescs) if gdescs else None
+        return kp_xy, kp_mask, descs, gdescs, sizes, kept
 
     def _detect_batch(self, images: torch.Tensor, sizes):
         """Chunked detection of the (n, H, W) batch on the run's device
@@ -602,35 +622,37 @@ class SceneOptimizer:
         a host copy of the images subsampled by 8, the sizes, the detector's
         class (the net's, inside a batched CNN adapter) and its keypoint
         count."""
-        if self._detect_cache is not None:
-            # a batched CNN detector's adapter is keyed by the net inside it
-            net = getattr(self.detector, "detector", self.detector)
-            key = content_key(images[:, ::8, ::8].cpu().numpy(), np.asarray(sizes), type(net).__name__,
-                              self.detector.max_keypoints)
-            hit = self._detect_cache.get(key)
-            if hit is not None:
-                return hit
-        B = self.options.image_batch_size
         n = images.shape[0]
-        K = self.detector.max_keypoints
-        kp_xy = np.zeros((n, K, 2), np.float32)
-        kp_mask = np.zeros((n, K), bool)
-        descs = None
-        for s in range(0, n, B):
-            coords, mask, d = (np.asarray(a) for a in self.detector.detect_batch(images[s : s + B]))
-            if descs is None:
-                descs = np.zeros((n, K, d.shape[-1]), np.float32)
-            for b in range(coords.shape[0]):
-                h, w = sizes[s + b]
-                inb = (
-                    (coords[b, :, 0] < w - 4) & (coords[b, :, 1] < h - 4)
-                    & (coords[b, :, 0] >= 4) & (coords[b, :, 1] >= 4)
-                )
-                kp_xy[s + b] = coords[b]
-                kp_mask[s + b] = mask[b] & inb
-                descs[s + b] = d[b]
-        if self._detect_cache is not None:
-            self._detect_cache.put(key, (kp_xy, kp_mask, descs))
+        with span("detect", n):
+            if self._detect_cache is not None:
+                # a batched CNN detector's adapter is keyed by the net inside it
+                net = getattr(self.detector, "detector", self.detector)
+                key = content_key(images[:, ::8, ::8].cpu().numpy(), np.asarray(sizes), type(net).__name__,
+                                  self.detector.max_keypoints)
+                hit = self._detect_cache.get(key)
+                if hit is not None:
+                    return hit
+            B = self.options.image_batch_size
+            K = self.detector.max_keypoints
+            kp_xy = np.zeros((n, K, 2), np.float32)
+            kp_mask = np.zeros((n, K), bool)
+            descs = None
+            for s in range(0, n, B):
+                with span("detect.net", min(B, n - s)):
+                    coords, mask, d = (np.asarray(a) for a in self.detector.detect_batch(images[s : s + B]))
+                if descs is None:
+                    descs = np.zeros((n, K, d.shape[-1]), np.float32)
+                for b in range(coords.shape[0]):
+                    h, w = sizes[s + b]
+                    inb = (
+                        (coords[b, :, 0] < w - 4) & (coords[b, :, 1] < h - 4)
+                        & (coords[b, :, 0] >= 4) & (coords[b, :, 1] >= 4)
+                    )
+                    kp_xy[s + b] = coords[b]
+                    kp_mask[s + b] = mask[b] & inb
+                    descs[s + b] = d[b]
+            if self._detect_cache is not None:
+                self._detect_cache.put(key, (kp_xy, kp_mask, descs))
         return kp_xy, kp_mask, descs
 
     def _run_two_view(self, pairs, kp_xy, kp_mask, descs, cal, image_wh, pair_matches=None) -> TwoViewResult:
@@ -657,43 +679,49 @@ class SceneOptimizer:
         opts = self.options
         dev = cal.u0.device  # a field of every calibration model
         mesh = self._mesh
-        kp_dev = torch.as_tensor(kp_xy, dtype=torch.float32, device=dev)
-        kpm_dev = torch.as_tensor(kp_mask, dtype=torch.bool, device=dev)
-        d_dev = torch.as_tensor(descs, dtype=torch.float32, device=dev)
-        pairs_dev = torch.as_tensor(pairs, dtype=torch.int64, device=dev)
-        if pair_matches is not None:
-            midx, mmask = self._match_table(pairs, pair_matches, kp_xy.shape[1])
-            midx_dev = torch.as_tensor(midx, device=dev)
-            mmask_dev = torch.as_tensor(mmask, device=dev)
-        chunks = []
-        for s in range(0, len(pairs), opts.pair_batch_size):
-            e = min(s + opts.pair_batch_size, len(pairs))
-            part = dict(i1=pairs_dev[s:e, 0], i2=pairs_dev[s:e, 1], pair_ids=torch.arange(s, e, device=dev),
-                        pair_mask=torch.ones(e - s, dtype=torch.bool, device=dev))
-            if pair_matches is not None:
-                part.update(match_idx=midx_dev[s:e], match_mask=mmask_dev[s:e])
-            sharded = mesh is not None and (e - s) % mesh.shape["data"] == 0
-            if sharded:
-                part = shard_pair_batch(mesh, part)
-            i1, i2, pair_mask = part.pop("i1"), part.pop("i2"), part.pop("pair_mask")
-            batch = xy1, xy2, d1, d2, m1, m2 = (
-                kp_dev[i1], kp_dev[i2], d_dev[i1], d_dev[i2], kpm_dev[i1], kpm_dev[i2])
-            if pair_matches is not None:
-                part["match_score"] = part["match_mask"].to(torch.float32)
-            elif self.matcher is not None:
-                midx_c, mmask_c, mscore = self.matcher.match_batch(d1, d2, xy1, xy2, m1, m2, image_size=image_wh)
-                part.update(match_idx=midx_c, match_mask=mmask_c, match_score=mscore)
-            res = run_two_view_batch(
-                *batch, cal.map(lambda a: a[i1]), cal.map(lambda a: a[i2]), pair_mask, seed=opts.seed,
-                opts=opts.two_view, mesh=mesh if sharded else None, **part)
-            if sharded:
-                lo = mesh.coord["data"] * ((e - s) // mesh.shape["data"])  # this rank's place in the chunk
-                res = TwoViewResult(**{k: gather(mesh, "data", getattr(res, k), lo, e - s)
-                                       for k in TwoViewResult.__dataclass_fields__})
-            chunks.append(res)
-        return TwoViewResult(**{
-            k: torch.cat([getattr(c, k) for c in chunks]) for k in TwoViewResult.__dataclass_fields__
-        })
+        with span("two_view", len(pairs)):
+            with span("two_view.upload"):
+                kp_dev = torch.as_tensor(kp_xy, dtype=torch.float32, device=dev)
+                kpm_dev = torch.as_tensor(kp_mask, dtype=torch.bool, device=dev)
+                d_dev = torch.as_tensor(descs, dtype=torch.float32, device=dev)
+                pairs_dev = torch.as_tensor(pairs, dtype=torch.int64, device=dev)
+                if pair_matches is not None:
+                    midx, mmask = self._match_table(pairs, pair_matches, kp_xy.shape[1])
+                    midx_dev = torch.as_tensor(midx, device=dev)
+                    mmask_dev = torch.as_tensor(mmask, device=dev)
+            chunks = []
+            for s in range(0, len(pairs), opts.pair_batch_size):
+                e = min(s + opts.pair_batch_size, len(pairs))
+                with span("two_view.chunk", e - s):
+                    part = dict(i1=pairs_dev[s:e, 0], i2=pairs_dev[s:e, 1],
+                                pair_ids=torch.arange(s, e, device=dev),
+                                pair_mask=torch.ones(e - s, dtype=torch.bool, device=dev))
+                    if pair_matches is not None:
+                        part.update(match_idx=midx_dev[s:e], match_mask=mmask_dev[s:e])
+                    sharded = mesh is not None and (e - s) % mesh.shape["data"] == 0
+                    if sharded:
+                        part = shard_pair_batch(mesh, part)
+                    i1, i2, pair_mask = part.pop("i1"), part.pop("i2"), part.pop("pair_mask")
+                    batch = xy1, xy2, d1, d2, m1, m2 = (
+                        kp_dev[i1], kp_dev[i2], d_dev[i1], d_dev[i2], kpm_dev[i1], kpm_dev[i2])
+                    if pair_matches is not None:
+                        part["match_score"] = part["match_mask"].to(torch.float32)
+                    elif self.matcher is not None:
+                        with span("match", e - s):
+                            midx_c, mmask_c, mscore = self.matcher.match_batch(d1, d2, xy1, xy2, m1, m2,
+                                                                               image_size=image_wh)
+                        part.update(match_idx=midx_c, match_mask=mmask_c, match_score=mscore)
+                    res = run_two_view_batch(
+                        *batch, cal.map(lambda a: a[i1]), cal.map(lambda a: a[i2]), pair_mask, seed=opts.seed,
+                        opts=opts.two_view, mesh=mesh if sharded else None, **part)
+                    if sharded:
+                        lo = mesh.coord["data"] * ((e - s) // mesh.shape["data"])  # this rank's place in the chunk
+                        res = TwoViewResult(**{k: gather(mesh, "data", getattr(res, k), lo, e - s)
+                                               for k in TwoViewResult.__dataclass_fields__})
+                    chunks.append(res)
+            return TwoViewResult(**{
+                k: torch.cat([getattr(c, k) for c in chunks]) for k in TwoViewResult.__dataclass_fields__
+            })
 
     @staticmethod
     def _match_table(pairs, pair_matches, K: int) -> tuple:

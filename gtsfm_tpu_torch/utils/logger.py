@@ -3,7 +3,8 @@
 Port of gtsfm_tpu/utils/logger.py: loggers whose lines carry a worker tag,
 the host name, the process id and the torch device type the process runs
 on (``cuda`` when a card is visible, else ``cpu``), where the reference
-names JAX's backend; and ``StageTimer``, named wall-clock stage timings.
+names JAX's backend; and ``StageTimer``, named wall-clock stage timings,
+each a span of utils/tracing.py.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import contextlib
 import logging
 import os
 import socket
-import time
+
+from gtsfm_tpu_torch.utils.tracing import Span
 
 _CACHED_TAG = None
 
@@ -42,18 +44,21 @@ def get_logger(name: str = "gtsfm_tpu_torch") -> logging.Logger:
 
 
 class StageTimer:
-    """Named wall-clock stage timings; a name timed twice adds up."""
+    """Named wall-clock stage timings; a name timed twice adds up. Each
+    timing is a span (utils/tracing.py), recorded while a profiler
+    records."""
 
     def __init__(self):
         self.timings: dict = {}
 
     @contextlib.contextmanager
     def time(self, name: str):
-        t0 = time.perf_counter()
+        clock = Span(name)
         try:
-            yield
+            with clock:
+                yield
         finally:
-            self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
+            self.timings[name] = self.timings.get(name, 0.0) + clock.seconds
 
     def as_metrics(self):
         from gtsfm_tpu_torch.evaluation.metrics import Metric

@@ -9,6 +9,15 @@ information spectrum (the two-view indeterminacy check). Where the
 reference vmaps one pair, every function here takes a leading pair axis:
 x1, x2 (P, K, 2), mask (P, K).
 
+The polish's Levenberg-Marquardt loop is some thousand small launches an
+iteration on (P, K) tensors, so on the card the host's dispatch paces it.
+On a CUDA tensor ``_refine_essential`` captures the whole loop once per
+input signature as a CUDA graph and replays it: the same kernels with the
+same shapes and flags, so the same bits as the eager loop, in one host
+call. Its constants (``_constant``) are built once per device and dtype:
+a tensor built from host values is a copy from pageable memory, which
+waits for the stream and which a capture refuses.
+
 Hypotheses are solved as the reference's CPU branch does on every device:
 the einsum normal matrix and the unstacked pinned-nullvector elimination
 (``nullvec_pinned_scalarized``). The minimal sets are drawn from a
@@ -22,6 +31,7 @@ is i2Ti1 = (i2Ri1, i2Ui1) with x2 = R x1 + t and unit t.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -41,6 +51,25 @@ from gtsfm_tpu_torch.utils.tracing import span
 # stage tags of the counter-based random streams
 TAG_POOL_TIE = 1
 TAG_SAMPLE = 2
+
+# how often the polish's CUDA graphs engage (plain integers, as the
+# kernels' launch counts): captures, replays, and calls run eagerly (a
+# CPU tensor, an empty batch, or a stream that is itself capturing)
+POLISH_GRAPH_CAPTURES = 0
+POLISH_GRAPH_REPLAYS = 0
+POLISH_EAGER_CALLS = 0
+
+_CONSTANTS: dict = {}
+
+
+def _constant(values: tuple, like: torch.Tensor) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``like``'s device and dtype, built once
+    and reused (see the module's docstring); callers only read it."""
+    key = (values, like.device, like.dtype)
+    c = _CONSTANTS.get(key)
+    if c is None:
+        c = _CONSTANTS[key] = torch.tensor(values, dtype=like.dtype, device=like.device)
+    return c
 
 
 class RansacOptions(NamedTuple):
@@ -71,8 +100,7 @@ def _normal_matrix(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch
 def _project_essential(E: torch.Tensor) -> torch.Tensor:
     """Singular values (1, 1, 0)."""
     U, _, Vt = numerics.svd(E)
-    S = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
-    return mm(U * S, Vt)
+    return mm(U * _constant((1.0, 1.0, 0.0), E), Vt)
 
 
 def _eight_point(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -118,7 +146,7 @@ def recover_pose_from_essential(E, x1, x2, w):
     U, _, Vt = numerics.svd(E)
     U = U * torch.sign(torch.linalg.det(U))[..., None, None]
     Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=E.dtype, device=E.device)
+    W = _constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)), E)
     Ra = mm(mm(U, W), Vt)
     Rb = mm(mm(U, W.T), Vt)
     t = U[..., :, 2]
@@ -135,8 +163,8 @@ def recover_pose_from_essential(E, x1, x2, w):
 
 def _tangent_basis(t: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 3, 2): two unit vectors orthogonal to t."""
-    e1 = torch.tensor([1.0, 0.0, 0.0], dtype=t.dtype, device=t.device)
-    e2 = torch.tensor([0.0, 1.0, 0.0], dtype=t.dtype, device=t.device)
+    e1 = _constant((1.0, 0.0, 0.0), t)
+    e2 = _constant((0.0, 1.0, 0.0), t)
     a = torch.where((t[..., 0].abs() < 0.9)[..., None], e1, e2)
     b1 = torch.linalg.cross(t, a, dim=-1)
     b1 = b1 / torch.clamp(torch.linalg.vector_norm(b1, dim=-1, keepdim=True), min=1e-12)
@@ -174,10 +202,8 @@ def essential_information_spectrum(x1, x2, w, R, t):
     return eigs[..., 0], eigs[..., -1]
 
 
-def _refine_essential(x1, x2, w, R0, t0, iters: int, huber: float, thresh):
-    """Huber-weighted Gauss-Newton/LM on the 5-dof essential manifold,
-    batched over pairs: x (P, K, 2), w (P, K), R0 (P, 3, 3), t0 (P, 3),
-    thresh (P,)."""
+def _refine_loop(x1, x2, w, R0, t0, iters: int, huber: float, thresh):
+    """The polish's loop, run eagerly (``_refine_essential``)."""
     P = x1.shape[0]
     dev, dt = x1.device, x1.dtype
     eye5 = torch.eye(5, dtype=dt, device=dev)
@@ -203,6 +229,94 @@ def _refine_essential(x1, x2, w, R0, t0, iters: int, huber: float, thresh):
         R, t = _perturb(torch.where(accept, delta, z5), R, t)
         lam = torch.clamp(torch.where(accept[:, 0], lam * 0.5, lam * 4.0), 1e-10, 1e4)
     return R, t
+
+
+class _GraphCache:
+    """Captured polish loops by key, at most ``max_keys``, the least
+    recently used dropped first."""
+
+    def __init__(self, max_keys: int = 8):
+        self.max_keys = max_keys
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key, build):
+        """The entry of ``key``, made by ``build()`` on a miss."""
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = self.entries[key] = build()
+            while len(self.entries) > self.max_keys:
+                self.entries.popitem(last=False)
+        else:
+            self.entries.move_to_end(key)
+        return entry
+
+
+class _PolishGraph:
+    """The polish loop captured as a CUDA graph on static copies of its
+    inputs. Every graph of the process allocates from one private memory
+    pool: they are replayed one at a time on the caller's stream, and
+    ``replay`` clones the outputs out before the next replay can
+    overwrite them."""
+
+    pools: dict = {}  # device -> the shared pool's handle, from its first capture
+    streams: dict = {}  # device -> the side stream of warm-ups and captures
+
+    def __init__(self, args, iters: int, huber: float):
+        global POLISH_GRAPH_CAPTURES
+        dev = args[0].device
+        self.iters = iters
+        self.inputs = [a.clone(memory_format=torch.contiguous_format) for a in args]
+        x1, x2, w, R0, t0, thresh = self.inputs
+        side = self.streams.get(dev)
+        if side is None:
+            side = self.streams[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        # one eager iteration on the capture's stream first: cuBLAS's
+        # workspace for that stream, the solver's handles and the constants
+        with torch.cuda.stream(side):
+            _refine_loop(x1, x2, w, R0, t0, 1, huber, thresh)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=self.pools.get(dev), stream=side, capture_error_mode="thread_local"):
+            self.R, self.t = _refine_loop(x1, x2, w, R0, t0, iters, huber, thresh)
+        self.pools.setdefault(dev, self.graph.pool())
+        POLISH_GRAPH_CAPTURES += 1
+
+    def replay(self, args):
+        global POLISH_GRAPH_REPLAYS
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        with span("polish.graph", self.iters):
+            self.graph.replay()
+        POLISH_GRAPH_REPLAYS += 1
+        return self.R.clone(), self.t.clone()
+
+
+_POLISH_GRAPHS = _GraphCache()
+
+
+def _polish_key(args, iters: int, huber: float) -> tuple:
+    """What a captured loop depends on: the device, each input's shape and
+    dtype, the loop's constants, and whether float32 matmuls may run in
+    TF32 (the flag is read when the graph is captured)."""
+    return (args[0].device, tuple((tuple(a.shape), a.dtype) for a in args), iters, huber,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _refine_essential(x1, x2, w, R0, t0, iters: int, huber: float, thresh):
+    """Huber-weighted Gauss-Newton/LM on the 5-dof essential manifold,
+    batched over pairs: x (P, K, 2), w (P, K), R0 (P, 3, 3), t0 (P, 3),
+    thresh (P,). On a CUDA tensor the loop is a replay of a CUDA graph
+    captured on the first call with the same ``_polish_key``; on a CPU
+    tensor, an empty batch or a stream that is capturing, it runs
+    eagerly."""
+    global POLISH_EAGER_CALLS
+    args = (x1, x2, w, R0, t0, thresh)
+    if x1.device.type != "cuda" or x1.numel() == 0 or torch.cuda.is_current_stream_capturing():
+        POLISH_EAGER_CALLS += 1
+        return _refine_loop(x1, x2, w, R0, t0, iters, huber, thresh)
+    with torch.cuda.device(x1.device):
+        graph = _POLISH_GRAPHS.get(_polish_key(args, iters, huber), lambda: _PolishGraph(args, iters, huber))
+        return graph.replay(args)
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:

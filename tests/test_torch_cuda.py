@@ -8,6 +8,8 @@ layouts against each other and the CPU, the dense layout's fallback to
 entry past 128 views, and Cal3DS2's calibrate against the CPU; the
 two-view checks (the batched homography RANSAC on draws made on the card,
 LMedS votes, the information spectrum) on the card against the CPU; the
+polish's CUDA graphs against its eager loop, bit for bit, alone and inside
+a whole chunk of ``run_two_view_batch``; the
 deep front end's nets (SuperPoint, D2-Net, DISK, NetVLAD, hloc NetVLAD,
 MegaLoc, on their seeded inits) on the card against the CPU, with
 chip_smoke's DEEP_KEYPOINT_SHARE and DEEP_DESC_TOL, and RANSAC on a
@@ -808,6 +810,84 @@ def test_lmeds_votes_and_spectrum_on_the_card_equal_the_cpu():
     mn_h, mx_h = essential_information_spectrum(*args)
     assert ((mn_c.cpu() - mn_h).abs() <= 1e-4 * mx_h).all()
     assert ((mx_c.cpu() - mx_h).abs() <= 1e-4 * mx_h).all()
+
+
+def _polish_inputs(P: int, K: int, seed: int):
+    """The polish's inputs on the card: ``_two_view_scene``'s matches (a
+    fifth outliers) all weighted 1 where valid, the start pose the truth
+    perturbed (0.02 rad, 0.05 in t), the threshold 4 px at f = 600."""
+    from gtsfm_tpu_torch.geometry import so3
+
+    x1, x2, mask, R, t, _ = _two_view_scene(P, K, seed)
+    g = torch.Generator().manual_seed(seed)
+    R0 = R @ so3.expmap(0.02 * torch.randn((P, 3), generator=g))
+    t0 = t + 0.05 * torch.randn((P, 3), generator=g)
+    t0 = t0 / torch.linalg.vector_norm(t0, dim=-1, keepdim=True)
+    return tuple(a.cuda() for a in (x1, x2, mask.float(), R0, t0, torch.full((P,), 4.0 / 600)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, iters", [(256, 8), (256, 6), (114, 8), (114, 6)])
+def test_polish_graph_replays_the_eager_loop_bit_for_bit(P, iters):
+    """``_refine_essential`` through its CUDA graph at the benchmark's full
+    chunk (256 pairs, K = 2048) and a partial one, at RANSAC's and the
+    refine's iteration counts, equals the eager loop bit for bit; a second
+    call of the same shape on other inputs replays the graph (no capture)
+    and gives the eager answer for those inputs, and the first call's
+    outputs are not overwritten by it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend.verifiers import essential
+
+    a = _polish_inputs(P, 2048, seed=P + iters)
+    b = _polish_inputs(P, 2048, seed=P + iters + 1)
+    with precise():
+        R_a, t_a = essential._refine_essential(*a[:5], iters, 2.0, a[5])
+        captures, replays = essential.POLISH_GRAPH_CAPTURES, essential.POLISH_GRAPH_REPLAYS
+        R_b, t_b = essential._refine_essential(*b[:5], iters, 2.0, b[5])
+        assert (essential.POLISH_GRAPH_CAPTURES, essential.POLISH_GRAPH_REPLAYS) == (captures, replays + 1)
+        assert captures >= 1
+        for args, R, t in ((a, R_a, t_a), (b, R_b, t_b)):
+            R_e, t_e = essential._refine_loop(*args[:5], iters, 2.0, args[5])
+            assert torch.equal(R, R_e) and torch.equal(t, t_e)
+            assert not torch.equal(R, args[3])  # the loop moved the pose
+
+
+@pytest.mark.cuda
+def test_two_view_batch_through_the_polish_graphs_equals_the_eager_path(monkeypatch):
+    """``run_two_view_batch`` on a whole chunk (256 pairs, K = 2048, LightGlue's
+    path: matches handed in) replays three polish graphs (RANSAC's two
+    rounds and the refine) and equals, field by field and bit for bit,
+    the same call with the polish's loop run eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gtsfm_tpu_torch.frontend import two_view
+    from gtsfm_tpu_torch.frontend.verifiers import essential
+    from gtsfm_tpu_torch.geometry import Cal3_S2
+
+    P, K = 256, 2048
+    x1, x2, mask, _, _, _ = _two_view_scene(P, K, seed=12)
+    cal = Cal3_S2.create(torch.full((P,), 600.0), u0=320.0, v0=240.0, device="cuda")
+    kp1, kp2 = (x * 600.0 + torch.tensor([320.0, 240.0]) for x in (x1, x2))
+    m = mask.cuda()
+    desc = torch.zeros((P, K, 8), device="cuda")
+    args = (kp1.cuda(), kp2.cuda(), desc, desc, m, m, cal, cal, torch.ones(P, dtype=torch.bool, device="cuda"))
+    kwargs = dict(seed=5, match_idx=torch.arange(K, dtype=torch.int32, device="cuda").expand(P, K),
+                  match_mask=m, match_score=m.float())
+    replays, eager = essential.POLISH_GRAPH_REPLAYS, essential.POLISH_EAGER_CALLS
+    graphs = two_view.run_two_view_batch(*args, **kwargs)
+    assert (essential.POLISH_GRAPH_REPLAYS, essential.POLISH_EAGER_CALLS) == (replays + 3, eager)
+
+    monkeypatch.setattr(essential, "_refine_essential", essential._refine_loop)
+    monkeypatch.setattr(two_view, "_refine_essential", essential._refine_loop)
+    eager_path = two_view.run_two_view_batch(*args, **kwargs)
+    assert essential.POLISH_GRAPH_REPLAYS == replays + 3
+    assert graphs.valid.sum() > P // 2
+    for k in two_view.TwoViewResult.__dataclass_fields__:
+        got, want = getattr(graphs, k), getattr(eager_path, k)
+        if got.is_floating_point():  # the checks' ratios are NaN where a check is off
+            got, want = torch.cat([got.isnan(), got.nan_to_num()]), torch.cat([want.isnan(), want.nan_to_num()])
+        assert torch.equal(got, want), k
 
 
 def _smooth_images(n: int, hw: tuple, seed: int) -> np.ndarray:

@@ -1,4 +1,6 @@
-"""Every call the benchmark makes into the program, ``gtsfm_tpu_torch``.
+"""Every call the front-end pipeline (perfbench/pipelines/front_end.py)
+makes into the program, ``gtsfm_tpu_torch``; and ``Spans``, the span store
+of every pipeline.
 
 The configuration is built as the runner builds it
 (``configs.config.load_config`` then ``build_scene_optimizer``) and the
@@ -331,13 +333,18 @@ class FrontEnd:
 
 def layer_counters() -> dict:
     """The program's launch counters the benchmark reads as checks on the
-    path: attention launches, mutual-NN calls and DoG-SIFT calls by device."""
+    path: attention launches, mutual-NN calls, the verifier's polish graphs
+    (captures, replays, and calls run eagerly) and DoG-SIFT calls by device."""
     import importlib
 
     out = {}
+    essential = "gtsfm_tpu_torch.frontend.verifiers.essential"
     for key, module, attr in (("attention_launches", ATTENTION, "launch_count"),
                               ("mutual_nn_launches", "gtsfm_tpu_torch.frontend.matchers.fused_matcher",
-                               "launch_count")):
+                               "launch_count"),
+                              ("polish_graph_captures", essential, "POLISH_GRAPH_CAPTURES"),
+                              ("polish_graph_replays", essential, "POLISH_GRAPH_REPLAYS"),
+                              ("polish_eager_calls", essential, "POLISH_EAGER_CALLS")):
         out[key] = getattr(importlib.import_module(module), attr)
     dog = importlib.import_module("gtsfm_tpu_torch.frontend.detectors.dog_sift")
     out["dog_sift_calls"] = dict(dog.calls_by_device)

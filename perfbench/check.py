@@ -1,5 +1,7 @@
-"""The check that decides ``correct``: what the timed path produced, held
-against the plain reference (perfbench/reference/), stage by stage.
+"""The front end's check (perfbench/pipelines/front_end.py), which decides
+``correct``: what the timed path produced, held against the plain
+reference (perfbench/reference/), stage by stage; and ``judge``, which
+every pipeline's numbers pass through.
 
 From the window's last pass it takes, drawn from the seed, whole detector
 batches of views and one whole chunk of pairs as the chunk loop ran them:
@@ -148,8 +150,9 @@ def _desc_gap(ka, da, kb, db) -> float:
     return float(dd.max()) if len(dd) else 0.0
 
 
-def judge(numbers: dict, limits: dict) -> bool:
-    return all(numbers[k] <= limits[k] for k in ORDER if k in numbers)
+def judge(numbers: dict, limits: dict, order=ORDER) -> bool:
+    """Each number of ``order`` that was read is at most its limit."""
+    return all(numbers[k] <= limits[k] for k in order if k in numbers)
 
 
 def compare(ref: Reference, out, batches: list, chunk_pairs: np.ndarray, start: int, matches: dict,

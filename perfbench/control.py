@@ -5,12 +5,13 @@ several seeds, in one process, to set the check's limits from.
     python3 perfbench/control.py --workload <cell> --seeds <n> [<n> ...] [--seconds 0.001]
 
 Each seed builds the cell as ``run.py`` does and runs the window (by
-default one pass, the whole scene); the check then reads the program's
-numbers (the lower readings) and the control's: the reference put in the
-program's place one precision below the configuration's (TF32 for the
-float32 detector and verifier, float8 for the bf16 matcher), held by the
-same rules (the upper readings). One JSON line per seed goes to standard
-output; the benchmark's own runs never run the control.
+default one pass, the whole scene); the pipeline's check then reads the
+program's numbers (the lower readings) and the control's: the reference
+put in the program's place one precision below the configuration's (the
+front end: TF32 for the float32 detector and verifier, float8 for the bf16
+matcher), held by the same rules (the upper readings). One JSON line per
+seed goes to standard output, with the run's throughputs; the benchmark's
+own runs never run the control.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         res = run.run_cell(bench, args.workload, seed, args.seconds, False, control=True)
         print(json.dumps({"seed": seed, "program": {k: v["value"] for k, v in res["checks"].items()},
-                          "control": res["control"], "pairs_per_s": res["metrics"]["pairs_per_s"]["value"]}),
+                          "control": res["control"],
+                          **{k: v["value"] for k, v in res["metrics"].items() if k.endswith("_per_s")}}),
               flush=True)
     return 0
 

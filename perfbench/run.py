@@ -6,18 +6,20 @@
 from the root of a checkout, on a machine with an NVIDIA card. The cell
 (``BENCHMARK.json``'s ``workloads``) names a configuration
 (perfbench/configs/<config>.json), a scene (perfbench/traffic/<traffic>
-.json) and its check (perfbench/workloads/<cell>.json). Set-up renders the
-scene from the seed into the temporary directory in Olsson's layout,
-writes the seeded checkpoints, builds the scene optimizer as the runner
-does and warms every shape a pass uses. The window then runs whole
-front-end passes back to back (perfbench/adapter.py) while less than
-``--seconds`` have passed, and finishes the pass in flight. The last line
-of standard output is the result as one JSON object; with ``--trace 1``
-the window runs under ``torch.profiler`` and the metrics are the cell's
-per-layer metrics (perfbench/metrics/<metric>.py). After the window the
-plain reference checks the last pass (perfbench/check.py), and the
-numbers it compared, each with its limit, close standard error and the
-result line.
+.json) and its check (perfbench/workloads/<cell>.json); the configuration
+names its pipeline (perfbench/pipelines/<pipeline>.py). Set-up renders the
+scene from the seed into the temporary directory in Olsson's layout, and
+the pipeline writes its seeded checkpoints, builds the program and warms
+every shape a pass uses. The window then runs whole passes back to back
+while less than ``--seconds`` have passed, and finishes the pass in
+flight; each count of a pass (views, pairs) over the window is a
+throughput, ``<count>_per_s``. The last line of standard output is the
+result as one JSON object; with ``--trace 1`` the window runs under
+``torch.profiler`` and the metrics are the cell's per-layer metrics
+(perfbench/metrics/<metric>.py). After the window, with the program's
+state freed, the pipeline holds the last pass against its plain reference,
+and the numbers it compared, each with its limit, close standard error
+and the result line.
 
 Exits non-zero without a result when there is no card, when the program
 cannot be imported or fails, and when ``jax``, ``jaxlib``, ``flax`` or
@@ -57,31 +59,21 @@ def load_json(*parts) -> dict:
         return json.load(f)
 
 
-def cell_files(bench: dict, name: str, workload: dict | None = None) -> tuple:
+def cell_files(bench: dict, name: str, workload: dict | None = None, config: dict | None = None) -> tuple:
     """(cell, config, traffic, workload) for the cell ``name``: its
     configuration, traffic and check files, found by name."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise SystemExit(f"perfbench: no cell {name!r} in BENCHMARK.json (cells: {', '.join(cells)})")
     cell = cells[name]
-    return (cell, load_json(HERE, "configs", f"{cell['config']}.json"),
+    return (cell, config or load_json(HERE, "configs", f"{cell['config']}.json"),
             load_json(HERE, "traffic", f"{cell['traffic']}.json"),
             workload or load_json(HERE, "workloads", f"{name}.json"))
 
 
-def per_layer_names(bench: dict, cell: str) -> list:
-    return [m["name"] for m in bench["per_layer"] if cell in m.get("workloads", [cell])]
-
-
-def with_overrides(config: dict, overrides: dict | None) -> dict:
-    """The configuration with dotted ``overrides`` applied to its settings."""
-    config = json.loads(json.dumps(config))
-    for key, value in (overrides or {}).items():
-        node = config["settings"]
-        for part in key.split(".")[:-1]:
-            node = node.setdefault(part, {})
-        node[key.split(".")[-1]] = value
-    return config
+def metric_names(bench: dict, kind: str, cell: str) -> list:
+    """The ``kind`` ("end_to_end" or "per_layer") metrics the cell reports."""
+    return [m["name"] for m in bench[kind] if cell in m.get("workloads", [cell])]
 
 
 def pass_seed(seed: int, k: int) -> int:
@@ -101,20 +93,20 @@ def card_line() -> str:
 
 def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
              overrides: dict | None = None, traffic_override: dict | None = None, fault=None,
-             control: bool = False, workload: dict | None = None) -> dict:
+             control: bool = False, workload: dict | None = None, config: dict | None = None) -> dict:
     """One run of the cell ``name``; returns the result dict. ``overrides``
-    (dotted config keys), ``traffic_override``, ``workload`` (in place of
-    the cell's check file) and ``fault`` (called with the built
-    adapter.FrontEnd before the window, to break the timed path) serve the
-    CPU tests; with ``control`` the result also holds the control's
-    numbers (perfbench/control.py)."""
-    import numpy as np
+    (dotted config keys), ``traffic_override``, ``workload`` and ``config``
+    (in place of the cell's check and configuration files) and ``fault``
+    (called with the pipeline's built program before the window, to break
+    the timed path) serve the CPU tests; with ``control`` the result also
+    holds the control's numbers (perfbench/control.py)."""
     import torch
 
-    from perfbench import adapter, check, scene, trace as trace_mod, weights
+    from perfbench import adapter, check, scene, trace as trace_mod
 
-    cell, config, traffic, workload = cell_files(bench, name, workload)
+    cell, config, traffic, workload = cell_files(bench, name, workload, config)
     traffic = {**traffic, **(traffic_override or {})}
+    pipeline = importlib.import_module(f"perfbench.pipelines.{config['pipeline']}")
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     work = tempfile.mkdtemp(prefix=f"perfbench-{name}-")
@@ -125,23 +117,16 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
         scene_dir = os.path.join(work, "scene")
         scene.write_olsson(scene_dir, views)
         marks.append(("write", time.perf_counter()))
-        meta = {k: views[k] for k in ("focal", "width", "height")}
-        n_views = len(views["images"])
-        gray = views["images"].astype(np.float32) @ np.asarray([0.299, 0.587, 0.114], np.float32) / 255.0
-        del views
-        paths = weights.write(config, seed, os.path.join(work, "weights"), device)
         spans = adapter.Spans(traced=trace)
-        fe = adapter.FrontEnd(config, paths, scene_dir, traffic["max_resolution"], device, spans, -1, overrides)
-        pair_batch, image_batch = fe.pair_batch, fe.so.options.image_batch_size
+        pipe = pipeline.Pipeline(config, traffic, scene_dir, views, seed, work, device, spans, overrides)
+        del views
         marks.append(("build", time.perf_counter()))
-        n_pairs = fe.warm(gray)
-        del gray
+        pipe.warm()
         marks.append(("warm", time.perf_counter()))
-        fe.check_chunk = check.check_chunk(seed, n_pairs, fe.pair_batch)
         if fault is not None:
-            fault(fe)
+            fault(pipe.program)
         spans.clear()
-        before = adapter.layer_counters()
+        before = pipe.counters()
         sync()
         setup_s = time.perf_counter() - PROCESS_START
 
@@ -152,16 +137,14 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
         if trace and cuda:  # the device's activity alone: see perfbench/trace.py
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.start()
-        passes, pairs, out, pass_s = 0, 0, None, []
+        passes, counts, pass_s = 0, {}, []
         w0 = time.time_ns()
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds:
-            out = fe.run_pass(pass_seed(seed, passes))
+            for k, v in pipe.run_pass(pass_seed(seed, passes)).items():
+                counts[k] = counts.get(k, 0) + v
             passes += 1
-            pairs += len(out.pairs)
             pass_s.append(time.perf_counter() - t0 - sum(pass_s))
-            print(f"perfbench: pass {passes}: {len(out.pairs)} pairs, stages (load-detect, retrieve, two-view) "
-                  f"{', '.join(f'{s:.3f}' for s in out.stage_s)} s", file=sys.stderr, flush=True)
         sync()
         t1 = time.perf_counter()
         w1 = time.time_ns()
@@ -169,9 +152,10 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
         process_peak = max(setup_peak, window_peak)
         if prof is not None:
             prof.stop()
-        after = adapter.layer_counters()
+        after = pipe.counters()
 
-        result = {"correct": False, "attempted": pairs, "failed": 0, "metrics": {},
+        failed = counts.pop("failed", 0)
+        result = {"correct": False, "attempted": counts[pipe.ATTEMPTED], "failed": failed, "metrics": {},
                   "device": {"platform": "gpu" if cuda else "cpu",
                              "kind": torch.cuda.get_device_name() if cuda else "cpu",
                              "count": 1, "memory_peak_bytes": process_peak}}
@@ -179,53 +163,41 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
             dev = trace_mod.reduce(prof, spans.ranges, (w0, w1)) if prof is not None else {
                 "busy_s": 0.0, "window_s": 0.0, "ranges": {}, "device_ops": [], "idle_gaps": []}
             del prof
-            ctx = {"spans": spans, "work": spans.totals(), "device": dev, "passes": passes, "pairs": pairs,
-                   "config": config, "detector_hw": (meta["height"], meta["width"])}
-            for metric in per_layer_names(bench, name):
-                value = importlib.import_module(f"perfbench.metrics.{metric}").read(ctx)
-                if value is not None:
-                    unit = next(m["unit"] for m in bench["per_layer"] if m["name"] == metric)
-                    result["metrics"][metric] = {"value": value, "unit": unit}
+            ctx = {"spans": spans, "work": spans.totals(), "device": dev, "passes": passes, "config": config,
+                   **counts, **pipe.context()}
+            values = {m: importlib.import_module(f"perfbench.metrics.{m}").read(ctx)
+                      for m in metric_names(bench, "per_layer", name)}
             result["device"].update(busy_s=dev["busy_s"], window_s=dev["window_s"])
             result["breakdown"] = {"device_ops": dev["device_ops"], "idle_gaps": dev["idle_gaps"]}
         else:
-            result["metrics"] = {
-                "pairs_per_s": {"value": pairs / (t1 - t0), "unit": "pairs/s"},
-                "peak_gib": {"value": window_peak / GIB, "unit": "GiB"},
-                "setup_s": {"value": setup_s, "unit": "s"},
-            }
+            values = {f"{k}_per_s": v / (t1 - t0) for k, v in counts.items()}
+            values.update(peak_gib=window_peak / GIB, setup_s=setup_s)
+        units = {m["name"]: m["unit"] for key in ("end_to_end", "per_layer") for m in bench[key]}
+        result["metrics"] = {m: {"value": values[m], "unit": units[m]}
+                             for m in metric_names(bench, "per_layer" if trace else "end_to_end", name)
+                             if values.get(m) is not None}
         print(f"perfbench: {name} seed {seed}: {passes} passes ({', '.join(f'{s:.3f}' for s in pass_s)} s), "
-              f"{pairs} pairs in {t1 - t0:.3f} s, set-up "
+              f"{json.dumps(counts)} in {t1 - t0:.3f} s, set-up "
               f"{setup_s:.3f} s (imports {marks[0][1] - PROCESS_START:.3f}, "
               + ", ".join(f"{b[0]} {b[1] - a[1]:.3f}" for a, b in zip(marks, marks[1:]))
               + f"); card: {card_line() if cuda else 'none'}", file=sys.stderr, flush=True)
         path = {k: (after[k] - before[k]) if isinstance(after[k], int) else after[k] for k in after}
-        print(f"perfbench: path counters over the window: {json.dumps(path)}; the last pass: "
-              f"{-(-len(out.pairs) // pair_batch)} chunks, {int(out.result['valid'].sum())} valid pairs, "
-              f"{int(out.kp_mask.sum())} keypoints, {int(out.result['num_matches'].sum())} matches",
-              file=sys.stderr, flush=True)
+        print(f"perfbench: path counters over the window: {json.dumps(path)}", file=sys.stderr, flush=True)
 
         # the check, on the last pass, with the program's state freed
-        fe.close()
-        del fe
+        pipe.close()
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
         t_check = time.perf_counter()
-        ref = check.Reference(with_overrides(config, overrides), paths, meta, scene_dir, device)
-        batches = check.sample(seed, n_views, image_batch, workload["check"]["detector_batches"])
-        start = out.chunk["start"]
-        nums = check.compare(ref, out, batches, out.pairs[start:start + pair_batch], start, out.chunk)
-        nums["rows_missing"] = check.rows_missing(out, config["settings"]["retriever"]["max_frame_lookahead"])
+        nums, low = pipe.check(workload.get("check", {}), control)
         limits = workload["limits"]
-        result["correct"] = check.judge(nums, limits)
-        result["failed"] = int(max(0, len(out.pairs) - len(out.result["valid"])))
+        result["correct"] = check.judge(nums, limits, pipe.ORDER)
         if control:
-            result["control"] = check.compare(ref, out, batches, out.pairs[start:start + pair_batch], start,
-                                              out.chunk, control=True)
-        result["checks"] = {k: {"value": nums[k], "limit": limits.get(k)} for k in check.ORDER}
+            result["control"] = low
+        result["checks"] = {k: {"value": nums[k], "limit": limits.get(k)} for k in pipe.ORDER}
         print(f"perfbench: check took {time.perf_counter() - t_check:.3f} s", file=sys.stderr, flush=True)
-        for k in check.ORDER:
+        for k in pipe.ORDER:
             print(f"check {k}: {nums[k]!r} limit {limits.get(k)!r}", file=sys.stderr, flush=True)
         return result
     finally:

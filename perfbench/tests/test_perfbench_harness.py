@@ -42,7 +42,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def tiny_run(**kw):
-    return run.run_cell(BENCH, CELL, 4294967311, 1e-3, kw.pop("trace", False), device="cpu",
+    return run.run_cell(BENCH, CELL, 4294967311, kw.pop("seconds", 1e-3), kw.pop("trace", False), device="cpu",
                         overrides=TINY_CONFIG, traffic_override=TINY_TRAFFIC, **kw)
 
 
@@ -66,9 +66,31 @@ def test_benchmark_file_follows_the_contract():
 def test_cell_files_are_found_by_name(cell):
     _cell, config, traffic, workload = run.cell_files(BENCH, cell)
     assert config["name"] == _cell["config"] and traffic["name"] == _cell["traffic"]
-    assert set(workload["limits"]) >= {"kp_gap_px", "match_gap", "pose_gap_deg", "rows_missing"}
+    assert set(workload["limits"]) >= set(pipeline_of(config).Pipeline.ORDER)
     conf = next(c for c in BENCH["configs"] if c["name"] == _cell["config"])
     assert os.path.exists(os.path.join(ROOT, conf["file"]))
+
+
+def pipeline_of(config):
+    return importlib.import_module(f"perfbench.pipelines.{config['pipeline']}")
+
+
+@pytest.mark.parametrize("name", sorted(f[:-5] for f in os.listdir(os.path.join(run.HERE, "configs"))))
+def test_every_configuration_names_a_pipeline_that_imports(name):
+    pipeline = pipeline_of(run.load_json(run.HERE, "configs", f"{name}.json"))
+    assert callable(pipeline.Pipeline) and pipeline.Pipeline.ORDER
+    assert pipeline.Pipeline.ATTEMPTED in ("views", "pairs")
+
+
+@pytest.mark.parametrize("kind", ["end_to_end", "per_layer"])
+def test_metrics_list_the_cells_they_read_in(kind):
+    # a metric with no list is reported in every cell, those of other pipelines too
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH[kind]:
+        if kind == "per_layer" or m["name"] not in ("views_per_s", "peak_gib", "setup_s"):
+            assert m["workloads"] and set(m["workloads"]) <= cells, m["name"]
+        else:  # what every pipeline reports
+            assert "workloads" not in m
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
@@ -148,9 +170,23 @@ def test_sound_run_is_correct_with_the_contract_keys():
 def test_traced_run_reports_per_layer_metrics():
     res = tiny_run(trace=True)
     assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "breakdown", "checks"]
-    want = set(run.per_layer_names(BENCH, CELL))
+    want = set(run.metric_names(BENCH, "per_layer", CELL))
     assert {"load_ms_per_image", "detect_ms_per_image", "lightglue_ms_per_pair"} <= set(res["metrics"]) <= want
     assert {"busy_s", "window_s"} <= set(res["device"])
+
+
+def test_front_end_throughputs_are_whole_passes_over_the_window(monkeypatch):
+    from perfbench.pipelines import front_end
+
+    passes = []
+    run_pass = front_end.Pipeline.run_pass
+    monkeypatch.setattr(front_end.Pipeline, "run_pass", lambda self, seed: passes.append(seed) or run_pass(self, seed))
+    res = tiny_run(seconds=2.0)
+    metrics = {k: v["value"] for k, v in res["metrics"].items()}
+    window_s = res["attempted"] / metrics["pairs_per_s"]  # pairs over the window's seconds
+    assert res["metrics"]["views_per_s"]["unit"] == "views/s" and res["metrics"]["pairs_per_s"]["unit"] == "pairs/s"
+    assert window_s >= 2.0 and len(set(passes)) == len(passes) >= 1
+    assert metrics["views_per_s"] == pytest.approx(TINY_TRAFFIC["views"] * len(passes) / window_s, rel=1e-12)
 
 
 def _drop_half(fe):
@@ -211,6 +247,27 @@ def test_mutual_nn_configuration_runs_and_checks():
     res = run.run_cell(bench, "sift.test", 3, 1e-3, False, device="cpu", overrides=TINY_CONFIG,
                        traffic_override=TINY_TRAFFIC, workload=workload)
     assert res["checks"]["kp_gap_px"]["value"] == 0.0 and res["checks"]["pose_gap_deg"]["value"] == 0.0
+
+
+def _raise_gap(program):
+    program.gap = 0.75
+
+
+@pytest.mark.parametrize("fault, correct", [(None, True), (_raise_gap, False)], ids=["sound", "gap_over_its_limit"])
+def test_a_pipeline_of_another_kind_runs_from_files_of_its_own(fault, correct, monkeypatch):
+    from perfbench.tests import stub_pipeline
+
+    monkeypatch.setitem(sys.modules, "perfbench.pipelines.stub", stub_pipeline)  # as a new pipelines/stub.py
+    bench = {**BENCH, "configs": [{"name": "stub", "file": "perfbench/configs/stub.json"}],
+             "workloads": [{"name": "stub.tiny", "config": "stub", "traffic": "gerrard100", "chips": 1, "why": "t"}]}
+    res = run.run_cell(bench, "stub.tiny", 2**31 + 5, 0.05, False, device="cpu", traffic_override=TINY_TRAFFIC,
+                       fault=fault, config={"name": "stub", "pipeline": "stub", "gap": 0.25},
+                       workload={"limits": {"gap": 0.5, "answers_missing": 0}})
+    assert list(res) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
+    assert set(res["metrics"]) == {"views_per_s", "peak_gib", "setup_s"}  # no pairs: no pairs_per_s
+    assert res["attempted"] % TINY_TRAFFIC["views"] == 0 and res["attempted"] >= TINY_TRAFFIC["views"]
+    assert list(res["checks"]) == list(stub_pipeline.Pipeline.ORDER) and res["correct"] is correct
+    assert res["checks"]["gap"] == {"value": 0.25 if correct else 0.75, "limit": 0.5}
 
 
 # ------------------------------------------------------------------ imports

@@ -27,10 +27,19 @@ PyTorch (``numerics.attention``, in chunks of query rows: the global
 block's scores over 32 frames of 480x640 would take 154 GB at once), the
 DINO pass and the DPT heads go a few frames at a time, and the aggregator
 keeps only the layers the heads read. Float32 under ``precise()``.
+
+Spans (utils/tracing.py; recorded only under a profiler): ``vggt.aggregator``
+(frames) around an aggregator pass, ``vggt.dino`` (frames) around its DINO
+patch embed, ``vggt.frame`` and ``vggt.global`` (frames) around each block,
+``vggt.attention`` (query tokens) around the attention of those blocks;
+``vggt.camera_head``, ``vggt.depth_head`` (frames) and ``vggt.track_head``
+(queries). ``VGGT_AGGREGATOR_PASSES`` counts the aggregator passes of the
+process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -42,11 +51,14 @@ from torch import nn
 from gtsfm_tpu_torch.frontend.global_descriptors.megaloc import DinoViT, MegaLocOptions, interpolate_pos_embed
 from gtsfm_tpu_torch.frontend.mast3r import apply_rope2d
 from gtsfm_tpu_torch.utils.numerics import attention, precise, resolve_device
+from gtsfm_tpu_torch.utils.tracing import span
 
 RESNET_MEAN = (0.485, 0.456, 0.406)
 RESNET_STD = (0.229, 0.224, 0.225)
 # frames per chunk of the per-frame stages (DINO, the DPT heads)
 FRAME_CHUNK = 4
+# aggregator passes run in this process (a path counter the benchmark reads)
+VGGT_AGGREGATOR_PASSES = 0
 
 
 class VGGTOptions(NamedTuple):
@@ -81,9 +93,10 @@ class VGGTOptions(NamedTuple):
 
 
 class _Attention(nn.Module):
-    def __init__(self, dim: int, heads: int, qk_norm: bool, eps: float):
+    def __init__(self, dim: int, heads: int, qk_norm: bool, eps: float, span_name: Optional[str] = None):
         super().__init__()
         self.heads = heads
+        self.span_name = span_name
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         if qk_norm:
@@ -101,7 +114,9 @@ class _Attention(nn.Module):
         if pos is not None and rope_freq > 0:
             q = apply_rope2d(q.transpose(1, 2), pos, rope_freq).transpose(1, 2)
             k = apply_rope2d(k.transpose(1, 2), pos, rope_freq).transpose(1, 2)
-        return self.proj(attention(q, k, v, q_scale=dh**-0.5).reshape(B, N, D))
+        with span(self.span_name, B * N) if self.span_name else contextlib.nullcontext():
+            out = attention(q, k, v, q_scale=dh**-0.5)
+        return self.proj(out.reshape(B, N, D))
 
 
 class _Mlp(nn.Module):
@@ -121,10 +136,11 @@ class _LayerScale(nn.Module):
 
 
 class _Block(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_ratio: int, qk_norm: bool, eps: float = 1e-5):
+    def __init__(self, dim: int, heads: int, mlp_ratio: int, qk_norm: bool, eps: float = 1e-5,
+                 attn_span: Optional[str] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=eps)
-        self.attn = _Attention(dim, heads, qk_norm, eps)
+        self.attn = _Attention(dim, heads, qk_norm, eps, attn_span)
         self.ls1 = _LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = _Mlp(dim, mlp_ratio * dim)
@@ -178,37 +194,45 @@ class Aggregator(nn.Module):
                                                      pretrain_grid=o.dino_pretrain_grid), o.num_register_tokens)
         self.camera_token = nn.Parameter(torch.zeros(1, 2, 1, C))
         self.register_token = nn.Parameter(torch.zeros(1, 2, o.num_register_tokens, C))
-        self.frame_blocks = nn.ModuleList([_Block(C, o.num_heads, o.mlp_ratio, True) for _ in range(o.depth)])
-        self.global_blocks = nn.ModuleList([_Block(C, o.num_heads, o.mlp_ratio, True) for _ in range(o.depth)])
+        self.frame_blocks = nn.ModuleList([_Block(C, o.num_heads, o.mlp_ratio, True, attn_span="vggt.attention")
+                                           for _ in range(o.depth)])
+        self.global_blocks = nn.ModuleList([_Block(C, o.num_heads, o.mlp_ratio, True, attn_span="vggt.attention")
+                                            for _ in range(o.depth)])
 
     def forward(self, images: torch.Tensor, keep=None) -> tuple:
         """images (S, 3, H, W) in [0, 1] -> (outputs, patch_start): outputs
         has one (S, L, 2C) tensor per layer, None for a layer not in
         ``keep`` (every layer when None)."""
-        o = self.opts
-        S, _, H, W = images.shape
-        gh, gw = H // o.patch_size, W // o.patch_size
-        mean = torch.tensor(RESNET_MEAN, device=images.device)[:, None, None]
-        std = torch.tensor(RESNET_STD, device=images.device)[:, None, None]
-        patch_tokens = torch.cat([self.patch_embed((images[s : s + FRAME_CHUNK] - mean) / std)
-                                  for s in range(0, S, FRAME_CHUNK)])
-        C = patch_tokens.shape[-1]
-        regs = _slice_expand(self.register_token, S)
-        tokens = torch.cat([_slice_expand(self.camera_token, S), regs, patch_tokens], dim=1)
-        patch_start = 1 + regs.shape[1]
-        L = tokens.shape[1]
-        yy, xx = torch.meshgrid(torch.arange(gh, device=images.device), torch.arange(gw, device=images.device),
-                                indexing="ij")
-        pos = torch.cat([torch.zeros(patch_start, 2, dtype=torch.int64, device=images.device),
-                         torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1) + 1])
-        pos_global = pos.repeat(S, 1)
-        outputs = []
-        for i, (fblk, gblk) in enumerate(zip(self.frame_blocks, self.global_blocks)):
-            tokens = fblk(tokens, pos, o.rope_freq)
-            frame_out = tokens
-            tokens = gblk(tokens.reshape(1, S * L, C), pos_global, o.rope_freq).reshape(S, L, C)
-            outputs.append(torch.cat([frame_out, tokens], dim=-1) if keep is None or i in keep else None)
-        return outputs, patch_start
+        global VGGT_AGGREGATOR_PASSES
+        VGGT_AGGREGATOR_PASSES += 1
+        with span("vggt.aggregator", images.shape[0]):
+            o = self.opts
+            S, _, H, W = images.shape
+            gh, gw = H // o.patch_size, W // o.patch_size
+            mean = torch.tensor(RESNET_MEAN, device=images.device)[:, None, None]
+            std = torch.tensor(RESNET_STD, device=images.device)[:, None, None]
+            with span("vggt.dino", S):
+                patch_tokens = torch.cat([self.patch_embed((images[s : s + FRAME_CHUNK] - mean) / std)
+                                          for s in range(0, S, FRAME_CHUNK)])
+            C = patch_tokens.shape[-1]
+            regs = _slice_expand(self.register_token, S)
+            tokens = torch.cat([_slice_expand(self.camera_token, S), regs, patch_tokens], dim=1)
+            patch_start = 1 + regs.shape[1]
+            L = tokens.shape[1]
+            yy, xx = torch.meshgrid(torch.arange(gh, device=images.device), torch.arange(gw, device=images.device),
+                                    indexing="ij")
+            pos = torch.cat([torch.zeros(patch_start, 2, dtype=torch.int64, device=images.device),
+                             torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1) + 1])
+            pos_global = pos.repeat(S, 1)
+            outputs = []
+            for i, (fblk, gblk) in enumerate(zip(self.frame_blocks, self.global_blocks)):
+                with span("vggt.frame", S):
+                    tokens = fblk(tokens, pos, o.rope_freq)
+                frame_out = tokens
+                with span("vggt.global", S):
+                    tokens = gblk(tokens.reshape(1, S * L, C), pos_global, o.rope_freq).reshape(S, L, C)
+                outputs.append(torch.cat([frame_out, tokens], dim=-1) if keep is None or i in keep else None)
+            return outputs, patch_start
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +449,10 @@ class VGGTNet(nn.Module):
         H', W'), depth_conf), H' and W' the patch grid's."""
         S, _, H, W = images.shape
         outputs, ps = self.aggregator(images, keep=self.heads_layers())
-        extri, intri = pose_encoding_to_extri_intri(self.camera_head(outputs[-1]), (H, W))
-        depth, conf = self.depth_head(outputs, ps, (H, W), activation="exp")
+        with span("vggt.camera_head", S):
+            extri, intri = pose_encoding_to_extri_intri(self.camera_head(outputs[-1]), (H, W))
+        with span("vggt.depth_head", S):
+            depth, conf = self.depth_head(outputs, ps, (H, W), activation="exp")
         return extri, intri, depth[..., 0], conf
 
 
@@ -476,7 +502,8 @@ class VGGTModel:
         topts = track_options_from_state_dict(self.net.state_dict())
         with torch.no_grad(), precise():
             outputs, ps = self.net.aggregator(x, keep=self.net.heads_layers())
-            coord_preds, vis, conf = self.net.track_head(outputs, ps, x.shape[2:], qp, topts)
+            with span("vggt.track_head", qp.shape[0]):
+                coord_preds, vis, conf = self.net.track_head(outputs, ps, x.shape[2:], qp, topts)
         return {"tracks": coord_preds[-1], "vis": vis, "conf": conf}
 
 

@@ -20,6 +20,10 @@ initial gaussian set (the anysplat slot with the compact backbone).
 
 Models are cached per process (``_MODEL_CACHE``), keyed by the options,
 the padded image size and the device.
+
+Spans (utils/tracing.py): ``feedforward.vggt`` (views) around the model's
+forward, ``feedforward.tracks`` (queries) around the host conversion of
+VGGT's tracks, ``feedforward.ba`` (tracks) around the post-BA.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from gtsfm_tpu_torch.frontend.feedforward import (
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler, PinholeCamera
 from gtsfm_tpu_torch.splat.gs_data import GSData
 from gtsfm_tpu_torch.utils.numerics import resolve_device
+from gtsfm_tpu_torch.utils.tracing import span
 
 MIN_TRACKS = 8  # fewer multi-view tracks fall back to depth self-tracks
 
@@ -132,11 +137,12 @@ class ClusterFeedforward:
         Hp, Wp = -(-H // P) * P, -(-W // P) * P
         images = pad_to_patch_grid(images, P)
         vggt_model = model = None
-        if opts.backbone == "vggt_exact":
-            poses, depth, conf, cal, vggt_model = self._run_vggt_exact(images, cal)
-        else:
-            model = _resolve_model(opts, (Hp, Wp), self.state_dict, self.device)
-            poses, depth, conf, _focal = model.run(images)
+        with span("feedforward.vggt", B):
+            if opts.backbone == "vggt_exact":
+                poses, depth, conf, cal, vggt_model = self._run_vggt_exact(images, cal)
+            else:
+                model = _resolve_model(opts, (Hp, Wp), self.state_dict, self.device)
+                poses, depth, conf, _focal = model.run(images)
         depth, conf = depth.cpu().numpy(), conf.cpu().numpy()
         hp_c, wp_c = max(1, -(-H // P)), max(1, -(-W // P))
         if (Hp, Wp) != (H, W):
@@ -157,7 +163,8 @@ class ClusterFeedforward:
         if opts.run_post_ba and data.number_tracks() > 4:
             fixed = torch.zeros(B, dtype=torch.bool, device=self.device)
             fixed[0] = True
-            data, metrics["post_ba"] = BundleAdjustment(opts.ba).run(data, fixed_cam=fixed)
+            with span("feedforward.ba", data.number_tracks()):
+                data, metrics["post_ba"] = BundleAdjustment(opts.ba).run(data, fixed_cam=fixed)
         return data, metrics, (poses, depth, conf)
 
     def _run_vggt_exact(self, images: np.ndarray, cal) -> tuple:
@@ -200,33 +207,34 @@ def vggt_exact_tracks_to_sfm_data(model, images: np.ndarray, poses: SE3, depth: 
     out = model.track(np.repeat(images[..., None], 3, axis=-1), qp)
     xy = out["tracks"].cpu().numpy()
     vis = (out["vis"] * out["conf"]).cpu().numpy()
-    valid = vis.T >= vis_threshold  # (Q, B)
-    valid[:, 0] = True
-    multi = valid.sum(axis=1) >= 2
-    chosen = np.nonzero(select_tracks_for_ba(vis.T * multi[:, None], valid & multi[:, None],
-                                             per_camera=per_camera))[0]
-    Hd, Wd = depth.shape[1], depth.shape[2]
-    uv_ref = qp[chosen]
-    iy = np.minimum(uv_ref[:, 1].astype(np.int64), Hd - 1)
-    ix = np.minimum(uv_ref[:, 0].astype(np.int64), Wd - 1)
-    dev = poses.t.device
-    cam0 = PinholeCamera(pose=poses, cal=cal).map(lambda a: a[0])
-    X = cam0.backproject(torch.as_tensor(uv_ref, device=dev),
-                         torch.as_tensor(depth[0, iy, ix], device=dev)).cpu().numpy()
-    tracks = []
-    for j, qi in enumerate(chosen):
-        obs = []
-        for b in range(B):
-            if not valid[qi, b]:
-                continue
-            uv = uv_ref[j] if b == 0 else xy[b, qi]
-            if 0 <= uv[0] < W and 0 <= uv[1] < H:
-                obs.append((b, np.asarray(uv, np.float32)))
-        if len(obs) >= 2:
-            tracks.append((X[j], obs))
-    if not tracks:
-        return None
-    return SfmData.from_cameras_and_tracks(poses, cal, tracks, num_cameras=B)
+    with span("feedforward.tracks", len(qp)):
+        valid = vis.T >= vis_threshold  # (Q, B)
+        valid[:, 0] = True
+        multi = valid.sum(axis=1) >= 2
+        chosen = np.nonzero(select_tracks_for_ba(vis.T * multi[:, None], valid & multi[:, None],
+                                                 per_camera=per_camera))[0]
+        Hd, Wd = depth.shape[1], depth.shape[2]
+        uv_ref = qp[chosen]
+        iy = np.minimum(uv_ref[:, 1].astype(np.int64), Hd - 1)
+        ix = np.minimum(uv_ref[:, 0].astype(np.int64), Wd - 1)
+        dev = poses.t.device
+        cam0 = PinholeCamera(pose=poses, cal=cal).map(lambda a: a[0])
+        X = cam0.backproject(torch.as_tensor(uv_ref, device=dev),
+                             torch.as_tensor(depth[0, iy, ix], device=dev)).cpu().numpy()
+        tracks = []
+        for j, qi in enumerate(chosen):
+            obs = []
+            for b in range(B):
+                if not valid[qi, b]:
+                    continue
+                uv = uv_ref[j] if b == 0 else xy[b, qi]
+                if 0 <= uv[0] < W and 0 <= uv[1] < H:
+                    obs.append((b, np.asarray(uv, np.float32)))
+            if len(obs) >= 2:
+                tracks.append((X[j], obs))
+        if not tracks:
+            return None
+        return SfmData.from_cameras_and_tracks(poses, cal, tracks, num_cameras=B)
 
 
 class ClusterFastFeedforward(ClusterFeedforward):

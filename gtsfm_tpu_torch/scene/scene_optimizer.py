@@ -395,29 +395,32 @@ class SceneOptimizer:
         """The whole scene through the feed-forward slot
         (scene/cluster_feedforward.py) in place of the front end and back
         end, then the common tail; the anysplat slot's gaussians start the
-        trainer (or are exported as they are)."""
-        opts = self.options
-        t0 = time.perf_counter()
-        images, sizes = loader.load_grayscale_batch()
-        cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
-        ff_opts = ClusterFeedforwardOptions(run_post_ba=opts.feedforward_post_ba, backbone=opts.feedforward_backbone,
-                                            vggt_weights_path=opts.vggt_weights_path or "")
-        cls = ClusterFastFeedforward if opts.cluster_optimizer == "fastvggt" else ClusterFeedforward
-        ff = cls(ff_opts, device=self.device)
-        data, ff_metrics, (poses, depth, conf) = ff.run_raw(images, cal)
-        data = data.replace(meta=SceneMeta(image_names=loader.image_filenames(),
-                                           image_sizes=[(w, h) for (h, w) in sizes]))
-        ff_metrics["feedforward_sec"] = time.perf_counter() - t0
-        self.backend_metrics = ff_metrics
-        groups.append(MetricsGroup("feedforward_metrics", [
-            Metric(k, v) for k, v in ff_metrics.items() if isinstance(v, (int, float))]))
-        gs_init = None
-        if opts.cluster_optimizer == "anysplat":
-            gs_init = self._feedforward_splats(ff, images, depth, conf, cal, data.poses, ff_opts)
-        gt = loader.get_gt_poses()
-        if gt is not None:
-            gt = gt.map(lambda a: a.to(self.device))
-        return self._finalize(loader, data, ff_metrics, groups, t_start, images, gt, gs_init=gs_init)
+        trainer (or are exported as they are). Inside the root span
+        ``feedforward`` (views)."""
+        with span("feedforward", len(loader)):
+            opts = self.options
+            t0 = time.perf_counter()
+            images, sizes = loader.load_grayscale_batch()
+            cal = batch_calibrations(loader.get_all_intrinsics()).map(lambda a: a.to(self.device))
+            ff_opts = ClusterFeedforwardOptions(run_post_ba=opts.feedforward_post_ba,
+                                                backbone=opts.feedforward_backbone,
+                                                vggt_weights_path=opts.vggt_weights_path or "")
+            cls = ClusterFastFeedforward if opts.cluster_optimizer == "fastvggt" else ClusterFeedforward
+            ff = cls(ff_opts, device=self.device)
+            data, ff_metrics, (poses, depth, conf) = ff.run_raw(images, cal)
+            data = data.replace(meta=SceneMeta(image_names=loader.image_filenames(),
+                                               image_sizes=[(w, h) for (h, w) in sizes]))
+            ff_metrics["feedforward_sec"] = time.perf_counter() - t0
+            self.backend_metrics = ff_metrics
+            groups.append(MetricsGroup("feedforward_metrics", [
+                Metric(k, v) for k, v in ff_metrics.items() if isinstance(v, (int, float))]))
+            gs_init = None
+            if opts.cluster_optimizer == "anysplat":
+                gs_init = self._feedforward_splats(ff, images, depth, conf, cal, data.poses, ff_opts)
+            gt = loader.get_gt_poses()
+            if gt is not None:
+                gt = gt.map(lambda a: a.to(self.device))
+            return self._finalize(loader, data, ff_metrics, groups, t_start, images, gt, gs_init=gs_init)
 
     @staticmethod
     def _feedforward_splats(ff, images, depth, conf, cal, poses, ff_opts):

@@ -48,6 +48,9 @@ def precise():
 
 # float32 attention scores per chunk of query rows (``attention``)
 SCORE_BYTES = 1 << 30
+# query-row chunks ``attention`` has computed in this process (a path
+# counter the benchmark reads)
+ATTENTION_CHUNKS = 0
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_scale: Optional[float] = None,
@@ -57,11 +60,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_scale: Option
     ``score_div`` divides the scores after it (the two references' orders).
     Query rows go in chunks whose (..., h, rows, M) float32 scores hold
     SCORE_BYTES at most; every row's numbers are those of one pass."""
+    global ATTENTION_CHUNKS
     qh, kh, vh = (a.movedim(-2, -3) for a in (q, k, v))  # (..., h, N|M, d)
     kt = kh.transpose(-1, -2)
     N, M = qh.shape[-2], kh.shape[-2]
     per_row = 4 * M * math.prod(qh.shape[:-2])
     rows = max(1, SCORE_BYTES // max(per_row, 1))
+    ATTENTION_CHUNKS += -(-N // rows)
     outs = []
     for s in range(0, N, rows):
         qs = qh[..., s : s + rows, :]

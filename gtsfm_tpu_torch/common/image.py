@@ -80,11 +80,33 @@ class Image:
         return patch
 
 
-def rgb_to_gray(value_array: np.ndarray) -> np.ndarray:
-    """ITU-R BT.601 luma, float32 in [0, 1]."""
-    arr = np.asarray(value_array).astype(np.float32)
+def rgb_to_gray(value_array: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """ITU-R BT.601 luma, float32 in [0, 1]; written into ``out``, a float32
+    (H, W) array or view, where given. Every pixel goes through the same
+    float32 operations in the same order as ``x = value_array.astype(
+    float32)``, ``x / 255`` where ``x.max() > 1.5``, then ``r * 0.299 + g *
+    0.587 + b * 0.114``, so the bits are those. A uint8 colour image is
+    taken one channel at a time, with no float32 copy of all three."""
+    arr = np.asarray(value_array)
+    if arr.dtype == np.uint8 and arr.ndim == 3:
+        scaled = arr.max() > 1  # exact in uint8: the float test's > 1.5
+        out = np.empty(arr.shape[:2], np.float32) if out is None else out
+        plane = np.empty(arr.shape[:2], np.float32)
+        for c, weight in enumerate((0.299, 0.587, 0.114)):
+            dst = plane if c else out
+            if scaled:
+                np.divide(arr[..., c], 255.0, out=dst, dtype=np.float32)
+            else:
+                dst[...] = arr[..., c]
+            np.multiply(dst, weight, out=dst)
+            if c:
+                out += plane
+        return out
+    arr = arr.astype(np.float32)
     if arr.max() > 1.5:
         arr = arr / 255.0
-    if arr.ndim == 2:
-        return arr
-    return arr[..., 0] * 0.299 + arr[..., 1] * 0.587 + arr[..., 2] * 0.114
+    gray = arr if arr.ndim == 2 else arr[..., 0] * 0.299 + arr[..., 1] * 0.587 + arr[..., 2] * 0.114
+    if out is None:
+        return gray
+    out[...] = gray
+    return out

@@ -3,7 +3,8 @@
 Port of gtsfm_tpu/loader/base.py: ``read_image`` (PIL, with EXIF), the
 ``max_resolution`` short-side rescale of images and of the intrinsics
 (any calibration model), EXIF intrinsics when a loader has none,
-``load_grayscale_batch`` padding to a common (H, W), ``get_gt_poses``,
+``load_grayscale_batch`` (the views read on a pool of host threads and
+padded to a common (H, W)), ``get_gt_poses``,
 ``is_valid_pair`` (the retrievers' pair filter) and
 ``batch_calibrations``. Images are host numpy arrays (the detector takes a
 padded numpy batch); poses and calibrations are port tensors on the CPU,
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -24,9 +26,13 @@ from PIL.ExifTags import TAGS
 from gtsfm_tpu_torch.common.image import Image, rgb_to_gray
 from gtsfm_tpu_torch.geometry import SE3, Cal3Bundler
 from gtsfm_tpu_torch.geometry.calibration import CALIBRATION_TYPES
-from gtsfm_tpu_torch.utils.tracing import span
+from gtsfm_tpu_torch.utils.tracing import adopt, span
 
 _EXIF_IFD = 0x8769  # the Exif sub-IFD: FocalLength and friends live there
+
+# Views ``load_grayscale_batch`` read on its thread pool, and in the caller.
+POOL_READS = 0
+SERIAL_READS = 0
 
 
 def read_image(path: str) -> Image:
@@ -39,7 +45,7 @@ def read_image(path: str) -> Image:
                 exif[TAGS.get(tag_id, tag_id)] = value
             for tag_id, value in raw.get_ifd(_EXIF_IFD).items():
                 exif[TAGS.get(tag_id, tag_id)] = value
-        arr = np.asarray(im.convert("RGB"))
+        arr = np.asarray(im if im.mode == "RGB" else im.convert("RGB"))  # RGB to RGB is a copy
     return Image(value_array=arr, exif_data=exif, file_name=os.path.basename(path))
 
 
@@ -122,24 +128,48 @@ class LoaderBase:
 
     def load_grayscale_batch(self, indices=None, pad_to: Optional[tuple] = None):
         """-> (images f32 (B, H, W) in [0, 1] zero-padded to a common size,
-        at least ``pad_to`` = (H, W) when given, list of (orig_h, orig_w))."""
+        at least ``pad_to`` = (H, W) when given, list of (orig_h, orig_w)).
+
+        The views are read, and then converted to gray into their rows of
+        the batch, on a pool of ``min(B, torch.get_num_threads())`` host
+        threads (PIL's decode and resize and numpy's arithmetic release the
+        GIL), or in the caller where that is one. So ``_get_image_full_res``
+        must be safe to call from several threads at once. Every file is
+        read anew on each call."""
+        global POOL_READS, SERIAL_READS
         if indices is None:
             indices = range(len(self))
-        with span("load", len(indices)):
-            grays = []
-            for i in indices:
-                rgb = self.get_image(i).value_array
-                with span("load.gray", 1):
-                    grays.append(rgb_to_gray(rgb))
-            sizes = [(g.shape[0], g.shape[1]) for g in grays]
-            H = max(s[0] for s in sizes)
-            W = max(s[1] for s in sizes)
-            if pad_to is not None:
-                H, W = max(H, pad_to[0]), max(W, pad_to[1])
-            with span("load.pad", len(grays)):
-                batch = np.zeros((len(grays), H, W), np.float32)
-                for b, g in enumerate(grays):
-                    batch[b, : g.shape[0], : g.shape[1]] = g
+        n = len(indices)
+        width = min(n, torch.get_num_threads())
+        with span("load", n):
+            if width > 1:
+                with span("load.pool", n), ThreadPoolExecutor(width, thread_name_prefix="load") as pool:
+                    out = self._read_into_batch(indices, pad_to, lambda f, *a: list(pool.map(adopt(f), *a)))
+                POOL_READS += n
+            else:
+                out = self._read_into_batch(indices, pad_to, lambda f, *a: list(map(f, *a)))
+                SERIAL_READS += n
+        return out
+
+    def _read_into_batch(self, indices, pad_to, each):
+        """``load_grayscale_batch``'s work, with ``each(f, *iterables)``
+        running ``f`` over the views, in order."""
+        rgbs = each(lambda i: self.get_image(i).value_array, indices)
+        sizes = [(a.shape[0], a.shape[1]) for a in rgbs]
+        H = max(s[0] for s in sizes)
+        W = max(s[1] for s in sizes)
+        if pad_to is not None:
+            H, W = max(H, pad_to[0]), max(W, pad_to[1])
+        batch = np.empty((len(rgbs), H, W), np.float32)
+
+        def fill(row, rgb):  # each task first-touches its own row's pages
+            h, w = rgb.shape[:2]
+            with span("load.gray", 1):
+                rgb_to_gray(rgb, out=row[:h, :w])
+            row[h:] = 0
+            row[:h, w:] = 0
+
+        each(fill, batch, rgbs)
         return batch, sizes
 
     def get_all_intrinsics(self):

@@ -72,12 +72,12 @@ spans ``stage.detect_describe``, ``stage.retriever`` and
 The front end marks its host stages with spans (utils/tracing.py), which
 record only while a ``torch.profiler`` records in the process:
 ``load_detect`` (a root per call: the loader's ``load`` with
-``load.read`` / ``load.resize`` / ``load.gray`` / ``load.pad``, the image
-upload, ``detect`` with one ``detect.net`` per detector batch, and
-``global_descriptor``) and ``two_view`` (a root per call: the upload, one
-``two_view.chunk`` per chunk with the learned matcher's ``match`` and the
-verifier's ``verify``, whose stages two_view.py and
-verifiers/essential.py mark).
+``load.pool``, where its thread pool runs, and one ``load.read`` /
+``load.resize`` / ``load.gray`` a view, the image upload, ``detect``
+with one ``detect.net`` per detector batch, and ``global_descriptor``)
+and ``two_view`` (a root per call: the upload, one ``two_view.chunk`` per
+chunk with the learned matcher's ``match`` and the verifier's ``verify``,
+whose stages two_view.py and verifiers/essential.py mark).
 
 In a ``torch.distributed`` world of more than one rank (the runner's
 ``--distributed_*`` flags) with ``use_mesh``, the ranks form a (data, model)

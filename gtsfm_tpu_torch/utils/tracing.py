@@ -16,7 +16,10 @@ that a profiler recording host activity carries it. Spans measure the
 host: they never synchronize the device nor read a device tensor, so where
 the host waits on the device inside a span the wait is part of its time.
 Records stay in memory, at most ``MAX_SPANS`` of them (``dropped()``
-counts the rest), until ``reset()``; ``spans()`` returns them.
+counts the rest), until ``reset()``; ``spans()`` returns them. Each thread
+keeps its own stack of open spans, so a span opened on a pool's thread is
+a root unless the task was wrapped with ``adopt``, which makes it a child
+of the span open where the task was handed out.
 
 ``Span(name, units=0)`` is a span that also keeps its own duration in
 ``seconds`` (two ``perf_counter`` reads) whether or not it records: the
@@ -145,6 +148,27 @@ def span(name: str, units=0):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return Span(name, units)
+
+
+def adopt(fn):
+    """``fn`` wrapped so that the spans it opens on any thread are children
+    of the span open on the calling thread now: the work of a thread pool
+    stays in its caller's tree. ``fn`` itself where nothing records or no
+    span is open."""
+    stack = _RECORDER.stack() if _autograd_profiler._is_profiler_enabled else None
+    if not stack:
+        return fn
+    parent = stack[-1]
+
+    def run(*args, **kwargs):
+        own = _RECORDER.stack()
+        own.append(parent)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            own.pop()
+
+    return run
 
 
 def spans() -> list:

@@ -6,10 +6,13 @@ benchmark's readers of its spans (perfbench/metrics/), on the CPU.
 - Under a CPU ``torch.profiler`` spans nest with their parent's and root's
   ids, units and self time, count the minor page faults of a 64 MB
   allocation, and start within 1 ms of the profiler's own event for them.
+- Tasks wrapped with ``adopt`` record under the span open where they were
+  handed to a thread pool; unwrapped ones are roots on their thread.
 - ``StageTimer`` timings are spans; records past ``MAX_SPANS`` are counted
   as dropped.
 - A tiny front-end pass through ``SceneOptimizer``'s stage methods (the
-  benchmark's small CPU overrides) records every span whose stage runs.
+  benchmark's small CPU overrides, the loader's pool two threads wide)
+  records every span whose stage runs, in one tree a stage.
 - Each reader returns the hand-computed value on recorded spans and None
   on an empty store.
 - ``device_trace`` writes ``spans.json`` beside ``trace.json``.
@@ -104,6 +107,25 @@ def test_span_start_shares_the_profilers_clock():
     assert abs(events[0].start_ns() - rec["start_ns"]) < 1 * MS
 
 
+def test_adopted_tasks_record_under_the_callers_span():
+    from concurrent.futures import ThreadPoolExecutor
+
+    def task(name):
+        with tracing.span(name, 1):
+            pass
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tracing.span("caller"), ThreadPoolExecutor(2) as pool:
+            list(pool.map(tracing.adopt(task), ["adopted", "adopted"]))
+            list(pool.map(task, ["own"]))
+    recs = _by_name(tracing.spans())
+    top = recs["caller"][0]
+    assert [(r["parent"], r["root"]) for r in recs["adopted"]] == [(top["id"], top["id"])] * 2
+    own = recs["own"][0]
+    assert own["parent"] is None and own["root"] == own["id"]
+    assert tracing.adopt(task) is task  # nothing records: fn itself
+
+
 def test_stage_timer_timings_are_spans():
     timer = StageTimer()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -126,7 +148,7 @@ def test_spans_past_the_bound_are_counted_as_dropped(monkeypatch):
     assert tracing.spans() == [] and tracing.dropped() == 0
 
 
-FRONT_END_SPANS = {"load", "load.read", "load.gray", "load.pad", "load_detect", "load_detect.upload", "detect",
+FRONT_END_SPANS = {"load", "load.pool", "load.read", "load.gray", "load_detect", "load_detect.upload", "detect",
                    "detect.net", "global_descriptor", "two_view", "two_view.upload", "two_view.chunk", "match",
                    "verify", "verify.draw", "verify.ransac", "ransac.hypotheses", "ransac.score", "ransac.lo",
                    "ransac.pose", "ransac.polish", "verify.refine"}
@@ -145,10 +167,13 @@ def test_front_end_pass_records_every_span():
         paths = weights.write(config, 11, os.path.join(work, "weights"), "cpu")
         fe = adapter.FrontEnd(config, paths, os.path.join(work, "scene"), traffic["max_resolution"], "cpu",
                               adapter.Spans(), -1, TINY_CONFIG)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)  # the loader's pool, as on a host of several cores
         try:
             with profile(activities=[ProfilerActivity.CPU]):
                 out = fe.run_pass(5)
         finally:
+            torch.set_num_threads(threads)
             fe.close()
     recs = tracing.spans()
     names = _by_name(recs)
@@ -158,6 +183,7 @@ def test_front_end_pass_records_every_span():
     assert ld["parent"] is None and ld["units"] == n_views and tv["parent"] is None
     assert sum(r["units"] for r in names["verify"]) == len(out.pairs) == tv["units"]
     assert sum(r["units"] for r in names["load.read"]) == n_views == names["load"][0]["units"]
+    assert {r["parent"] for r in names["load.read"] + names["load.gray"]} == {names["load.pool"][0]["id"]}
     assert len(names["two_view.chunk"]) == -(-len(out.pairs) // TINY_CONFIG["scene_optimizer.pair_batch_size"])
     # every span of one stage call shares its root
     for r in recs:

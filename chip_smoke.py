@@ -15,38 +15,31 @@ PyTorch built for CUDA. Phases, each printing one or more lines:
    public surface (tests/test_torch_surface.py) on the card against the
    CPU at the tests' tolerances, and nullvec_pinned_from_rows against
    nullvec_pinned_scalarized on 65,536 RANSAC hypotheses; no kernel runs;
-3. kernel: the fused mutual-NN matcher kernel against its plain PyTorch
-   version on the card, at the two-view shape of the slice (P=96 pairs,
-   K=1024, D=128), plus an all-masked pair, a K=1000 pair and the tiling's
-   edges (K1 = 127 and 129, K2 = 63 and 65, D = 136, one pair); two
-   launches must be bitwise equal and the finish kernel must equal its
-   plain version (fused_matcher._finish); the HMMA and FFMA counts of its SASS
-   (cuobjdump); both timed (median of 20 samples of back-to-back calls,
-   CUDA events), the kernels also as a CUDA graph (their device time alone)
-   and by the host's clock (the wrapper's host time per call), with its
-   TFLOP/s and share of the bound; then the same checks and timings at the
-   runner phase's shape, P=64 pairs, K=2048, D=128 (the unified config's
-   pair_batch_size and max_keypoints), on the descriptor feed at K=2048;
+3. kernel: the HMMA and FFMA counts of the fused mutual-NN matcher
+   kernel's SASS (cuobjdump); the kernel against its plain PyTorch
+   version on the card at the two-view shape of the slice (P=96 pairs,
+   K=1024, D=128), then both timed there (median of 20 samples of
+   back-to-back calls, CUDA events), the kernels also as a CUDA graph
+   (their device time alone) and by the host's clock (the wrapper's host
+   time per call), with its TFLOP/s and share of the bound; then the same
+   at the runner phase's shape, P=64 pairs, K=2048, D=128 (the unified
+   config's pair_batch_size and max_keypoints), on the descriptor feed at
+   K=2048;
 4. attention: the fused attention kernel through all four entries against
-   their plain versions: LightGlue's shape (P=96 pairs, K=2048, 4 heads of
-   64, masked keys), a fully masked key set, K=1000, K=384, K0 != K1 and
-   the tiling's edges (Kk = 1, Kk = 129, Kq = 1, Kq = 129, P = 2 at
-   K = 2048); each entry timed at LightGlue's shape (median of 20 samples
+   their plain versions at LightGlue's shape (P=96 pairs, K=2048, 4 heads
+   of 64, masked keys), each entry then timed there (median of 20 samples
    of back-to-back calls, CUDA events) in turns with its plain version and with
    scaled_dot_product_attention (once per direction) as the yardstick,
    with its TFLOP/s and share of the bound;
 5. composite: the splat tile-compositing kernel against its plain version
    on the tiles of a seeded 50,000-gaussian scene (the splat scene below)
    seen by one ring camera at 480x640, f=600, binned by the port's
-   render_tiled: a low-opacity copy where no tile stops early (|d| <=
-   1e-5), the full scene (|d| <= 1/255 + 1e-5, the early stop's bound), an
-   all-empty tile set (exact), a ragged tile count, and the kernel's
-   edges: every count cut to 256 and to 257 (the stop boundary), indices
-   -1 and G among the faint copy's slots, and cap 100 (only 64 slots
-   composited); TiledComposite's gradient on the card against the plain
-   path's; kernel and plain timed (median of 20 samples, CUDA events), the
-   kernel also as a CUDA graph of 5 calls (its device time alone), with
-   its share of the bound;
+   render_tiled (|d| <= 1/255 + 1e-5, the early stop's bound); kernel and
+   plain timed (median of 20 samples, CUDA events), the kernel also as a
+   CUDA graph of 5 calls (its device time alone), with its share of the
+   bound;
+   the kernels' edge cases, repeatability, split entries and the
+   compositing gradient are tests/test_torch_cuda.py's (marker cuda);
 6. slice: SceneOptimizer.run on a 32-camera ring fed through the detector
    slot with synthetic keypoints and descriptors (the descriptor feed
    below), on `cuda`, with the splat trainer after it (run_gs, 400 steps on
@@ -133,8 +126,8 @@ then distributed (after runner, on its folder): the runner as 4 ranks of
    joint retriever, pair_batch_size 256) on the runner phase's Olsson
    folder, with seeded SuperPoint and LightGlue checkpoints (NetVLAD on its
    seeded init), cold at RANSAC seed 0 (the warm run at seed 0 cut for
-   the script's time), then warm at seeds 1 and 2: 36 attention launches per LightGlue forward, no matcher launch,
-   peak device memory; the pairs and each pair's LightGlue match count
+   the script's time), then warm at seeds 1 and 2: 36 attention launches per LightGlue forward, no matcher launch;
+   the pairs and each pair's LightGlue match count
    against the JAX package's, the medians over the seeds of registered,
    AUC@5 and valid pairs within its bars (DEEP_REFERENCE, from
    scripts/deep_front_end_reference.py); the attention kernel on the inputs
@@ -160,10 +153,10 @@ then distributed (after runner, on its folder): the runner as 4 ranks of
    scripts/feedforward_reference.py on the CPU): the forward's poses,
    depth, confidences and track features, the feed-forward track count,
    registered cameras, AUC@5, the post-BA cost and the anysplat trainer's
-   L1; then on the runner phase's 32 rendered views, timed, anysplat's
-   trainer at 100 steps through the compositing kernel (its launches join
-   the kernels line as feedforward_launches); no matcher or attention
-   launch in any of these runs;
+   L1, and anysplat's trainer launching the compositing kernel at each of
+   its 40 steps (the launches join the kernels line as
+   feedforward_launches); no matcher or attention launch in any of these
+   runs;
 18. vggt_full: VGGT at the public VGGT-1B widths (VGGTOptions(),
    TrackOptions()): with the depth cut (VGGT_CHECK_DEPTH) its forward and
    track head on 2 views at 392x518 against the same file; then the full
@@ -172,9 +165,10 @@ then distributed (after runner, on its folder): the runner as 4 ranks of
    (scene_optimizer.feedforward_post_ba=true, so that the one run drives
    the vggt slot's path too: the vggt slot's own run is cut for time) and
    scene_optimizer.feedforward_backbone=vggt_exact on the first 16 of
-   the 32 rendered views (VGGT_FULL_FRAMES, cut for time): each aggregator pass, head, the tracker and post-BA timed (each
-   must have run), the attention's share of the aggregator, peak memory;
-   every camera registered with finite poses;
+   the 32 rendered views (VGGT_FULL_FRAMES, cut for time): the aggregator,
+   the tracker, the track features, the gaussian head and post-BA must
+   each have run (calls counted, nothing timed); every camera registered
+   with finite poses;
 19. mvs: the dense back ends on the card held to the JAX package
    (MVS_REFERENCE, written by scripts/mvs_reference.py on the CPU) on the
    FF_VIEWS feedforward_views at 480x640 with their GT poses and
@@ -495,9 +489,6 @@ FEEDFORWARD_REFERENCE = "scripts/feedforward_reference.json"
 FF_VIEWS = 8
 FF_SEED = 0
 FF_GS_STEPS = 40  # the held anysplat --run_gs run's trainer steps (its L1: the first and the last 20)
-# the timed anysplat --run_gs run's trainer steps on the 32 rendered views
-# (the trainer's 400 steps with a densify run in the slice and splat phases)
-FF_TIMED_GS_STEPS = 100
 FF_NEAR_CELLS = (24, 48)  # feedforward_views' checkers, latitude x longitude
 FF_FAR_CELLS = (36, 72)
 FF_DEPTH_STEP = 16  # the depth held every 16 pixels (the compact patch)
@@ -1952,26 +1943,18 @@ def matcher_sass(path: str, symbol: str = "fused_matcher_kernelILi8E") -> dict:
     return {"function": counts(body), "loop": counts(body[loop[0]:loop[1]]), "loop_len": loop[1] - loop[0]}
 
 
-def _unit_rows(rng, shape):
-    x = rng.normal(size=shape)
-    return x / np.linalg.norm(x, axis=-1, keepdims=True)
-
-
 def phase_kernel(kp_mask, descs, pairs):
-    """The matcher kernel against its plain version at the slice's shape
-    and at the tiling's edges, then timed at the slice's shape in turns
-    with the plain version, as a CUDA graph (device time alone) and by the
-    host's clock (the wrapper's host time per call). Returns (worst max
-    |best| error, {"kernel", "plain", "device", "wrapped", "host": ms},
-    (bound ms, bound by)): "kernel" is 5 calls back to back through the
-    wrapper, "device" the tile and finish kernels alone and "wrapped" the
-    whole call (casts included) in a CUDA graph."""
+    """The matcher kernel's SASS, then the kernel against its plain version
+    at the slice's shape, timed there in turns with the plain version, as a
+    CUDA graph (device time alone) and by the host's clock (the wrapper's
+    host time per call). The tiling's edges are tests/test_torch_cuda.py's
+    SHAPES. Returns (max |best| error, {"kernel", "plain", "device",
+    "wrapped", "host": ms}, (bound ms, bound by)): "kernel" is 5 calls back
+    to back through the wrapper, "device" the tile and finish kernels alone
+    and "wrapped" the whole call (casts included) in a CUDA graph."""
     import torch
 
-    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
-    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
     from gtsfm_tpu_torch.utils import cuda_build
-    from gtsfm_tpu_torch.utils.numerics import precise
 
     sass = matcher_sass(cuda_build.library_path("fused_matcher"))
     loop = sass["loop"]
@@ -1990,53 +1973,37 @@ def phase_kernel(kp_mask, descs, pairs):
     m = torch.as_tensor(kp_mask, device=dev)
     i1 = torch.as_tensor(pairs[:, 0], device=dev, dtype=torch.int64)
     i2 = torch.as_tensor(pairs[:, 1], device=dev, dtype=torch.int64)
-    cases = {"P96_K1024": (d[i1], d[i2], m[i1], m[i2])}
-    masked = torch.zeros_like(m[:1])
-    cases["all_masked"] = (d[:1], d[1:2], masked, masked)
-    cases["K1000"] = (d[i1[:1], :1000], d[i2[:1], :1000], m[i1[:1], :1000], m[i2[:1], :1000])
-    # the tiling's edges: 128 desc1 rows per block, 64 desc2 rows per tile
-    # (32 above D = 128), D = 136 zero-padded to 144, one pair
-    for name, k1, k2 in (("K1_127", 127, 1024), ("K1_129", 129, 1024), ("K2_63", 1024, 63), ("K2_65", 1024, 65)):
-        cases[name] = (d[i1[:4], :k1], d[i2[:4], :k2], m[i1[:4], :k1], m[i2[:4], :k2])
-    rng = np.random.default_rng(0)
-    w1 = _unit_rows(rng, (2, 129, 136))
-    w2 = _unit_rows(rng, (2, 33, 136))
-    w2[:, :16] = _unit_rows(rng, (2, 16, 136)) * 0.05 + w1[:, :16]
-    cases["D136"] = tuple(torch.as_tensor(x, device=dev) for x in (
-        w1.astype(np.float32), (w2 / np.linalg.norm(w2, axis=-1, keepdims=True)).astype(np.float32),
-        rng.random((2, 129)) > 0.1, rng.random((2, 33)) > 0.1))
-    cases["P1"] = (d[i1[:1]], d[i2[:1]], m[i1[:1]], m[i2[:1]])
+    a, b, ma, mb = d[i1], d[i2], m[i1], m[i2]
+    err = _hold_matcher("P96_K1024", a, b, ma, mb)
+    ms, bound = _time_matcher("P96_K1024", a, b, ma, mb)
+    return err, ms, bound
 
-    worst = 0.0
+
+def _hold_matcher(name, a, b, ma, mb) -> float:
+    """The kernel against its plain version on (a, b, ma, mb)
+    (kernel_agrees); returns the max |best| error."""
+    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
+    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
+    from gtsfm_tpu_torch.utils.numerics import precise
+
     with precise():
-        for name, (a, b, ma, mb) in cases.items():
-            got = fused_matcher.fused_match_descriptors(a, b, ma, mb)
-            want = match_descriptors(a, b, ma, mb)
-            err, n_dec, bad = kernel_agrees(got, want, a, b, ma, mb)
-            # the finish kernel against its plain version on the tile
-            # kernel's own outputs: exactly
-            (fi, fok, fb), rest = fused_matcher.match_tiles(a.to(torch.bfloat16), b.to(torch.bfloat16), ma, mb)
-            pi, pok, _ = fused_matcher._finish(fb, *rest, ma, 0.8)
-            if not (torch.equal(fi, pi) and torch.equal(fok, pok)):
-                raise AssertionError(f"the finish kernel disagrees with _finish on {name}")
-            if name == "all_masked" and bool(got[1].any()):
-                raise AssertionError("all-masked pair produced matches")
-            if err > KERNEL_TOL_BEST or bad:
-                raise AssertionError(f"kernel disagrees on {name}: max|best| err {err:.3g}, "
-                                     f"{bad}/{n_dec} decisive rows differ")
-            worst = max(worst, err)
-            print(f"kernel check {name} {tuple(a.shape)} x {tuple(b.shape)}: max|best| err {err:.3g}, {n_dec} "
-                  f"decisive rows agree, {int(got[1].sum())} matches", flush=True)
-    ms, bound = _time_matcher("P96_K1024", *cases["P96_K1024"])
-    return worst, ms, bound
+        got = fused_matcher.fused_match_descriptors(a, b, ma, mb)
+        want = match_descriptors(a, b, ma, mb)
+        err, n_dec, bad = kernel_agrees(got, want, a, b, ma, mb)
+    print(f"kernel check {name} {tuple(a.shape)} x {tuple(b.shape)}: max|best| err {err:.3g}, {n_dec} decisive "
+          f"rows agree, {int(got[1].sum())} matches", flush=True)
+    if err > KERNEL_TOL_BEST or bad or n_dec == 0:
+        raise AssertionError(f"kernel disagrees on {name}: max|best| err {err:.3g}, {bad}/{n_dec} decisive "
+                             f"rows differ")
+    return err
 
 
 def _time_matcher(name, a, b, ma, mb):
-    """Two launches on (a, b, ma, mb) must be bitwise equal; then the
-    wrapper is timed in turns with the plain version, as a CUDA graph
-    (device time alone: the whole call, and the tile and finish kernels on
-    bf16 inputs) and by the host's clock. Returns ({"kernel", "plain",
-    "device", "wrapped", "host": ms}, (bound ms, bound by))."""
+    """The wrapper on (a, b, ma, mb) timed in turns with the plain version,
+    as a CUDA graph (device time alone: the whole call, and the tile and
+    finish kernels on bf16 inputs) and by the host's clock. Returns
+    ({"kernel", "plain", "device", "wrapped", "host": ms}, (bound ms,
+    bound by))."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_matcher
@@ -2044,10 +2011,6 @@ def _time_matcher(name, a, b, ma, mb):
     from gtsfm_tpu_torch.utils.numerics import precise
 
     with precise():
-        first = fused_matcher.fused_match_descriptors(a, b, ma, mb)
-        again = fused_matcher.fused_match_descriptors(a, b, ma, mb)
-        if not all(torch.equal(x, y) for x, y in zip(first, again)):
-            raise AssertionError(f"two matcher launches on the same inputs differ ({name})")
         ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
         # "alone": the tile and finish kernels on bf16 inputs, no casts
         calls = {"plain": lambda: match_descriptors(a, b, ma, mb),
@@ -2093,15 +2056,11 @@ def phase_kernel_runner():
     """The matcher kernel at the runner phase's two-view shape, P=64 pairs
     (the unified config's pair_batch_size), K=2048 (its max_keypoints),
     D=128: the descriptor feed of the 32-camera ring at K=2048 over 64 of
-    its pairs, held against the plain version (kernel_agrees), two launches
-    bitwise equal, timed as at the slice's shape. Returns (max |best|
-    error, ms, bound)."""
+    its pairs, held against the plain version and timed as at the slice's
+    shape. Returns (max |best| error, ms, bound)."""
     import torch
 
-    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
-    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
     from gtsfm_tpu_torch.loader.synthetic import spectral_ring_poses
-    from gtsfm_tpu_torch.utils.numerics import precise
 
     pairs = ring_pairs(NUM_CAMERAS)[:RUNNER_PAIR_BATCH]
     gt = spectral_ring_poses(ring_pairs(NUM_CAMERAS), NUM_CAMERAS)
@@ -2112,52 +2071,11 @@ def phase_kernel_runner():
     i1 = torch.as_tensor(pairs[:, 0], device=dev, dtype=torch.int64)
     i2 = torch.as_tensor(pairs[:, 1], device=dev, dtype=torch.int64)
     a, b, ma, mb = d[i1], d[i2], m[i1], m[i2]
-    with precise():
-        got = fused_matcher.fused_match_descriptors(a, b, ma, mb)
-        want = match_descriptors(a, b, ma, mb)
-        err, n_dec, bad = kernel_agrees(got, want, a, b, ma, mb)
-    print(f"kernel check P64_K2048 {tuple(a.shape)} x {tuple(b.shape)}: max|best| err {err:.3g}, {n_dec} decisive "
-          f"rows agree, {int(got[1].sum())} matches", flush=True)
-    if err > KERNEL_TOL_BEST or bad:
-        raise AssertionError(f"kernel disagrees on P64_K2048: max|best| err {err:.3g}, "
-                             f"{bad}/{n_dec} decisive rows differ")
-    _check_split_entries(a, b, ma, mb)
+    err = _hold_matcher("P64_K2048", a, b, ma, mb)
     ms, bound = _time_matcher("P64_K2048", a, b, ma, mb)
     del a, b, d
     torch.cuda.empty_cache()
     return err, ms, bound
-
-
-def _check_split_entries(a, b, ma, mb) -> None:
-    """Kernel #1's split over two model ranks, in one process: the tile
-    kernel's own entry on each rank's whole 128-row tiles of desc1 (K1 =
-    2048 and K1 = 300, a partial last tile), the outputs concatenated in
-    rank order and the finish kernel's own entry on them; the matches must
-    equal the unsplit call's bit for bit, and the finish entry must equal
-    its plain version (mutual_nn.finish_tiles) on the same buffers."""
-    import torch
-
-    from gtsfm_tpu_torch.frontend.matchers import fused_matcher
-    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import TILE, finish_tiles
-    from gtsfm_tpu_torch.parallel.sharding import shard_range
-
-    bb = b.to(torch.bfloat16).contiguous()
-    for K1 in (a.shape[1], 300):
-        ak, mk = a[:, :K1].to(torch.bfloat16).contiguous(), ma[:, :K1].contiguous()
-        cuts = [shard_range(K1, 2, i, TILE) for i in range(2)]
-        parts = [fused_matcher.launch_tiles(ak[:, lo:hi].contiguous(), bb, mk[:, lo:hi].contiguous(), mb, lo)
-                 for lo, hi in cuts]
-        bufs = [torch.cat([p[j] for p in parts], dim=1) for j in range(5)]
-        split = fused_matcher.launch_finish(*bufs, mk, 0.8)
-        whole = fused_matcher.fused_match_descriptors(a[:, :K1], b, ma[:, :K1], mb)
-        plain = finish_tiles(*bufs, mk, 0.8)
-        same = all(torch.equal(x, y) for x, y in zip(split, whole))
-        finish_same = all(torch.equal(x, y) for x, y in zip(split, plain))
-        print(f"kernel split entries K1={K1}: rows {cuts} through the tile entry, the finish entry on the "
-              f"gathered buffers: equal to the unsplit call {same}, to the plain finish {finish_same}, "
-              f"{int(split[1].sum())} matches", flush=True)
-        if not (same and finish_same):
-            raise AssertionError(f"kernel #1's split entries disagree at K1={K1}")
 
 
 def attention_agrees(got, want, v):
@@ -2221,69 +2139,40 @@ def attention_library(q0, q1, v0, v1, m0, m1, heads):
 
 
 def phase_attention(seed: int = 0):
-    """All four attention entries against their plain versions, on
-    LightGlue's shape and the kernel's tiling edges, then each timed at
-    LightGlue's shape in turns with its plain version and its library
-    yardstick. Returns (worst max abs error, {entry: {"kernel", "plain",
-    "library": ms}}, (bound ms, bound by) of the merged self entry)."""
+    """All four attention entries against their plain versions at
+    LightGlue's shape, then each timed there in turns with its plain
+    version and its library yardstick. The tiling's edges are
+    tests/test_torch_cuda.py's ATTN_SHAPES. Returns (max abs error,
+    {entry: {"kernel", "plain", "library": ms}}, (bound ms, bound by) of
+    the merged self entry)."""
     import torch
 
-    from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
     from gtsfm_tpu_torch.utils.numerics import precise
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     heads, dh = 4, 64
-
-    def make(P, K0, K1, masked=0.2):
-        """q/k and v of both images, bf16 (P, K, heads*dh); key masks."""
-        def x(K):
-            return torch.as_tensor(rng.normal(size=(P, K, heads * dh)).astype(np.float32),
-                                   device=dev).to(torch.bfloat16)
-
-        m0 = torch.as_tensor(rng.random((P, K0)) >= masked, device=dev)
-        m1 = torch.as_tensor(rng.random((P, K1)) >= masked, device=dev)
-        return x(K0), x(K1), x(K0), x(K1), m0, m1
-
-    cases = {
-        "P96_K2048": make(96, GLUE_KEYPOINTS, GLUE_KEYPOINTS),
-        "all_masked": make(2, 256, 256, masked=1.0),
-        "K1000": make(4, 1000, 1000),
-        "K384": make(4, 384, 384),
-        "K0_1000_K1_384": make(4, 1000, 384),
-        # the tiling's edges: 128 query rows per block, 128 keys per tile;
-        # a cross entry also runs the swapped direction (Kq <-> Kk)
-        "Kk1": make(2, 200, 1),
-        "Kk129": make(2, 300, 129),
-        "Kq1": make(2, 1, 300),
-        "Kq129": make(2, 129, 256),
-        "P2_K2048": make(2, GLUE_KEYPOINTS, GLUE_KEYPOINTS),
-    }
+    P, K, C = 96, GLUE_KEYPOINTS, heads * dh
+    m0, m1 = (torch.as_tensor(rng.random((P, K)) >= 0.2, device=dev) for _ in range(2))
+    q0, q1, v0, v1 = (torch.as_tensor(rng.normal(size=(P, K, C)).astype(np.float32), device=dev).to(torch.bfloat16)
+                      for _ in range(4))
     worst = 0.0
     with precise():
-        for name, (q0, q1, v0, v1, m0, m1) in cases.items():
-            for entry, kern, plain, vs in attention_entries(q0, q1, v0, v1, m0, m1, heads):
-                got = kern()
-                torch.cuda.synchronize()
-                want = plain()
-                res = [attention_agrees(g, w, v) for g, w, v in zip(got, want, vs)]
-                err = max(r[0] for r in res)
-                ratio = max(r[1] for r in res)
-                if ratio > 1.0 or not all(r[2] for r in res):
-                    raise AssertionError(f"attention kernel disagrees on {name} / {entry}: max abs err "
-                                         f"{err:.4g}, {ratio:.3f} of the tolerance, finite {[r[2] for r in res]}")
-                if name == "all_masked":  # the -1e9 fill gives the mean of v, not NaN
-                    o = got[0] if got[0].dim() == 3 else fa.merge_heads(got[0])
-                    mean_v = v1.float().mean(dim=1, keepdim=True).expand(o.shape)
-                    if attention_agrees(o, mean_v, v1)[1] > 1.0:
-                        raise AssertionError(f"{entry}: a fully masked key set did not give the mean of v")
-                worst = max(worst, err)
-                print(f"attention check {name} {entry}: max abs err {err:.4g} "
-                      f"({ratio:.3f} of the tolerance)", flush=True)
+        for entry, kern, plain, vs in attention_entries(q0, q1, v0, v1, m0, m1, heads):
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            res = [attention_agrees(g, w, v) for g, w, v in zip(got, want, vs)]
+            err = max(r[0] for r in res)
+            ratio = max(r[1] for r in res)
+            if ratio > 1.0 or not all(r[2] for r in res):
+                raise AssertionError(f"attention kernel disagrees on P96_K2048 / {entry}: max abs err "
+                                     f"{err:.4g}, {ratio:.3f} of the tolerance, finite {[r[2] for r in res]}")
+            worst = max(worst, err)
+            print(f"attention check P96_K2048 {entry}: max abs err {err:.4g} ({ratio:.3f} of the tolerance)",
+                  flush=True)
         del got, want
 
-        q0, q1, v0, v1, m0, m1 = cases["P96_K2048"]
-        P, K, C = q0.shape
         flops = 4.0 * P * heads * K * K * (C // heads)  # one direction: q.k and p.v, 2 flops per product term
         bound = max((flops / PEAK_BF16 * 1e3, "operations"), ((4 * q0.nbytes + m1.nbytes) / PEAK_BYTES * 1e3, "bytes"))
         library = attention_library(q0, q1, v0, v1, m0, m1, heads)
@@ -2300,7 +2189,7 @@ def phase_attention(seed: int = 0):
                   f"{ms[entry]['library']:.4f} ms | {n_dir * flops / k_ms / 1e9:.1f} TFLOP/s, "
                   f"{n_dir * bound[0] / k_ms:.3f} of the bound {n_dir * bound[0]:.4f} ms ({bound[1]}) | "
                   f"kernel / library {k_ms / ms[entry]['library']:.3f} | runs {runs}", flush=True)
-    del cases, library
+    del q0, q1, v0, v1, library
     torch.cuda.empty_cache()
     return worst, ms, bound
 
@@ -2446,8 +2335,10 @@ def _graph_ms(fn, calls: int = TIMING_BATCH, reps: int = 20) -> float:
 def phase_composite(R, t):
     """The compositing kernel against its plain version on the splat
     scene's tiles from ring camera 0, binned by the port's render_tiled,
-    and on the kernel's edges. Returns (max abs error on the full scene,
-    {"kernel": ms, "plain": ms, "device": ms}, (bound ms, bound by))."""
+    then timed there. The kernel's edges and the gradient are
+    tests/test_torch_cuda.py's COMPOSITE_SHAPES and gradient test. Returns
+    (max abs error, {"kernel": ms, "plain": ms, "device": ms}, (bound ms,
+    bound by))."""
     import torch
 
     from gtsfm_tpu_torch.splat import rendering
@@ -2458,8 +2349,6 @@ def phase_composite(R, t):
     h, w = SPLAT_HW
     fields = splat_scene(np.asarray(t).mean(axis=0), n=SPLAT_GAUSSIANS)
     full = GSData(**{k: torch.as_tensor(v, device=dev) for k, v in fields.items()})
-    # alpha 0.004: T >= (1 - 0.004)^512 = 0.13 > 1/255, so no tile stops early
-    faint = full.replace(opacity_logit=torch.full_like(full.opacity_logit, float(np.log(0.004 / 0.996))))
     pose, K = splat_camera(R, t, 0, dev)
 
     def plain(packed, gidx, counts, origins):
@@ -2470,72 +2359,22 @@ def phase_composite(R, t):
         return rendering.composite_tiles(packed, gidx, counts, origins, rendering.KERNEL_TILE)
 
     with torch.no_grad(), precise():
-        bins = {name: rendering.bin_tiles(g, pose, K, h, w) for name, g in (("faint", faint), ("full", full))}
-        packed, gidx, counts, origins = bins["full"]
-        p_f, gidx_f, counts_f, origins_f = bins["faint"]
+        packed, gidx, counts, origins = rendering.bin_tiles(full, pose, K, h, w)
         n_tiles = gidx.shape[0]
-        G = packed.shape[0]
-        bad = gidx_f.clone()
-        bad[:, ::7] = -1
-        bad[:, 3::11] = G
-        cases = {
-            "faint": (bins["faint"], COMPOSITE_TOL),
-            "full": (bins["full"], COMPOSITE_TOL_STOP),
-            "all_empty": ((packed, gidx, torch.zeros_like(counts), origins), 0.0),
-            "ragged_997": (tuple(a[:997].contiguous() if a is not packed else a for a in bins["full"]),
-                           COMPOSITE_TOL_STOP),
-            # the stop boundary: at count 256 no tile checks (none stops
-            # early), at 257 each checks once after 256 slots
-            "count_256": ((packed, gidx, torch.clamp(counts, max=256), origins), COMPOSITE_TOL),
-            "count_257": ((packed, gidx, torch.clamp(counts, max=257), origins), COMPOSITE_TOL_STOP),
-            "out_of_range": ((p_f, bad, counts_f, origins_f), COMPOSITE_TOL),
-            # cap 100: only composited_slots(100) = 64 slots are read
-            "cap_100": ((p_f, gidx_f[:, :100].contiguous(), torch.clamp(counts_f, max=100), origins_f),
-                        COMPOSITE_TOL),
-        }
-        errs = {}
-        for name, (args, tol) in cases.items():
-            got = kernel(*args)
-            torch.cuda.synchronize()
-            want = composite_plain(*args)
-            err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
-            stopped = int((want[1].max(dim=1).values <= 1.0 / 255.0).sum())
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            print(f"composite check {name}: {args[1].shape[0]} tiles, max abs err {err:.4g} (tolerance {tol:.4g}), "
-                  f"{stopped} tiles saturated, live slots per tile median {float(args[2].float().median()):.0f} "
-                  f"max {int(args[2].max())}", flush=True)
-            if not finite or err > tol:
-                raise AssertionError(f"composite kernel disagrees on {name}: max abs err {err:.4g} > {tol:.4g}")
-            if name in ("faint", "out_of_range", "cap_100") and stopped:
-                raise AssertionError(f"the {name} case saturated a tile; it must not")
-            if name in ("count_256", "count_257") and not stopped:
-                raise AssertionError(f"no tile of {name} saturates: the stop boundary is not exercised")
-            if name == "all_empty" and not (bool((got[0] == 0).all()) and bool((got[1] == 1).all())):
-                raise AssertionError("an empty tile is not black with T = 1")
-            errs[name] = err
+        got = kernel(packed, gidx, counts, origins)
+        torch.cuda.synchronize()
+        want = composite_plain(packed, gidx, counts, origins)
+        err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+        stopped = int((want[1].max(dim=1).values <= 1.0 / 255.0).sum())
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"composite check full: {n_tiles} tiles, max abs err {err:.4g} (tolerance {COMPOSITE_TOL_STOP:.4g}), "
+              f"{stopped} tiles saturated, live slots per tile median {float(counts.float().median()):.0f} "
+              f"max {int(counts.max())}", flush=True)
+        if not finite or err > COMPOSITE_TOL_STOP:
+            raise AssertionError(f"composite kernel disagrees on the full scene: max abs err {err:.4g} > "
+                                 f"{COMPOSITE_TOL_STOP:.4g}")
+        del got, want
         need = evaluated_slots(packed, gidx, counts, origins)
-
-    # the gradient: fixed upstream weights, so both sides see the same
-    # cotangents; only the gather's scatter-add order (float atomics) differs
-    gen = torch.Generator(device=dev).manual_seed(0)
-    wc = torch.rand((n_tiles, 256, 3), generator=gen, device=dev)
-    wt = torch.rand((n_tiles, 256), generator=gen, device=dev)
-    grads = {}
-    with precise():
-        for which in ("kernel", "plain"):
-            p = p_f.detach().clone().requires_grad_(True)
-            if which == "kernel":
-                c, T = rendering.TiledComposite.apply(p, gidx_f, counts_f, origins_f, rendering.KERNEL_TILE)
-            else:
-                c, T = plain(p, gidx_f, counts_f, origins_f)
-            ((c * wc).sum() + (T * wt).sum()).backward()
-            grads[which] = p.grad
-    gerr = float((grads["kernel"] - grads["plain"]).norm() / grads["plain"].norm())
-    print(f"composite gradient: |kernel path - plain path| / |plain path| {gerr:.3g} (tolerance 1e-5)", flush=True)
-    if not gerr <= 1e-5:
-        raise AssertionError(f"TiledComposite's gradient on the card differs from the plain path's: {gerr:.3g}")
-
-    with torch.no_grad(), precise():
         calls = {"kernel": lambda: kernel(packed, gidx, counts, origins),
                  "plain": lambda: plain(packed, gidx, counts, origins)}
         runs = [(which, _median_ms(calls[which], batch=1 if which == "plain" else TIMING_BATCH))
@@ -2550,17 +2389,17 @@ def phase_composite(R, t):
           f"| runs {runs} | evaluated slots {int(need.sum())} of {int(counts.sum())} live | bound {bound[0]:.4f} ms "
           f"({bound[1]}): {bound[0] / ms['kernel']:.3f} of it back to back, {bound[0] / ms['device']:.3f} device",
           flush=True)
-    del bins, cases, grads
+    del packed, gidx, counts, origins
     torch.cuda.empty_cache()
-    return errs["full"], ms, bound
+    return err, ms, bound
 
 
 def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None, options=None):
     """SceneOptimizer.run on the 32-camera ring on `cuda`, fed through the
     detector slot, with every kernel's launch count set to 0 just before
     the run and read just after. Requires 32/32 registered, pose AUC@5 >=
-    AUC5_BAR and finite output. Returns ({"matcher": n, "attention": n,
-    "composite": n}, stage seconds, metrics by group)."""
+    AUC5_BAR and finite output; prints the stage seconds. Returns
+    ({"matcher": n, "attention": n, "composite": n}, metrics by group)."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_attention, fused_matcher
@@ -2612,7 +2451,7 @@ def _ring_slice(name, kp_xy, kp_mask, descs, pairs, R, t, matcher=None, options=
         raise AssertionError(f"{name}: registered {registered}/{n} cameras")
     if auc5 < AUC5_BAR:
         raise AssertionError(f"{name}: pose AUC@5 {auc5:.4f} < {AUC5_BAR}")
-    return launches, sec, metrics
+    return launches, metrics
 
 
 def phase_slice(kp_xy, kp_mask, descs, pairs, R, t):
@@ -2621,8 +2460,8 @@ def phase_slice(kp_xy, kp_mask, descs, pairs, R, t):
     matcher's and the compositing kernel's launches during the run."""
     from gtsfm_tpu_torch.scene.scene_optimizer import SceneOptimizerOptions
 
-    launches, _sec, metrics = _ring_slice("slice", kp_xy, kp_mask, descs, pairs, R, t,
-                                          options=SceneOptimizerOptions(run_gs=True, gs_iterations=SPLAT_STEPS))
+    launches, metrics = _ring_slice("slice", kp_xy, kp_mask, descs, pairs, R, t,
+                                    options=SceneOptimizerOptions(run_gs=True, gs_iterations=SPLAT_STEPS))
     gs = {k: m.scalar for k, m in metrics["gaussian_splatting_metrics"].items()}
     print(f"slice splat: {gs}", flush=True)
     if launches["matcher"] <= 0:
@@ -2668,9 +2507,9 @@ def _plain_attention(fa):
 def phase_lightglue(pairs, R, t):
     """The ring through SceneOptimizer.run with the LightGlue matcher at
     full width on the glue fixture, then the slice's matcher input through
-    the kernel and through the plain attention (swapped in here), timed on
-    the host clock (plain, kernel, kernel, plain). Returns (attention
-    launches during the run, stage seconds, forward seconds)."""
+    the kernel and through the plain attention (swapped in here): the
+    matches must agree on every decisive row. Returns the attention
+    launches during the run."""
     import torch
 
     from gtsfm_tpu_torch.frontend.matchers import fused_attention as fa
@@ -2679,7 +2518,7 @@ def phase_lightglue(pairs, R, t):
     kp_xy, kp_mask, descs = descriptor_feed(R, t, FOCAL, IMAGE_HW, GLUE_KEYPOINTS, dim=GLUE_DESC_DIM,
                                             desc_sigma=GLUE_SIGMA)
     matcher = LightGlueMatcher(LightGlueOptions(), state_dict=glue_fixture(0))
-    launches, sec, _metrics = _ring_slice("lightglue", kp_xy, kp_mask, descs, pairs, R, t, matcher=matcher)
+    launches, _metrics = _ring_slice("lightglue", kp_xy, kp_mask, descs, pairs, R, t, matcher=matcher)
     if launches["attention"] <= 0:
         raise AssertionError("the LightGlue slice never launched the attention kernel")
     if launches["matcher"] != 0:
@@ -2690,21 +2529,14 @@ def phase_lightglue(pairs, R, t):
     i2 = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=dev)
     d, xy, m = (torch.as_tensor(a, device=dev) for a in (descs, kp_xy, kp_mask))
     args = (d[i1], d[i2], xy[i1], xy[i2], m[i1], m[i2], (IMAGE_HW[1], IMAGE_HW[0]))
-    z, fwd_sec = {}, {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        restore = _plain_attention(fa) if which == "plain" else (lambda: None)
-        try:
-            torch.cuda.synchronize()
-            before = fa.launch_count
-            t0 = time.perf_counter()
-            z[which] = matcher.log_assignment(*args)
-            torch.cuda.synchronize()
-            fwd_sec[which].append(time.perf_counter() - t0)
-            per_forward = fa.launch_count - before if which == "kernel" else None
-        finally:
-            restore()
-        if which == "kernel":
-            fwd_launches = per_forward
+    before = fa.launch_count
+    z = {"kernel": matcher.log_assignment(*args)}
+    fwd_launches = fa.launch_count - before
+    restore = _plain_attention(fa)
+    try:
+        z["plain"] = matcher.log_assignment(*args)
+    finally:
+        restore()
     m0, m1 = args[4], args[5]
     idx = {w: matcher._postprocess(z[w], m0, m1)[0] for w in z}
     decisive = glue_decisive(z["plain"], m0, m1, matcher.options.match_threshold)
@@ -2715,13 +2547,12 @@ def phase_lightglue(pairs, R, t):
     n_match = int((idx["kernel"] >= 0).sum())
     print(f"lightglue check: log-assignment max |kernel - plain| {zerr:.4g}; {int(decisive.sum())} "
           f"decisive rows (gap {GLUE_GAP}), {bad} differ; {n_match} matches through the kernel, "
-          f"{int((idx['plain'] >= 0).sum())} through the plain attention | forward s (96 pairs, host "
-          f"clock) kernel {fwd_sec['kernel']}, plain {fwd_sec['plain']}; {fwd_launches} attention launches "
+          f"{int((idx['plain'] >= 0).sum())} through the plain attention; {fwd_launches} attention launches "
           f"per forward", flush=True)
     if bad or int(decisive.sum()) == 0:
         raise AssertionError(f"LightGlue matches through the kernel differ from the plain attention's "
                              f"on {bad} of {int(decisive.sum())} decisive rows")
-    return launches["attention"], sec, {w: float(np.median(v)) for w, v in fwd_sec.items()}
+    return launches["attention"]
 
 
 def _synthetic_run(name, n, pairs, points, options):
@@ -3363,13 +3194,6 @@ def phase_runner_outputs(smi: str, data_dir: str, runner_cold_total: float) -> d
         prewarmed.append(warm(**kw))
         return prewarmed[-1]
 
-    forwards = [0]
-    log_assignment = lightglue.LightGlueMatcher.log_assignment
-
-    def counted(self, *args, **kwargs):
-        forwards[0] += 1
-        return log_assignment(self, *args, **kwargs)
-
     out = {"matcher": 0, "attention": 0, "composite": 0}
     bars = (RUNNER_REF_REGISTERED - RUNNER_REGISTERED_SLACK, RUNNER_REF_AUC5 - RUNNER_AUC5_SLACK)
     with tempfile.TemporaryDirectory() as work:
@@ -3379,7 +3203,7 @@ def phase_runner_outputs(smi: str, data_dir: str, runner_cold_total: float) -> d
         argv_a = base + ["--use_cache", "--cache_root", os.path.join(work, "cache"), "--load_chunk_size",
                          str(OUTPUTS_CHUNK), "--prewarm", "--compare_to", gt_dir]
         SceneOptimizer.run, prewarm.prewarm_standard_shapes = capture_run, capture_prewarm
-        lightglue.LightGlueMatcher.log_assignment = counted
+        calls, uncount = _count_calls([(lightglue.LightGlueMatcher, "log_assignment", "forwards")])
         try:
             res = {}
             for tag, argv in (("A", argv_a), ("B", argv_a)):
@@ -3445,9 +3269,9 @@ def phase_runner_outputs(smi: str, data_dir: str, runner_cold_total: float) -> d
             argv_d = ["--config_name", "deep_front_end", "--loader", "olsson", "--dataset_dirpath", data_dir] + \
                 deep_overrides("deep_front_end", weights) + ["--use_cache", "--cache_root", os.path.join(work, "deep")]
             for tag in ("D", "E"):
-                forwards[0] = 0
+                calls.clear()
                 res[tag] = _runner_once(f"runner_outputs {tag}", argv_d, os.path.join(work, tag))
-                res[tag]["forwards"] = forwards[0]
+                res[tag]["forwards"] = calls.get("forwards", 0)
                 _print_run(f"runner_outputs {tag}", res[tag], None, smi)
             identical = _same_scene(scenes[-2][1], scenes[-1][1])
             attn = {t: res[t]["launches"]["attention"] for t in ("D", "E")}
@@ -3458,7 +3282,7 @@ def phase_runner_outputs(smi: str, data_dir: str, runner_cold_total: float) -> d
                 raise AssertionError("runner_outputs: the deep_front_end replay differs or ran LightGlue")
         finally:
             SceneOptimizer.run, prewarm.prewarm_standard_shapes = run, warm
-            lightglue.LightGlueMatcher.log_assignment = log_assignment
+            uncount()
 
         page = dashboard.save_comparison_dashboard({"runner": os.path.join(work, "A")},
                                                    {"runner": os.path.join(work, "B")},
@@ -3817,8 +3641,9 @@ def _runner_once(tag: str, argv: list, out: str) -> dict:
             "matches_per_pair": metrics["frontend_summary"]["num_matches_per_pair"].dist.astype(int).tolist()}
 
 
-def _print_run(tag: str, res: dict, bars, smi: str) -> None:
-    """Print a _runner_once result; with ``bars`` (registered, AUC@5) hold
+def _print_run(tag: str, res: dict, bars, smi) -> None:
+    """Print a _runner_once result; with ``smi`` also its stage seconds and
+    the card's state beside them; with ``bars`` (registered, AUC@5) hold
     the run to them."""
     kps = res["metrics"]["frontend_summary"]["num_keypoints_per_image"].dist
     bar = f" (bars {bars[0]}, {bars[1]:.4f})" if bars else ""
@@ -3827,8 +3652,9 @@ def _print_run(tag: str, res: dict, bars, smi: str) -> None:
           f"{res['pairs']} pairs ({res['valid']} valid), keypoints per image median "
           f"{float(np.median(kps)):.0f} min {int(np.min(kps))} max {int(np.max(kps))}, launches {res['launches']}, "
           f"DoG-SIFT calls by device {res['detector']}, peak device memory {res['peak_gib']:.2f} GiB", flush=True)
-    print(f"{tag} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in res["sec"].items())
-          + f" main {res['wall']:.3f} | {smi}", flush=True)
+    if smi:
+        print(f"{tag} seconds: " + " ".join(f"{k} {v:.3f}" for k, v in res["sec"].items())
+              + f" main {res['wall']:.3f} | {smi}", flush=True)
     if bars and (res["registered"] < bars[0] or res["auc5"] < bars[1]):
         raise AssertionError(f"{tag}: registered {res['registered']} (bar {bars[0]}), AUC@5 {res['auc5']:.4f} "
                              f"(bar {bars[1]:.4f})")
@@ -3913,6 +3739,31 @@ def _capture(module, names: tuple, store: dict):
             setattr(module, n, fn)
 
     return restore
+
+
+def _count_calls(wraps: list) -> tuple:
+    """Wrap each (owner, attribute, name) so that its calls are counted
+    under ``name`` (a string, or a function of the call's arguments), with
+    no clock and no synchronization. Returns (counts, the function that
+    puts the originals back)."""
+    counts, saved = {}, []
+
+    def wrap(fn, name):
+        def counted(*args, **kwargs):
+            key = name(args, kwargs) if callable(name) else name
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for owner, attr, name in wraps:
+        saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, wrap(saved[-1][2], name))
+
+    def restore():
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+    return counts, restore
 
 
 def keypoints_agree(xy_a, m_a, d_a, xy_b, m_b, d_b, tol: float = 0.05) -> tuple:
@@ -4093,7 +3944,7 @@ def _attention_at_runner_shape(captured: dict, heads: int) -> dict:
     return out
 
 
-def phase_deep_front_end(smi: str, data_dir: str) -> dict:
+def phase_deep_front_end(data_dir: str) -> dict:
     """The deep front end through the entry point on `cuda`:
     ``gtsfm_tpu_torch.runner.main`` with ``deep_front_end`` (SuperPoint at
     K=2048 on the 480x640 views, LightGlue at full width, NetVLAD, the
@@ -4127,19 +3978,12 @@ def phase_deep_front_end(smi: str, data_dir: str) -> dict:
         print(f"deep_front_end weights: sums of squares {sumsq}", flush=True)
         argv = ["--config_name", "deep_front_end", "--loader", "olsson", "--dataset_dirpath", data_dir] + \
             deep_overrides("deep_front_end", weights)
-        forwards = [0]
-        orig = lightglue.LightGlueMatcher.log_assignment
-
-        def counted(self, *args, **kwargs):
-            forwards[0] += 1
-            return orig(self, *args, **kwargs)
-
         captured = {}
         results = {}
-        lightglue.LightGlueMatcher.log_assignment = counted
+        calls, uncount = _count_calls([(lightglue.LightGlueMatcher, "log_assignment", "forwards")])
         try:
             for run, seed in [("cold", DEEP_SEEDS[0])] + [(f"seed {s}", s) for s in DEEP_SEEDS[1:]]:
-                forwards[0] = 0
+                calls.clear()
                 restore = _capture(fa, ("fused_attention_merged", "fused_cross_attention_merged"),
                                    captured) if run == "cold" else (lambda: None)
                 try:
@@ -4147,19 +3991,19 @@ def phase_deep_front_end(smi: str, data_dir: str) -> dict:
                                        os.path.join(work, run.replace(" ", "")))
                 finally:
                     restore()
-                res["forwards"] = forwards[0]
-                _print_run(f"deep_front_end {run}", res, None, smi)
-                print(f"deep_front_end {run}: {forwards[0]} LightGlue forwards, {res['launches']['attention']} "
+                res["forwards"] = forwards = calls.get("forwards", 0)
+                _print_run(f"deep_front_end {run}", res, None, None)
+                print(f"deep_front_end {run}: {forwards} LightGlue forwards, {res['launches']['attention']} "
                       f"attention launches ({GLUE_LAUNCHES_PER_FORWARD} a forward required)", flush=True)
-                if forwards[0] < -(-res["pairs"] // 256) or \
-                        res["launches"]["attention"] != GLUE_LAUNCHES_PER_FORWARD * forwards[0]:
+                if forwards < -(-res["pairs"] // 256) or \
+                        res["launches"]["attention"] != GLUE_LAUNCHES_PER_FORWARD * forwards:
                     raise AssertionError(f"deep_front_end {run}: {res['launches']['attention']} attention launches "
-                                         f"for {forwards[0]} forwards over {res['pairs']} pairs")
+                                         f"for {forwards} forwards over {res['pairs']} pairs")
                 if res["launches"]["matcher"] != 0:
                     raise AssertionError(f"deep_front_end {run}: the mutual-NN kernel ran")
                 results[run] = res
         finally:
-            lightglue.LightGlueMatcher.log_assignment = orig
+            uncount()
         held = _hold_to_reference("deep_front_end", [results["cold"]] + [results[f"seed {s}"] for s in DEEP_SEEDS[1:]],
                                   deep_reference("deep_front_end"))
         attn = _attention_at_runner_shape(captured, LIGHTGLUE_HEADS)
@@ -4217,7 +4061,6 @@ def phase_megaloc_sift(smi: str, data_dir: str) -> dict:
 
     from gtsfm_tpu_torch.frontend import registry, two_view
     from gtsfm_tpu_torch.frontend.matchers import fused_matcher
-    from gtsfm_tpu_torch.frontend.matchers.mutual_nn import match_descriptors
     from gtsfm_tpu_torch.loader.olsson import OlssonLoader
     from gtsfm_tpu_torch.utils.numerics import precise
 
@@ -4246,17 +4089,8 @@ def phase_megaloc_sift(smi: str, data_dir: str) -> dict:
         del captured
         n = min(MATCHER_SUBSET, a.shape[0])
         sa, sb, sma, smb = (x[:n].contiguous() for x in (a, b, ma, mb))
-        with precise():
-            got = fused_matcher.fused_match_descriptors(sa, sb, sma, smb)
-            want = match_descriptors(sa, sb, sma, smb)
-            err, n_dec, bad = kernel_agrees(got, want, sa, sb, sma, smb)
         name = f"P{n}_K{a.shape[1]}_D{a.shape[2]}"
-        print(f"kernel check {name} (the megaloc_sift run's first chunk): max|best| err {err:.3g}, {n_dec} decisive "
-              f"rows agree, {int(got[1].sum())} matches", flush=True)
-        if err > KERNEL_TOL_BEST or bad or n_dec == 0:
-            raise AssertionError(f"kernel disagrees on {name}: max|best| err {err:.3g}, {bad}/{n_dec} decisive "
-                                 f"rows differ")
-        del got, want
+        err = _hold_matcher(f"{name} (the megaloc_sift run's first chunk)", sa, sb, sma, smb)
         torch.cuda.empty_cache()
         ms, bound = _time_matcher(name, sa, sb, sma, smb)
         with precise():
@@ -4300,40 +4134,6 @@ def phase_deep_components(data_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class _StageTimer:
-    """Wraps functions and methods so that each call adds its host-clock
-    seconds, between two device synchronizations, to a named stage
-    (``name`` a string, or a function of the call's arguments)."""
-
-    def __init__(self):
-        self.sec, self.calls, self.each, self._saved = {}, {}, {}, []
-
-    def wrap(self, owner, attr: str, name):
-        import torch
-
-        fn = getattr(owner, attr)
-
-        def timed(*args, **kwargs):
-            key = name(args, kwargs) if callable(name) else name
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            sec = time.perf_counter() - t0
-            self.sec[key] = self.sec.get(key, 0.0) + sec
-            self.calls[key] = self.calls.get(key, 0) + 1
-            self.each.setdefault(key, []).append(sec)
-            return out
-
-        setattr(owner, attr, timed)
-        self._saved.append((owner, attr, fn))
-
-    def restore(self):
-        for owner, attr, fn in reversed(self._saved):
-            setattr(owner, attr, fn)
-        self._saved.clear()
-
-
 def _ff_slot_argv(slot: str, data_dir: str, gs_steps=None, extra=()) -> list:
     """The runner's arguments for a slot; anysplat with ``gs_steps`` runs
     the trainer (--run_gs) for that many steps."""
@@ -4357,14 +4157,14 @@ def _ff_load_weights(slot: str) -> None:
                       convert.feedforward_state_dict(feedforward_fixture(FF_SEED, SPLAT_HW, stride)), "cuda")
 
 
-def _ff_run(tag: str, argv: list, out: str, timer: _StageTimer = None) -> dict:
+def _ff_run(tag: str, argv: list, out: str) -> dict:
     """``gtsfm_tpu_torch.runner.main(argv + --output_root out)`` in this
     process for a feed-forward slot, every launch count set to 0 just
     before and read just after, the compact forward's outputs (the last
     ``FeedforwardReconstruction.run``) and the slot's metrics (the last
-    ``ClusterFeedforward.run_raw``) kept, the peak device memory. Requires
-    exit code 0, every camera registered, finite poses and no matcher or
-    attention launch (the slot bypasses the front end)."""
+    ``ClusterFeedforward.run_raw``) kept. Requires exit code 0, every
+    camera registered, finite poses and no matcher or attention launch
+    (the slot bypasses the front end)."""
     import os
 
     import torch
@@ -4381,11 +4181,8 @@ def _ff_run(tag: str, argv: list, out: str, timer: _StageTimer = None) -> dict:
     run, run_raw = ff.FeedforwardReconstruction.run, cf.ClusterFeedforward.run_raw
 
     def fwd(self, images):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         o = run(self, images)
-        torch.cuda.synchronize()
-        seen["forward"], seen["forward_sec"] = (o, self.last_track_feat), time.perf_counter() - t0
+        seen["forward"] = (o, self.last_track_feat)
         return o
 
     def raw(self, *args):
@@ -4394,18 +4191,12 @@ def _ff_run(tag: str, argv: list, out: str, timer: _StageTimer = None) -> dict:
         return o
 
     fused_matcher.launch_count = fused_attention.launch_count = rendering.launch_count = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ff.FeedforwardReconstruction.run, cf.ClusterFeedforward.run_raw = fwd, raw
-    t0 = time.perf_counter()
     try:
         rc = runner.main(argv + ["--output_root", out])
         torch.cuda.synchronize()
     finally:
         ff.FeedforwardReconstruction.run, cf.ClusterFeedforward.run_raw = run, run_raw
-        if timer is not None:
-            timer.restore()
-    wall = time.perf_counter() - t0
     launches = {"matcher": fused_matcher.launch_count, "attention": fused_attention.launch_count,
                 "composite": rendering.launch_count}
     mdir = os.path.join(out, "results", "metrics")
@@ -4415,20 +4206,15 @@ def _ff_run(tag: str, argv: list, out: str, timer: _StageTimer = None) -> dict:
     if "--max_frames" in argv:
         n_views = min(n_views, int(argv[argv.index("--max_frames") + 1]))
     pose = metrics.get("ba_pose_metrics", {})
-    res = {"rc": rc, "wall": wall, "launches": launches, "metrics": metrics, "peak_gib":
-           torch.cuda.max_memory_allocated() / 2**30, "registered": len(pose.get("rotation_error_deg", [])),
+    res = {"rc": rc, "launches": launches, "metrics": metrics, "registered": len(pose.get("rotation_error_deg", [])),
            "auc5": float(pose.get("pose_auc_@5.0_deg", 0.0)), "views": n_views,
            "num_tracks_ff": int(metrics["feedforward_metrics"]["num_tracks_ff"]),
-           "post_ba": seen["metrics"].get("post_ba"), "forward": seen.get("forward"),
-           "forward_sec": seen.get("forward_sec")}
+           "post_ba": seen["metrics"].get("post_ba"), "forward": seen.get("forward")}
     back = colmap.read_scene(os.path.join(out, "results", "ba_output"))
     print(f"{tag}: {res['registered']}/{n_views} registered, pose AUC@5 {res['auc5']:.4f}, "
           f"{res['num_tracks_ff']} feed-forward tracks, {back.number_tracks()} exported, post-BA cost "
           + (f"{res['post_ba']['initial_cost']:.6g} -> {res['post_ba']['final_cost']:.6g}" if res["post_ba"] else "-")
-          + f", launches {launches}, peak device memory {res['peak_gib']:.3f} GiB; seconds: feedforward_sec "
-          f"{metrics['feedforward_metrics']['feedforward_sec']:.3f} (compact forward "
-          + (f"{res['forward_sec']:.3f}" if res["forward_sec"] is not None else "-")
-          + f") total_runtime_sec {metrics['total_summary']['total_runtime_sec']:.3f} main {wall:.3f}", flush=True)
+          + f", launches {launches}", flush=True)
     if rc != 0 or res["registered"] != n_views or not bool(torch.isfinite(back.poses.t).all()):
         raise AssertionError(f"{tag}: exit code {rc}, {res['registered']}/{n_views} registered, finite poses "
                              f"{bool(torch.isfinite(back.poses.t).all())}")
@@ -4488,65 +4274,33 @@ def _hold_ff_run(tag: str, res: dict, ref: dict) -> dict:
     return dist
 
 
-def phase_feedforward(smi: str, runner_dir: str, R, t, work: str) -> dict:
+def phase_feedforward(R, t, work: str) -> dict:
     """The runner with the vggt, fastvggt and anysplat --run_gs configs on
-    the card with the seeded compact model: first on FF_VIEWS numpy-made
-    views held to the JAX package's runs (_hold_ff_run), then on the runner
-    phase's 32 rendered views, timed (anysplat's trainer at
-    FF_TIMED_GS_STEPS).
-    Returns the compositing launches of the anysplat runs and the largest
+    the card with the seeded compact model on FF_VIEWS numpy-made views,
+    held to the JAX package's runs (_hold_ff_run); anysplat's trainer must
+    launch the compositing kernel at each of its FF_GS_STEPS steps.
+    Returns the compositing launches of the anysplat run and the largest
     distances."""
     import os
+
+    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
 
     order = ring_order(t)[:FF_VIEWS]
     ff_dir = os.path.join(work, "feedforward_data")
     write_olsson(ff_dir, feedforward_views(R, t, order), np.asarray(R)[order], np.asarray(t)[order], SPLAT_FOCAL)
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), FEEDFORWARD_REFERENCE)) as f:
         refs = {r["slot"]: r for r in json.load(f)["runs"]}
-    out = {"composite": 0, "dist": {}, "runs": {}}
+    out = {"composite": 0, "dist": {}}
     for slot in ("vggt", "fastvggt", "anysplat"):
         _ff_load_weights(slot)
         res = _ff_run(f"feedforward {slot} ({FF_VIEWS} views)", _ff_slot_argv(slot, ff_dir, FF_GS_STEPS),
                       os.path.join(work, f"ff_{slot}"))
         out["dist"][slot] = _hold_ff_run(f"feedforward {slot}", res, refs[slot])
         out["composite"] += res["launches"]["composite"]
-    for slot in ("vggt", "fastvggt", "anysplat"):
-        _ff_load_weights(slot)
-        res = _ff_run(f"feedforward {slot} (32 rendered views)", _ff_slot_argv(slot, runner_dir, FF_TIMED_GS_STEPS),
-                      os.path.join(work, f"ff32_{slot}"))
-        print(f"feedforward {slot} (32 rendered views) | {smi}", flush=True)
-        out["runs"][slot] = {k: res[k] for k in ("wall", "peak_gib", "forward_sec", "launches")}
-        if slot == "anysplat":
-            gs = res["metrics"]["gaussian_splatting_metrics"]
-            if res["launches"]["composite"] < FF_TIMED_GS_STEPS or not gs["final_l1"] < gs["initial_l1"]:
-                raise AssertionError(f"feedforward anysplat: {res['launches']} launches, trainer {gs}")
-            out["composite"] += res["launches"]["composite"]
-    from gtsfm_tpu_torch.scene import cluster_feedforward as cf
-
+    if out["composite"] < FF_GS_STEPS:
+        raise AssertionError(f"feedforward anysplat: {out['composite']} compositing launches in {FF_GS_STEPS} steps")
     cf._MODEL_CACHE.clear()
     return out
-
-
-def _vggt_stage_timer() -> _StageTimer:
-    """A _StageTimer on VGGT's stages: each aggregator pass, the camera
-    head, the DPT heads by activation (depth, the gaussian head's raw
-    output, the track head's features), the tracker, the gaussians'
-    assembly, post-BA, and every attention (the DINO pass's and VGGT's)."""
-    from gtsfm_tpu_torch.bundle.ba import BundleAdjustment
-    from gtsfm_tpu_torch.frontend import anysplat, vggt, vggt_track
-    from gtsfm_tpu_torch.frontend.global_descriptors import megaloc
-
-    timer = _StageTimer()
-    timer.wrap(vggt.Aggregator, "forward", "aggregator")
-    timer.wrap(vggt.CameraHead, "forward", "camera_head")
-    names = {"exp": "depth_head", "raw": "gaussian_head", "features": "track_features"}
-    timer.wrap(vggt.DPTHead, "forward", lambda a, k: names[k.get("activation", "exp")])
-    timer.wrap(vggt_track.Tracker, "forward", "tracker")
-    timer.wrap(anysplat.AnySplatModel, "_assemble_gaussians", "gaussian_assembly")
-    timer.wrap(BundleAdjustment, "run", "post_ba")
-    timer.wrap(vggt, "attention", "attention")
-    timer.wrap(megaloc, "attention", "attention")
-    return timer
 
 
 def _hold_vggt_check(R, t) -> dict:
@@ -4595,7 +4349,7 @@ def _hold_vggt_check(R, t) -> dict:
     return dist
 
 
-def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
+def phase_vggt_full(runner_dir: str, R, t, work: str) -> dict:
     """VGGT at the public VGGT-1B widths: the depth-cut check
     (_hold_vggt_check), then the full model's seeded weights
     (write_vggt_weights, the public layout, about 5 GB) and the runner
@@ -4605,18 +4359,18 @@ def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
     (VGGT's forward, the track head, post-BA on its tracks) and the
     AnySplat head in one run (the vggt slot's own VGGT-1B run is cut for
     the script's time; it runs with the compact model in the feedforward
-    phase), its stages timed (_vggt_stage_timer: the aggregator passes,
-    the heads, the tracker, post-BA, the attention's share of the
-    aggregator), peak memory, registered cameras and tracks; the run must
-    finish with finite poses, every camera registered, and every one of
-    those stages run, post-BA included."""
+    phase); the run must finish with finite poses, every camera
+    registered, and each of the aggregator, the tracker, the track
+    features, the gaussian head and post-BA run (_count_calls)."""
     import os
 
     import torch
 
+    from gtsfm_tpu_torch.bundle.ba import BundleAdjustment
+    from gtsfm_tpu_torch.frontend import vggt, vggt_track
     from gtsfm_tpu_torch.scene import cluster_feedforward as cf
 
-    out = {"check": _hold_vggt_check(R, t), "runs": {}}
+    out = {"check": _hold_vggt_check(R, t)}
     path = os.path.join(work, "vggt1b.pt")
     t0 = time.perf_counter()
     sumsq = write_vggt_weights(path, VGGT_SEED)
@@ -4626,22 +4380,21 @@ def phase_vggt_full(smi: str, runner_dir: str, R, t, work: str) -> dict:
     extra = ["--max_frames", str(VGGT_FULL_FRAMES), "scene_optimizer.feedforward_backbone=vggt_exact",
              f"scene_optimizer.vggt_weights_path={path}", "scene_optimizer.feedforward_post_ba=true"]
     cf._MODEL_CACHE.clear()
-    timer = _vggt_stage_timer()
-    res = _ff_run(f"vggt_full anysplat (VGGT-1B, {VGGT_FULL_FRAMES} rendered views)",
-                  _ff_slot_argv("anysplat", runner_dir, extra=extra), os.path.join(work, "vggt_anysplat"), timer)
-    agg = timer.sec.get("aggregator", 0.0)
-    share = timer.sec.get("attention", 0.0) / agg if agg else float("nan")
-    print("vggt_full anysplat stages (s, calls): " + ", ".join(
-        f"{k} {v:.3f} ({timer.calls[k]})" for k, v in sorted(timer.sec.items()))
-        + f"; each aggregator pass {[round(x, 3) for x in timer.each.get('aggregator', [])]}; attention share "
-        f"of the aggregator passes {share:.4f}; peak device memory {res['peak_gib']:.3f} GiB | {smi}", flush=True)
-    missing = [k for k in ("aggregator", "tracker", "track_features", "gaussian_head", "post_ba")
-               if not timer.calls.get(k)]
+    heads = {"exp": "depth_head", "raw": "gaussian_head", "features": "track_features"}
+    calls, restore = _count_calls([(vggt.Aggregator, "forward", "aggregator"),
+                                   (vggt.DPTHead, "forward", lambda a, k: heads[k.get("activation", "exp")]),
+                                   (vggt_track.Tracker, "forward", "tracker"),
+                                   (BundleAdjustment, "run", "post_ba")])
+    try:
+        _ff_run(f"vggt_full anysplat (VGGT-1B, {VGGT_FULL_FRAMES} rendered views)",
+                _ff_slot_argv("anysplat", runner_dir, extra=extra), os.path.join(work, "vggt_anysplat"))
+    finally:
+        restore()
+    print(f"vggt_full anysplat calls: {dict(sorted(calls.items()))}", flush=True)
+    missing = [k for k in ("aggregator", "tracker", "track_features", "gaussian_head", "post_ba") if not calls.get(k)]
     if missing:
         raise AssertionError(f"vggt_full anysplat: stages {missing} never ran")
-    out["runs"]["anysplat"] = {"stages": dict(timer.sec), "calls": dict(timer.calls), "attention_share": share,
-                               "aggregator_passes": timer.each.get("aggregator", []), "peak_gib": res["peak_gib"],
-                               "wall": res["wall"]}
+    out["calls"] = calls
     cf._MODEL_CACHE.clear()
     os.remove(path)
     torch.cuda.empty_cache()
@@ -5158,17 +4911,7 @@ def main() -> int:
     attn_err, attn_ms, attn_bound = timed("attention", phase_attention)
     comp_err, comp_ms, comp_bound = timed("composite", phase_composite, R, t)
     slice_launches, slice_comp_launches = timed("slice", phase_slice, kp_xy, kp_mask, descs, pairs, R, t)
-    attn_launches, _sec, fwd = timed("lightglue", phase_lightglue, pairs, R, t)
-    # the forward's 36 launches: per layer two self entries and one cross
-    # entry (two launches), each at the timed P96_K2048 shape
-    from gtsfm_tpu_torch.frontend.matchers.lightglue import LightGlueOptions
-
-    layers = LightGlueOptions().num_layers
-    attn_fwd_ms = layers * (2 * attn_ms["fused_attention_merged"]["kernel"]
-                            + attn_ms["fused_cross_attention_merged"]["kernel"])
-    print(f"lightglue forward: {fwd['kernel'] * 1e3:.3f} ms warm (host clock), of which the attention kernel "
-          f"{attn_fwd_ms:.3f} ms ({layers} layers x (2 self + 1 cross entry) at the timed medians), "
-          f"{attn_fwd_ms / (fwd['kernel'] * 1e3):.3f} of the forward", flush=True)
+    attn_launches = timed("lightglue", phase_lightglue, pairs, R, t)
     timed("gate", phase_gate)
     timed("hierarchical", phase_hierarchical, smi)
     timed("ba_layouts", phase_ba_layouts, smi)
@@ -5178,11 +4921,11 @@ def main() -> int:
         options_launches = timed("runner_options", phase_runner_options, smi, runner_dir, runner_views)
         colmap_launches = timed("colmap_runner", phase_colmap_runner, smi, R, t)
         comp_launches = timed("splat", phase_splat, R, t)
-        deep = timed("deep_front_end", phase_deep_front_end, smi, runner_dir)
+        deep = timed("deep_front_end", phase_deep_front_end, runner_dir)
         megaloc = timed("megaloc_sift", phase_megaloc_sift, smi, runner_dir)
         timed("deep_components", phase_deep_components, runner_dir)
-        ff = timed("feedforward", phase_feedforward, smi, runner_dir, R, t, work)
-        timed("vggt_full", phase_vggt_full, smi, runner_dir, R, t, work)
+        ff = timed("feedforward", phase_feedforward, R, t, work)
+        timed("vggt_full", phase_vggt_full, runner_dir, R, t, work)
         timed("mvs", phase_mvs, smi, R, t, work)
         mvs_launches = timed("mvs_runner", phase_mvs_runner, smi, runner_dir, work)["launches"]
         timed("bal", phase_bal, smi, work)

@@ -41,7 +41,8 @@ Attention shapes cover what the kernel takes beyond LightGlue's
 (96, 2048, 4 heads of 64): ragged K0 != K1, one pair, narrow (16, 32) and
 wide (128) head dims, a fully masked key set, and the tiling's edges (one
 key, one past a 128-key tile, one query, one past the 128-row block, two
-pairs at K = 2048), through all four entries. Tolerance: chip_smoke's
+pairs at K = 2048, 1000 keys on both sides, 1000 over 384), through all
+four entries. Tolerance: chip_smoke's
 ``attention_agrees`` (ATTN_TOL_V * max|v| + ATTN_TOL_OUT * |want|, the two
 bf16 roundings the kernel and the plain version place differently).
 
@@ -220,6 +221,10 @@ ATTN_SHAPES = {
     "queries1": (2, 1, 300, 4, 64),
     "queries129": (2, 129, 256, 4, 64),
     "p2_k2048": (2, 2048, 2048, 4, 64),
+    # a partial last query block and key tile on both sides, and one side
+    # in whole key tiles
+    "k1000": (4, 1000, 1000, 4, 64),
+    "k0_1000_k1_384": (4, 1000, 384, 4, 64),
 }
 ATTN_ENTRIES = ["fused_attention", "fused_attention_merged", "fused_cross_attention",
                 "fused_cross_attention_merged"]
